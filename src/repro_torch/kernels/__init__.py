@@ -1,0 +1,3 @@
+"""The port's kernels: CUDA C++ sources in `repro_torch/csrc/`, their
+ctypes wrappers (`lif_step`, `route.route_lif`), their plain PyTorch
+versions (`ref`), and the torch-op routing around them (`route`)."""

@@ -1,0 +1,98 @@
+"""The port stands alone: `repro_torch` imports neither jax nor anything
+of the JAX package `repro`, its entry points run on the card unless the
+caller asks for the CPU, and `chip_smoke.py` refuses to report without
+a card or without the repository beside it."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def port_modules():
+    for p in sorted(PKG.rglob("*.py")):
+        rel = p.relative_to(PKG.parent).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        yield p, ".".join(parts)
+
+
+def test_importing_every_module_loads_no_jax_and_no_repro():
+    names = [m for _, m in port_modules()]
+    code = ("import sys\n"
+            f"for m in {names!r}:\n"
+            "    __import__(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or "
+            "m.startswith('repro.'))\n"
+            "print(len(sys.modules), bad)\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert len(names) >= 15
+
+
+def test_no_source_imports_jax_or_repro():
+    for path, _ in port_modules():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            for m in mods:
+                top = m.split(".")[0]
+                assert top not in ("jax", "jaxlib", "repro"), \
+                    f"{path}:{node.lineno} imports {m}"
+
+
+def test_deploy_defaults_to_the_card():
+    from repro_torch import compile_spec, deploy, LIF_neuron, NetworkSpec
+    spec = NetworkSpec()
+    ax = spec.add_axons(1)
+    spec.add_neurons(1, LIF_neuron(threshold=5))
+    spec.connect(ax, [0], [7])
+    spec.set_outputs([0])
+    c = compile_spec(spec)
+    if torch.cuda.is_available():
+        assert deploy(c).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            deploy(c)
+    dep = deploy(c, device="cpu")
+    dep.step([0, 0])
+    assert dep.read_membrane([0]) == [14]
+
+
+def run_smoke(cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_chip_smoke_without_a_card_reports_nothing():
+    if torch.cuda.is_available():
+        return                      # the card run is the script's own job
+    out = run_smoke(ROOT)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = run_smoke(tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
