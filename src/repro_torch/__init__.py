@@ -1,20 +1,26 @@
-"""PyTorch/CUDA port of the HiAER-Spike event engine.
+"""PyTorch/CUDA port of the HiAER-Spike event engine and its dense
+simulator.
 
 The JAX package `repro` is the reference; this package runs the same
-main path — ``NetworkSpec -> compile_spec(target="engine") -> deploy ->
-run / run_batch / run_lanes`` — on an NVIDIA H100, with the two TPU
-kernels of that path (`lif_step` and the fused route+LIF step) written
-by hand in CUDA C++ (`csrc/`). It imports torch and numpy, never jax and
-nothing of `repro`.
+paths — ``NetworkSpec -> compile_spec(target="engine" | "simulator") ->
+deploy -> step / run / run_batch / run_lanes``, and the `CRI_network`
+facade over them — on an NVIDIA H100, with the three TPU kernels of
+those paths (`lif_step`, the fused route+LIF step and `spike_matmul`)
+written by hand in CUDA C++ (`csrc/`). It imports torch and numpy, never
+jax and nothing of `repro`.
 
-    from repro_torch import NetworkSpec, LIF_neuron, compile_spec, deploy
+    from repro_torch import CRI_network, NetworkSpec, compile_spec, deploy
     dep = deploy(compile_spec(spec))            # on the card
     dep = deploy(compile_spec(spec), device="cpu")   # plain versions
+    net = CRI_network.from_spec(spec, backend="simulator")
 """
+from repro_torch.core.api import CRI_network
 from repro_torch.core.compile import CompiledNetwork, compile_spec
 from repro_torch.core.deploy import Deployment, deploy
 from repro_torch.core.neuron import ANN_neuron, LIF_neuron
+from repro_torch.core.partition import Hierarchy
 from repro_torch.core.spec import NetworkSpec
 
-__all__ = ["ANN_neuron", "CompiledNetwork", "Deployment", "LIF_neuron",
-           "NetworkSpec", "compile_spec", "deploy"]
+__all__ = ["ANN_neuron", "CRI_network", "CompiledNetwork", "Deployment",
+           "Hierarchy", "LIF_neuron", "NetworkSpec", "compile_spec",
+           "deploy"]

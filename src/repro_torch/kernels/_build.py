@@ -38,6 +38,8 @@ _I64 = ctypes.c_int64
 SIGNATURES = {
     "lif_step": ("lif_step_launch", [_P] * 9 + [_I, _I, _P]),
     "route_lif": ("route_lif_launch", [_P] * 13 + [_I64, _I, _I, _I, _P]),
+    "spike_matmul": ("spike_matmul_launch",
+                     [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

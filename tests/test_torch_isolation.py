@@ -76,6 +76,32 @@ def test_deploy_defaults_to_the_card():
     assert dep.read_membrane([0]) == [14]
 
 
+def test_simulator_and_facade_default_to_the_card():
+    from repro_torch import CRI_network, LIF_neuron, NetworkSpec
+    from repro_torch import compile_spec, deploy
+    spec = NetworkSpec()
+    ax = spec.add_axons(1)
+    spec.add_neurons(1, LIF_neuron(threshold=50))
+    spec.connect(ax, [0], [7])
+    spec.set_outputs([0])
+    c = compile_spec(spec, target="simulator")
+    if torch.cuda.is_available():
+        assert deploy(c).device.type == "cuda"
+        assert CRI_network.from_spec(spec, backend="simulator") \
+            ._dep.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            deploy(c)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            CRI_network.from_spec(spec, backend="simulator")
+    dep = deploy(c, device="cpu")
+    dep.step([0, 0])
+    assert dep.read_membrane([0]) == [14]
+    net = CRI_network.from_spec(spec, backend="simulator", device="cpu")
+    net.step([0])
+    assert net.read_membrane(0) == [7]
+
+
 def run_smoke(cwd):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
