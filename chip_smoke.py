@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA card.
 
-    python3 chip_smoke.py            # one card, full width, ~5 minutes
+    python3 chip_smoke.py            # one card, full width, ~4 minutes
 
 Phases, in the order they run (the timing phase 6 runs last, so that it
-can time the shapes phases 7-9 give the kernels); any failure raises
-and the script exits non-zero:
+can time the shapes the other phases give the kernels); any failure
+raises and the script exits non-zero:
   1. setup: the card (nvidia-smi name and power limit), torch and CUDA
      versions, and the build of every CUDA kernel from src/repro_torch/
      csrc (one nvcc per source, all at once);
@@ -15,6 +15,12 @@ and the script exits non-zero:
   3. the fused route+LIF kernel against its plain version on the smoke
      network's own tables, with gates from real steps (B = 8); exact
      equality on V_next, spikes and the pointer/row reads;
+ 10. the `flash_attention` kernel against its plain version on the card,
+     fp32 within 2e-5 and bf16 within 2e-2: at the prefill shape (B = 1,
+     S = 4,096, 16 query heads, 2 KV heads, D = 128), a ragged S = 1,000
+     (B = 2), KV == H (the TPU kernel's contract), D = 256, S = 1 and
+     causal=False; then causality (keys and values after p perturbed,
+     outputs up to p unchanged bit for bit);
   4. the main path at full width — NetworkSpec -> compile_spec ->
      deploy(device=None) -> run_lanes x 3 windows, run, run_batch —
      once with fused=False and once with fused=True; the two agree bit
@@ -38,10 +44,23 @@ and the script exits non-zero:
      lif_step are > 0 on the simulator path;
   9. the card against the CPU port for the simulator, first window
      (B = 2, T = 4), bit for bit;
+ 11. the LM slice at Qwen2.5-3B's full widths cut to 2 layers, fp32, one
+     seed's weights on the card and on the CPU (TF32 off): `prefill` at
+     S = 512, last-token logits within 1e-3 and K/V caches within 1e-4;
+     the slot `Server` answering 4 requests (prompt 16, max_new 16) with
+     the same greedy tokens, but where the CPU's top-2 logit margin is
+     under 1e-3 (such near-ties are counted and reported);
+ 12. the full 36-layer Qwen2.5-3B (3.09 B parameters) on the card: the
+     `Server` in fp32, 4 slots, prompt 16, max_new 32, every request
+     answered; then the same weights in bf16 through `prefill` at B = 1,
+     S = 4,096: finite logits, a (36, 1, 4096, 2, 128) cache, and the
+     flash kernel launched once per layer (36);
   6. timing: each kernel's median time against its plain version and
      its bound (spike_matmul also at 16,384 x 16,384 int32, past the L2
-     cache), beside a time-only yardstick where one exists, and
-     run_lanes' time per step on both networks.
+     cache; flash_attention at the prefill shape in bf16 and fp32),
+     beside a library call or a time-only yardstick where one exists,
+     run_lanes' time per step on both networks, and the full LM's
+     prefill tokens/s and decode ms per tick.
 
 Two networks, weights from a numpy seed:
   * the engine's: one HiAER-Spike core at capacity, 125,000 neurons
@@ -52,6 +71,9 @@ Two networks, weights from a numpy seed:
     (benchmarks/table2_vision.py): 784 axons -> 2,000 -> 1,000 -> 10 ANN
     neurons, all-to-all between layers, 3,010 neurons and 3,578,000
     synapses.
+and one LM, configs/qwen2_5_3b.py (36 layers, d_model 2,048, 16 query
+and 2 KV heads of 128, d_ff 11,008, vocab 151,936), weights drawn from a
+torch generator seeded with --seed.
 
 The last line of standard output is the JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
@@ -76,6 +98,13 @@ MLP_AXONS, MLP_LAYERS = 784, (2000, 1000, 10)  # Table 2 "MLP 2k->1k->10"
 MLP_SCALE = (20000, 4000, 5000)   # weight half-range per layer
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 SCALAR_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+BF16_TC_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+LM_ARCH = "qwen2_5_3b"        # configs/qwen2_5_3b.py at its published widths
+LM_PREFILL = (1, 4096)        # prefill batch and length on the full model
+LM_SERVE = (4, 16, 32)        # Server slots, prompt length, max_new
+PARITY_SERVE = (4, 16, 16)    # the same on the 2-layer card-vs-CPU model
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+LM_TOL = 1e-3                 # 2-layer fp32 logits, card vs CPU
 
 
 def need(cond, what: str) -> None:
@@ -116,10 +145,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes: int, n_ops: int):
+def bound(n_bytes: int, n_ops: int, ops_per_s: float = SCALAR_OPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the memory rate
-    and operations over the scalar rate."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / SCALAR_OPS_PER_S
+    and operations over the peak rate for their type (the fp32 scalar
+    rate unless given)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), \
         "bytes" if t_bytes >= t_ops else "operations"
 
@@ -461,13 +491,34 @@ def run_main_path(compiled, fused: bool, seed: int, A: int, device=None):
     return dep, out, lane_s, lane_rows
 
 
-def phase_profile(compiled, fused: bool, seed: int, A: int, top: int = 12):
-    """Where one run_lanes window's time goes (B = 8, T = 16, after a
-    warm-up window): wall time, the device time summed over kernels
-    (busy share), kernel launches per step, and the kernels that take
-    the most device time."""
+def profile_window(tag: str, fn, steps: int, top: int = 12) -> None:
+    """Where one call's time goes: wall time, the device time summed over
+    kernels (busy share), device events per step, and the kernels that
+    take the most device time. `fn` ends in a host read or a sync."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels)
+    launches = sum(e.count for e in kernels)
+    log(f"{tag} {wall_us / 1e3:.3f} ms wall for {steps} step(s); device "
+        f"busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%); "
+        f"{launches} device events ({launches / steps:.1f}/step)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"{tag}   {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{100 * e.self_device_time_total / max(busy, 1):5.1f}% "
+            f"x{e.count:<5d} {e.key[:110]}")
+
+
+def phase_profile(compiled, fused: bool, seed: int, A: int):
+    """One run_lanes window (B = 8, T = 16) after a warm-up window."""
     from repro_torch import deploy
     rng = np.random.default_rng(seed + 3)
     dep = deploy(compiled, seed=seed, fused=fused)
@@ -475,25 +526,220 @@ def phase_profile(compiled, fused: bool, seed: int, A: int, top: int = 12):
     lanes = [0, 1, 2, 3, 4, 5, -1, -1]
     dep.run_lanes(lanes, drive(rng, 8, 16, A))
     sched = drive(rng, 8, 16, A)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    profile_window(f"[profile {compiled.target} N={compiled.n_neurons} "
+                   f"fused={fused}] window",
+                   lambda: dep.run_lanes(lanes, sched), 16)
+
+
+# ------------------------------------------------------------- the LM slice
+def flash_inputs(dev, gen, B, S, H, KV, D, dtype, layout="model"):
+    """q (B, H, S, D) and k, v (B, KV, S, D), N(0, 1) in `dtype`: views
+    of (B, S, heads, D) storage as the model passes them (layout
+    "model"), or dense (B, heads, S, D)."""
+    def mk(n):
+        if layout == "model":
+            return torch.randn((B, S, n, D), generator=gen, device=dev) \
+                .to(dtype).transpose(1, 2)
+        return torch.randn((B, n, S, D), generator=gen, device=dev).to(dtype)
+    return mk(H), mk(KV), mk(KV)
+
+
+def phase_flash_kernel(dev, seed: int) -> dict:
+    """The flash kernel against its plain version on the card, fp32 and
+    bf16, at the prefill shape, a ragged S, KV == H (the TPU kernel's
+    contract), D = 256 (Gemma's), S = 1 and causal=False; then causality.
+    Returns each case's max |error|."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    need(not torch.backends.cuda.matmul.allow_tf32,
+         "TF32 matmuls are on; the plain version must run in fp32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 13)
+    B, S = LM_PREFILL
+    cases = [  # name, (B, S, H, KV, D), layout, causal
+        ("prefill shape", (B, S, 16, 2, 128), "model", True),
+        ("ragged S", (2, 1000, 16, 2, 128), "model", True),
+        ("KV == H", (2, 512, 8, 8, 64), "heads", True),
+        ("D = 256", (1, 700, 16, 16, 256), "model", True),
+        ("S = 1", (3, 1, 4, 2, 64), "model", True),
+        ("causal=False", (1, 300, 4, 2, 128), "model", False),
+    ]
+    errs = {}
+    for name, shape, layout, causal in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(dev, gen, *shape, dtype, layout)
+            got = flash_attention(q, k, v, causal)
+            want = flash_attention_ref(q, k, v, causal)
+            torch.cuda.synchronize()
+            e = float((got.float() - want.float()).abs().max())
+            tag = f"{name} {tuple(shape)} {str(dtype)[6:]}"
+            need(got.dtype == dtype and got.shape == want.shape
+                 and bool(torch.isfinite(got).all())
+                 and e <= FLASH_TOL[dtype],
+                 f"flash_attention kernel != plain version on {tag} "
+                 f"(max |d| {e:.3g}, tolerance {FLASH_TOL[dtype]})")
+            errs[tag] = e
+            log(f"[flash_attention] kernel == plain on {tag} (B, S, H, KV, "
+                f"D), {layout} layout: max_abs_err {e:.3g} <= "
+                f"{FLASH_TOL[dtype]}")
+    q, k, v = flash_inputs(dev, gen, 2, 1000, 16, 2, 128, torch.float32)
+    p = 517
+    o1 = flash_attention(q, k, v)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, p + 1:] += 7.0
+    v2[:, :, p + 1:] -= 3.0
+    o2 = flash_attention(q, k2, v2)
+    need(torch.equal(o1[:, :, :p + 1], o2[:, :, :p + 1])
+         and not torch.equal(o1[:, :, p + 1:], o2[:, :, p + 1:]),
+         "flash_attention: outputs up to p moved with keys after p")
+    log(f"[flash_attention] causal: keys and values after position {p} "
+        f"perturbed, outputs 0..{p} unchanged bit for bit")
+    return errs
+
+
+def lm_config(n_layers=None):
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfg = get_arch(LM_ARCH)
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
+def prompts_for(cfg, n: int, length: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, cfg.vocab_size, length).tolist()
+            for _ in range(n)]
+
+
+def record_decisions(srv) -> list:
+    """Wrap the server's decode step so that each call appends every
+    slot's greedy token and its top-2 logit margin (host arrays)."""
+    calls, step, V = [], srv._decode, srv.cfg.vocab_size
+
+    def recorded(params, tok, cache, pos):
+        lg, cache = step(params, tok, cache, pos)
+        top = lg[:, :V].topk(2, dim=1).values
+        calls.append((lg[:, :V].argmax(dim=1).cpu().numpy(),
+                      (top[:, 0] - top[:, 1]).cpu().numpy()))
+        return lg, cache
+    srv._decode = recorded
+    return calls
+
+
+def serve(srv, prompts, max_new: int):
+    """Admit each prompt, then tick max_new times. Returns the admitted
+    slots, the slots active at each tick, and each tick's host ms (a
+    tick ends in the device-to-host read of the greedy tokens)."""
+    slots = [srv.admit(p) for p in prompts]
+    active, tick_ms = [], []
+    for _ in range(max_new):
+        active.append(np.nonzero(srv.active)[0].tolist())
         t0 = time.perf_counter()
-        dep.run_lanes(lanes, sched)
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels)
-    launches = sum(e.count for e in kernels)
-    tag = f"[profile {compiled.target} N={compiled.n_neurons} " \
-        f"fused={fused}]"
-    log(f"{tag} window {wall_us / 1e3:.3f} ms wall for 16 steps; device "
-        f"busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%); "
-        f"{launches} device events ({launches / 16:.1f}/step)")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
-        log(f"{tag}   {e.self_device_time_total / 1e3:9.3f} ms "
-            f"{100 * e.self_device_time_total / max(busy, 1):5.1f}% "
-            f"x{e.count:<5d} {e.key[:110]}")
+        srv.tick()
+        tick_ms.append(1e3 * (time.perf_counter() - t0))
+    return slots, active, tick_ms
+
+
+def greedy_agreement(card_calls, cpu_calls, prompts, slots, active):
+    """Walk each slot's greedy decisions (its admit's last decode call,
+    then one per tick) on both servers. A stream may part only where the
+    CPU's top-2 margin is under LM_TOL (a near-tie); it is not compared
+    after that. Returns (decisions compared, near-ties)."""
+    ends = np.cumsum([len(p) for p in prompts]) - 1
+    per_slot = {s: [int(ends[i])] for i, s in enumerate(slots)}
+    for j, act in enumerate(active):
+        for s in act:
+            per_slot[s].append(int(ends[-1]) + 1 + j)
+    compared = near_ties = 0
+    for s, idx in per_slot.items():
+        for c in idx:
+            compared += 1
+            if card_calls[c][0][s] != cpu_calls[c][0][s]:
+                margin = float(cpu_calls[c][1][s])
+                need(margin < LM_TOL, f"slot {s} parts at decode call {c} "
+                                      f"with a CPU top-2 margin {margin}")
+                near_ties += 1
+                break
+    return compared, near_ties
+
+
+def phase_lm_parity(dev, seed: int) -> dict:
+    """Two layers of Qwen2.5-3B at its full widths, fp32, one seed's
+    weights on the card and on the CPU: prefill (S = 512) last-token
+    logits and K/V caches within LM_TOL / 1e-4, and the Server's greedy
+    tokens equal but at near-ties."""
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import lm
+    need(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    cfg = lm_config(2)
+    slots_n, plen, max_new = PARITY_SERVE
+    t0 = time.perf_counter()
+    srvs = {where: Server(cfg, max_len=plen + max_new + 2, slots=slots_n,
+                          seed=seed, device=where)
+            for where in ("cpu", dev)}
+    srvs[dev].params.load_state_dict(srvs["cpu"].params.state_dict())
+    tokens = torch.as_tensor(np.random.default_rng(seed + 21).integers(
+        0, cfg.vocab_size, (1, 512)))
+    (lg_h, kv_h), (lg_c, kv_c) = (
+        lm.prefill(srvs[w].params, cfg, {"tokens": tokens.to(w)})
+        for w in ("cpu", dev))
+    e_lg = float((lg_c.cpu() - lg_h).abs().max())
+    e_kv = max(float((kv_c["blocks"][n].cpu() - kv_h["blocks"][n])
+                     .abs().max()) for n in ("k", "v"))
+    need(e_lg <= LM_TOL and e_kv <= 1e-4,
+         f"prefill card vs CPU: logits {e_lg:.3g}, caches {e_kv:.3g}")
+    log(f"[lm parity] 2-layer {LM_ARCH} full width fp32, prefill S=512: "
+        f"card vs CPU max |d| logits {e_lg:.3g} (<= {LM_TOL}, |logits| <= "
+        f"{float(lg_h.abs().max()):.3g}), K/V caches {e_kv:.3g} (<= 1e-4)")
+    prompts = prompts_for(cfg, slots_n, plen, seed + 22)
+    runs = {}
+    for where, srv in srvs.items():
+        calls = record_decisions(srv)
+        runs[where] = (calls,) + serve(srv, prompts, max_new)[:2]
+    need(runs[dev][1:] == runs["cpu"][1:], "the servers' slots differ")
+    compared, ties = greedy_agreement(runs[dev][0], runs["cpu"][0],
+                                      prompts, *runs["cpu"][1:])
+    log(f"[lm parity] Server, {slots_n} requests (prompt {plen}, max_new "
+        f"{max_new}): {compared} greedy decisions compared, card == CPU on "
+        f"all but {ties} near-tie(s) (CPU top-2 margin < {LM_TOL}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"logits_err": e_lg, "cache_err": e_kv, "compared": compared,
+            "near_ties": ties}
+
+
+def run_lm_server(seed: int):
+    """The slot server on the full 36-layer model, fp32 weights drawn on
+    the card: LM_SERVE's requests answered. Returns the server and each
+    tick's host ms."""
+    from repro_torch.launch.serve import Server
+    cfg = lm_config()
+    slots_n, plen, max_new = LM_SERVE
+    srv = Server(cfg, max_len=plen + max_new + 2, slots=slots_n,
+                 dtype=torch.float32, seed=seed)
+    _, _, tick_ms = serve(srv, prompts_for(cfg, slots_n, plen, seed + 23),
+                          max_new)
+    need(all(len(o) == max_new and all(0 <= t < cfg.vocab_size for t in o)
+             for o in srv.outputs),
+         f"not every request was answered: {[len(o) for o in srv.outputs]}")
+    return srv, tick_ms
+
+
+def run_lm_prefill(model, seed: int):
+    """One bf16 prefill of the full model at LM_PREFILL: finite logits
+    over the padded vocab and a (L, B, S, KV, hd) cache."""
+    from repro_torch.launch.steps import make_prefill_step
+    cfg = lm_config()
+    B, S = LM_PREFILL
+    tokens = torch.as_tensor(np.random.default_rng(seed + 24).integers(
+        0, cfg.vocab_size, (B, S)), device=model.embed.table.device)
+    logits, caches = make_prefill_step(cfg)(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    need(logits.shape == (B, model.embed.table.shape[0])
+         and bool(torch.isfinite(logits).all()),
+         "prefill logits are not finite over the padded vocab")
+    need(caches["blocks"]["k"].shape == (cfg.n_layers, B, S, cfg.n_kv_heads,
+                                         cfg.resolved_head_dim),
+         f"prefill cache shape {tuple(caches['blocks']['k'].shape)}")
 
 
 def same(a: dict, b: dict) -> bool:
@@ -520,11 +766,12 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="numpy seed of the network and its inputs")
     ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after the kernel checks, phases 1-3 and "
-                         "7 (a quick first check)")
+                    help="stop after the kernel checks, phases 1-3, 10 "
+                         "and 7 (a quick first check)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one run_lanes window per path "
-                         "on both networks "
+                         "on both networks, one decode tick and one "
+                         "prefill of the full LM "
                          "(torch.profiler: device busy share, launches, "
                          "top kernels)")
     args = ap.parse_args(argv)
@@ -536,8 +783,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import route as route_k
     from repro_torch.kernels.lif_step import lif_step
-    from repro_torch.kernels.ref import (lif_step_ref, route_lif_ref,
-                                         spike_matmul_ref)
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import (flash_attention_ref, lif_step_ref,
+                                         route_lif_ref, spike_matmul_ref)
     from repro_torch.kernels.spike_matmul import spike_matmul
 
     # ---- 1. setup
@@ -581,16 +829,20 @@ def main(argv=None) -> int:
     route_args, route_spikes, route_counts, route_err = \
         phase_route_kernel(dep_probe, B, args.seed)
 
+    # ---- 10. the flash kernel against its plain version
+    flash_errs = phase_flash_kernel(dev, args.seed)
+
     if args.kernels_only:
         setup_mlp(dev, args.seed)
-        log("[kernels-only] phases 1-3 and 7 passed; no result is "
+        log("[kernels-only] phases 1-3, 10 and 7 passed; no result is "
             "reported")
         return 0
 
     # ---- 4. the main path, unfused and fused, counts from 0
     route_lif = route_k.route_lif
     kernels_of = {"lif_step": lif_step, "route_lif": route_lif,
-                  "spike_matmul": spike_matmul}
+                  "spike_matmul": spike_matmul,
+                  "flash_attention": flash_attention}
 
     def zero_counts():
         for k in kernels_of.values():
@@ -698,6 +950,48 @@ def main(argv=None) -> int:
     need(same(got[0], got[1]), "card and CPU port disagree (simulator)")
     log(f"[cpu] card == CPU port on the simulator's first window "
         f"({int(got[0]['spikes'].sum())} spikes)")
+
+    # ---- 11. the LM slice: 2 layers at full width, card vs CPU
+    lm_par = phase_lm_parity(dev, args.seed)
+
+    # ---- 12. the full 36-layer LM: the slot server (fp32), then prefill
+    # (bf16, the same weights rounded), counts from 0 for each
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    srv, tick_ms = run_lm_server(args.seed)
+    by_path["lm server 36L fp32"] = read_counts()
+    serve_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in srv.params.parameters())
+    log(f"[path lm server] {LM_ARCH} 36 layers fp32 ({n_params} "
+        f"parameters), {LM_SERVE[0]} requests (prompt {LM_SERVE[1]}, "
+        f"max_new {LM_SERVE[2]}) answered in {serve_s:.1f} s with the "
+        f"weights' draw; launches {by_path['lm server 36L fp32']}")
+    if args.profile:
+        profile_window("[profile lm decode tick 36L fp32]", srv.tick, 1)
+    model = srv.params.to(torch.bfloat16)
+    del srv
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    run_lm_prefill(model, args.seed)
+    by_path["lm prefill 36L bf16"] = read_counts()
+    log(f"[path lm prefill] B={LM_PREFILL[0]} S={LM_PREFILL[1]} bf16: "
+        f"{time.perf_counter() - t0:.2f} s (first call); launches "
+        f"{by_path['lm prefill 36L bf16']}")
+    need(by_path["lm prefill 36L bf16"]["flash_attention"]
+         == lm_config().n_layers,
+         f"prefill did not run the flash kernel once per layer: {by_path}")
+    prefill_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run_lm_prefill(model, args.seed)
+        prefill_ms.append(1e3 * (time.perf_counter() - t0))
+    if args.profile:
+        profile_window("[profile lm prefill 36L bf16]",
+                       lambda: run_lm_prefill(model, args.seed), 1)
+    del model
+    torch.cuda.empty_cache()
 
     if args.profile:
         for fused in (False, True):
@@ -810,6 +1104,48 @@ def main(argv=None) -> int:
         f"{runs['lane_us_mlp engine fused=True']:.1f} (B=8, host clock) "
         f"on {card}")
 
+    # flash_attention at the prefill shape, bf16 (the path's) and fp32
+    def time_flash(dtype):
+        B, S = LM_PREFILL
+        H, KV, D = 16, 2, 128
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed + 31)
+        q, k, v = flash_inputs(dev, gen, B, S, H, KV, D, dtype)
+        ms = time_ms(lambda: flash_attention(q, k, v), flush=flush)
+        plain = time_ms(lambda: flash_attention_ref(q, k, v), flush=flush)
+        # the library yardstick, never on the path: SDPA over (B, H, S, D)
+        # with the KV heads repeated
+        qe = q.contiguous()
+        ke, ve = (t.repeat_interleave(H // KV, dim=1).contiguous()
+                  for t in (k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = time_ms(lambda: sdpa(qe, ke, ve, is_causal=True), flush=flush)
+        flops = 2 * B * H * S * S * D            # causal: QK^T and PV
+        n_bytes = nbytes(q, k, v) + nbytes(q)    # q, k, v in; o out
+        rate = BF16_TC_FLOPS_PER_S if dtype == torch.bfloat16 \
+            else SCALAR_OPS_PER_S
+        bnd, by = bound(n_bytes, flops, rate)
+        log(f"[time flash_attention {str(dtype)[6:]}] {ms:.4f} ms at (B, S, "
+            f"H, KV, D) = {(B, S, H, KV, D)}, plain {plain:.4f} ms, bound "
+            f"{1e3 * bnd:.2f} us ({by}: {flops} flops at {rate:.3g}/s, "
+            f"{n_bytes} B), {ms / bnd:.1f}x the bound; library "
+            f"scaled_dot_product_attention(is_causal=True), KV heads "
+            f"repeated, {lib:.4f} ms on {card}")
+        return ms, plain, bnd, by, lib
+
+    fa16 = time_flash(torch.bfloat16)
+    fa32 = time_flash(torch.float32)
+    pre_ms = float(np.median(prefill_ms))
+    n_tok = LM_PREFILL[0] * LM_PREFILL[1]
+    log(f"[time lm prefill] {LM_ARCH} 36 layers bf16 B={LM_PREFILL[0]} "
+        f"S={LM_PREFILL[1]}: {pre_ms:.2f} ms (median of 3, host clock, "
+        f"synchronised) = {n_tok / (pre_ms / 1e3):.1f} tokens/s; flash "
+        f"kernel {36 * fa16[0]:.2f} ms of it at 36 x its timed ms on {card}")
+    log(f"[time lm decode] {LM_ARCH} 36 layers fp32, {LM_SERVE[0]} slots: "
+        f"{float(np.median(tick_ms)):.3f} ms per tick (median of "
+        f"{len(tick_ms)}, min {min(tick_ms):.3f}, max {max(tick_ms):.3f}; "
+        f"host clock, each tick ends in a host read) on {card}")
+
     def total(kernel):
         return sum(c[kernel] for c in by_path.values())
 
@@ -844,6 +1180,22 @@ def main(argv=None) -> int:
          "ms_16k": sm_big[0], "plain_ms_16k": sm_big[1],
          "bound_ms_16k": sm_big[2], "bound_by_16k": sm_big[3],
          "yardstick_matmul_fp32_ms_16k": sm_big[4]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:234",
+         "launches": total("flash_attention"),
+         "launches_by_path": paths("flash_attention"),
+         "max_abs_err": max(e for t, e in flash_errs.items()
+                            if t.startswith("prefill shape")
+                            and t.endswith("bfloat16")),
+         "ms": fa16[0], "plain_ms": fa16[1], "bound_ms": fa16[2],
+         "bound_by": fa16[3], "library_ms": fa16[4],
+         "ms_fp32": fa32[0], "plain_ms_fp32": fa32[1],
+         "bound_ms_fp32": fa32[2], "bound_by_fp32": fa32[3],
+         "library_ms_fp32": fa32[4], "max_abs_err_by_case": flash_errs,
+         "lm_parity": lm_par, "prefill_ms": pre_ms,
+         "prefill_tokens_per_s": n_tok / (pre_ms / 1e3),
+         "decode_ms_per_tick": float(np.median(tick_ms))},
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

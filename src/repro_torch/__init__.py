@@ -1,13 +1,14 @@
-"""PyTorch/CUDA port of the HiAER-Spike event engine and its dense
-simulator.
+"""PyTorch/CUDA port of the HiAER-Spike event engine, its dense
+simulator and the LM stack's serving path.
 
 The JAX package `repro` is the reference; this package runs the same
 paths — ``NetworkSpec -> compile_spec(target="engine" | "simulator") ->
-deploy -> step / run / run_batch / run_lanes``, and the `CRI_network`
-facade over them — on an NVIDIA H100, with the three TPU kernels of
-those paths (`lif_step`, the fused route+LIF step and `spike_matmul`)
-written by hand in CUDA C++ (`csrc/`). It imports torch and numpy, never
-jax and nothing of `repro`.
+deploy -> step / run / run_batch / run_lanes``, the `CRI_network`
+facade over them, and dense-LM serving (`models.lm.prefill` /
+`decode_step`, `launch.serve.Server`) — on an NVIDIA H100, with the four
+TPU kernels of those paths (`lif_step`, the fused route+LIF step,
+`spike_matmul` and `flash_attention`) written by hand in CUDA C++
+(`csrc/`). It imports torch and numpy, never jax and nothing of `repro`.
 
     from repro_torch import CRI_network, NetworkSpec, compile_spec, deploy
     dep = deploy(compile_spec(spec))            # on the card

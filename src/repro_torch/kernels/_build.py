@@ -33,13 +33,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_F = ctypes.c_float
 # every C entry point: its argument types (pointers and the stream as
-# c_void_p, sizes as c_int / c_int64); each returns cudaGetLastError()
+# c_void_p, sizes as c_int / c_int64, scales as c_float); each returns a
+# cudaError_t
 SIGNATURES = {
     "lif_step": ("lif_step_launch", [_P] * 9 + [_I, _I, _P]),
     "route_lif": ("route_lif_launch", [_P] * 13 + [_I64, _I, _I, _I, _P]),
     "spike_matmul": ("spike_matmul_launch",
                      [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P]),
+    "flash_attention": ("flash_attention_launch",
+                        [_P] * 4 + [_I] * 7 + [_F] + [_I64] * 12 + [_P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,11 +1,11 @@
 """Plain PyTorch versions of the port's CUDA kernels.
 
-They take exactly the kernels' arguments and compute the same int32
-function with torch ops. The kernel wrappers call them for tensors on
-the CPU (the tests, which hold them against the JAX package), and
-`chip_smoke.py` holds each kernel against its plain version on the
-card. Nothing on the engine's or the simulator's path calls them for
-CUDA tensors.
+They take exactly the kernels' arguments and compute the same function
+with torch ops: int32 for the SNN kernels, an fp32 softmax for flash
+attention. The kernel wrappers call them for tensors on the CPU (the
+tests, which hold them against the JAX package), and `chip_smoke.py`
+holds each kernel against its plain version on the card. Nothing on the
+engine's, the simulator's or the LM's path calls them for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -77,3 +77,21 @@ def spike_matmul_ref(counts, weights, max_elems: int = 1 << 24):
         acc = (acc + prod.sum(dim=1)) & _MASK
     out = torch.where(acc >= 2 ** 31, acc - 2 ** 32, acc).to(torch.int32)
     return out.reshape(counts.shape[:-1] + (npost,))
+
+
+def flash_attention_ref(q, k, v, causal: bool = True):
+    """Attention with an fp32 softmax. q (B, H, S, D); k, v (B, KV, S, D)
+    with H % KV == 0, query head h reading KV head h // (H // KV) (the
+    grouping of `repro.models.attention._sdpa`; KV == H is the TPU
+    kernel's contract). q is scaled by D**-0.5 before q.k^T and masked
+    scores are -1e30. Returns (B, H, S, D) in q's dtype."""
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    qg = q.reshape(B, KV, H // KV, S, D)
+    s = torch.einsum("bgrqd,bgkd->bgrqk", qg.float() * D ** -0.5, k.float())
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgrqk,bgkd->bgrqd", p, v.float())
+    return o.reshape(B, H, S, D).to(q.dtype)

@@ -1,0 +1,136 @@
+"""Serving launcher: continuous batched decode — the port of
+`repro/launch/serve.py`.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_5_3b \
+        --reduced --requests 8 --max-new 16 [--device cpu]
+
+A request queue feeds fixed slots; each slot tracks its own cache
+position; a slot's prompt runs token by token through the shared decode
+step, then every active slot advances one token per tick (static shapes:
+slots, not ragged batches). Greedy sampling.
+
+The slot and position logic is JAX's, quirks included, so that the two
+servers give the same tokens:
+  * `admit` runs the prompt through the batched decode step with every
+    other slot's token set to 0, and the step writes every slot's K/V at
+    the admitted slot's position, so admitting a slot overwrites the
+    first len(prompt) cache rows of the slots admitted before it;
+  * `tick` decodes all slots at one position, the first active slot's.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_arch, get_reduced
+from repro_torch.device import resolve
+from repro_torch.launch.steps import make_decode_step
+from repro_torch.models import lm
+from repro_torch.serve.queue import BufferFull, SlotPool
+
+
+class Server:
+    """Slots of a dense LM on `device` (the card unless "cpu" is asked
+    for), its weights drawn from `seed` in `dtype`; `params` is the
+    `lm.LM` module (`params.load_state_dict` serves other weights)."""
+
+    def __init__(self, cfg, max_len=128, slots=4, dtype=torch.float32,
+                 seed=0, device=None):
+        self.cfg = cfg
+        self.max_len = max_len
+        self.slots = slots
+        self.device = resolve(device)
+        self.params = lm.init_params(cfg, seed, dtype, self.device)
+        self.cache = lm.init_cache(cfg, slots, max_len, dtype, self.device)
+        self.pos = np.zeros((slots,), np.int32)
+        # decode slots come from the same SlotPool primitive the spike
+        # server uses for session lanes; its mask is the `active` vector
+        # the batched tick indexes
+        self.pool = SlotPool(slots)
+        self.tokens = np.zeros((slots,), np.int32)
+        self.outputs = [[] for _ in range(slots)]
+        self._decode = make_decode_step(cfg)
+
+    @property
+    def active(self) -> np.ndarray:
+        return self.pool.mask
+
+    def admit(self, prompt):
+        """Claim a free decode slot and run the prompt token by token
+        through the shared decode step. Returns the slot id; raises
+        BufferFull if the pool is full."""
+        if len(prompt) == 0:
+            raise ValueError("admit needs a prompt of at least one token")
+        slot = self.pool.acquire()
+        if slot is None:
+            raise BufferFull(self.slots, self.slots,
+                             what="decode slot pool")
+        self.outputs[slot] = []
+        for t in prompt:
+            lg, self.cache = self._decode(
+                self.params, self._tok_batch(slot, t), self.cache,
+                int(self.pos[slot]))
+            self.pos[slot] += 1
+        self.tokens[slot] = int(lg[slot, :self.cfg.vocab_size].argmax())
+        return slot
+
+    def _tok_batch(self, slot, tok):
+        b = torch.zeros((self.slots, 1), dtype=torch.long)
+        b[slot, 0] = int(tok)
+        return b.to(self.device)
+
+    def tick(self):
+        """One decode step for all active slots (continuous batching).
+        Slots whose stream hits max_len are released back to the pool,
+        ready for the next admit."""
+        if not self.active.any():
+            return
+        pos = int(self.pos[self.active][0])
+        batch = torch.as_tensor(self.tokens[:, None], dtype=torch.long,
+                                device=self.device)
+        lg, self.cache = self._decode(self.params, batch, self.cache, pos)
+        nxt = lg[:, :self.cfg.vocab_size].argmax(dim=1).cpu().numpy()
+        for s in range(self.slots):
+            if self.active[s]:
+                self.outputs[s].append(int(nxt[s]))
+                self.tokens[s] = nxt[s]
+                self.pos[s] += 1
+                if self.pos[s] >= self.max_len - 1:
+                    self.pool.release(s)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card; 'cpu' "
+                         "runs the kernels' plain versions)")
+    args = ap.parse_args(argv)
+    cfg = get_reduced(args.arch) if args.reduced else get_arch(args.arch)
+    rng = np.random.default_rng(0)
+    srv = Server(cfg, max_len=args.prompt_len + args.max_new + 2,
+                 slots=args.requests, device=args.device)
+    t0 = time.time()
+    for _ in range(args.requests):
+        prompt = rng.integers(1, cfg.vocab_size, args.prompt_len).tolist()
+        srv.admit(prompt)
+    for _ in range(args.max_new):
+        srv.tick()
+    dt = time.time() - t0
+    total = sum(len(o) for o in srv.outputs)
+    print(f"served {args.requests} requests, {total} tokens "
+          f"in {dt:.2f}s ({total / dt:.1f} tok/s) on {srv.device}")
+    for s, out in enumerate(srv.outputs):
+        print(f"  req{s}: {out[:10]}...")
+    return total
+
+
+if __name__ == "__main__":
+    main()

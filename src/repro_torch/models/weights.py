@@ -1,0 +1,56 @@
+"""The JAX package's LM parameters as the port's module state.
+
+`params_from_jax(tree, cfg)` takes the tree `repro.models.lm.init_params`
+builds, as numpy arrays (`jax.tree.map(np.asarray, params)`): nested
+dicts whose `blocks` leaves are stacked over the layers. It returns the
+state dict of the port's `LM` for the same config — the same names with
+the layer index after `blocks` (`blocks.3.attn.wq` is
+`tree["blocks"]["attn"]["wq"][3]`), the same layouts (wq (d, H, hd),
+the tied `embed.table` over the padded vocab) and the same dtypes:
+
+    model = lm.init_params(cfg, dtype=..., device=...)
+    model.load_state_dict(params_from_jax(tree, cfg))
+
+The port's tests use it to make both packages compute one function.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.models.lm import check_supported
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # ml_dtypes: no torch twin
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def params_from_jax(tree, cfg) -> Dict[str, torch.Tensor]:
+    check_supported(cfg)
+    state: Dict[str, torch.Tensor] = {}
+
+    def walk(node, path):
+        for key, val in node.items():
+            if isinstance(val, dict):
+                walk(val, path + (key,))
+                continue
+            t = _tensor(val)
+            if path[:1] != ("blocks",):
+                state[".".join(path + (key,))] = t
+                continue
+            if t.shape[0] != cfg.n_layers:
+                raise ValueError(f"{'.'.join(path + (key,))}: {t.shape[0]} "
+                                 f"layers stacked, the config has "
+                                 f"{cfg.n_layers}")
+            for i in range(cfg.n_layers):
+                state[".".join(("blocks", str(i)) + path[1:] + (key,))] = \
+                    t[i].clone()
+
+    walk(tree, ())
+    return state

@@ -71,3 +71,33 @@ def noisy_spec(pkg_spec, neuron_mod, seed=0, n=64, n_axons=6, fanout=5):
     spec.connect(pre, post, w)
     spec.set_outputs(np.arange(4))
     return spec
+
+
+def lm_pair(arch, seed=0):
+    """One reduced dense LM in both packages: (JAX config, port config,
+    the JAX parameter tree as numpy — fp32, its norm scales and QKV
+    biases drawn at random so that they matter — and the port's fp32 CPU
+    model loaded with the same weights through `params_from_jax`)."""
+    import jax
+    import torch
+    from repro.configs import get_reduced as jget_reduced
+    from repro.models import lm as jlm
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import lm as tlm
+    from repro_torch.models.weights import params_from_jax
+    jcfg, tcfg = jget_reduced(arch), get_reduced(arch)
+    tree = jax.tree.map(np.asarray, jlm.init_params(
+        jcfg, jax.random.PRNGKey(seed), jax.numpy.float32))
+    rng = np.random.default_rng(seed)
+
+    def jitter(node):
+        for k, val in node.items():
+            if isinstance(val, dict):
+                jitter(val)
+            elif k in ("scale", "bias", "bq", "bk", "bv"):
+                node[k] = (val + rng.normal(0, 0.3, val.shape)).astype(
+                    val.dtype)
+    jitter(tree)
+    model = tlm.init_params(tcfg, dtype=torch.float32, device="cpu")
+    model.load_state_dict(params_from_jax(tree, tcfg))
+    return jcfg, tcfg, tree, model

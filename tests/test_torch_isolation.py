@@ -39,7 +39,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert len(names) >= 15
+    assert len(names) >= 30
 
 
 def test_no_source_imports_jax_or_repro():
@@ -100,6 +100,27 @@ def test_simulator_and_facade_default_to_the_card():
     net = CRI_network.from_spec(spec, backend="simulator", device="cpu")
     net.step([0])
     assert net.read_membrane(0) == [7]
+
+
+def test_lm_entry_points_default_to_the_card():
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import lm
+    cfg = get_reduced("qwen2_5_3b")
+    if torch.cuda.is_available():
+        assert lm.init_params(cfg).embed.table.device.type == "cuda"
+        assert Server(cfg, max_len=8, slots=1).device.type == "cuda"
+    else:
+        for make in (lambda: lm.init_params(cfg),
+                     lambda: lm.init_cache(cfg, 1, 4),
+                     lambda: Server(cfg, max_len=8, slots=1)):
+            with pytest.raises(RuntimeError, match='device="cpu"'):
+                make()
+    srv = Server(cfg, max_len=8, slots=1, device="cpu")
+    assert srv.params.embed.table.device.type == "cpu"
+    srv.admit([1, 2])
+    srv.tick()
+    assert len(srv.outputs[0]) == 1
 
 
 def run_smoke(cwd):
