@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA card.
 
-    python3 chip_smoke.py            # one card, full width, ~4 minutes
+    python3 chip_smoke.py            # one card, full width, ~7 minutes
 
 Phases, in the order they run (the timing phase 6 runs last, so that it
 can time the shapes the other phases give the kernels); any failure
@@ -21,6 +21,16 @@ raises and the script exits non-zero:
      (B = 2), KV == H (the TPU kernel's contract), D = 256, S = 1 and
      causal=False; then causality (keys and values after p perturbed,
      outputs up to p unchanged bit for bit);
+ 13. the training kernels against their plain versions on the card: the
+     forward with logsumexp rows (`flash_fwd_lse`: o and lse within 2e-5
+     in fp32, 2e-2 in bf16) and the backward's two kernels
+     (`flash_attention_bwd`: dq, dk, dv within 1e-4 of the plain
+     version's largest magnitude in fp32, 2e-2 in bf16; at S = 1, where
+     dq and dk are 0 but for rounding, of dv's), at the training
+     shape (B = 1, S = 4,096, 16 / 2 heads, D = 128), a ragged S = 1,000
+     (B = 2), KV == H, D = 256, D = 64, S = 1 and causal=False; then two
+     backward calls give the same bits, and perturbing the keys and
+     values after p leaves dQ's rows up to p unchanged bit for bit;
   4. the main path at full width — NetworkSpec -> compile_spec ->
      deploy(device=None) -> run_lanes x 3 windows, run, run_batch —
      once with fused=False and once with fused=True; the two agree bit
@@ -55,12 +65,36 @@ raises and the script exits non-zero:
      answered; then the same weights in bf16 through `prefill` at B = 1,
      S = 4,096: finite logits, a (36, 1, 4096, 2, 128) cache, and the
      flash kernel launched once per layer (36);
+ 14. training parity: Qwen2.5-3B at full widths cut to 2 layers, fp32,
+     one seed's weights on the card and on the CPU (TF32 off): the
+     gradients of `lm.loss_fn` at B = 1, S = 256, each leaf within 1e-3
+     of its own largest magnitude, then one `make_train_step` with an
+     update that shows (lr 1e-2 from the first step): the loss within
+     1e-4, mu and nu within 1e-3 of their own largest magnitude, and the
+     card's step (p_after - p_before) equal, within 1e-4 of its own
+     largest magnitude, to plain AdamW written out here on the card's own
+     moments; card and CPU steps within 2 lr everywhere (where
+     0 < |g| < 100 eps, Adam's g / (|g| + eps) turns a gradient's
+     rounding into a step of order lr, so the two steps cannot be held
+     closer there); a step left out or of the wrong sign fails the same
+     check; the card side launches
+     the forward-with-lse kernel and both backward kernels;
+ 15. the full 36-layer Qwen2.5-3B training on the card: bf16 parameters,
+     fp32 AdamW moments, `make_train_step` on `TokenPipeline` batches at
+     B = 1, S = 4,096, 4 steps: every loss and grad norm finite, the
+     parameters changed, and each step launches the forward-with-lse
+     kernel 72 times (the remat recomputes it), each backward kernel 36
+     times and the prefill's forward none; step time, tokens/s and peak
+     device memory;
   6. timing: each kernel's median time against its plain version and
      its bound (spike_matmul also at 16,384 x 16,384 int32, past the L2
      cache; flash_attention at the prefill shape in bf16 and fp32),
      beside a library call or a time-only yardstick where one exists,
      run_lanes' time per step on both networks, and the full LM's
-     prefill tokens/s and decode ms per tick.
+     prefill tokens/s and decode ms per tick; the training kernels at
+     the training shape in bf16 and fp32 (the forward with lse against
+     SDPA's forward, the backward against autograd through SDPA, the
+     forward excluded).
 
 Two networks, weights from a numpy seed:
   * the engine's: one HiAER-Spike core at capacity, 125,000 neurons
@@ -84,6 +118,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -105,6 +140,10 @@ LM_SERVE = (4, 16, 32)        # Server slots, prompt length, max_new
 PARITY_SERVE = (4, 16, 16)    # the same on the 2-layer card-vs-CPU model
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 LM_TOL = 1e-3                 # 2-layer fp32 logits, card vs CPU
+LM_TRAIN = (1, 4096, 4)       # training batch, length and steps, full model
+PARITY_TRAIN = (1, 256)       # the same on the 2-layer card-vs-CPU model
+STEP_TOL = 1e-4               # an AdamW step against its formula, of its max
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # of max |ref|
 
 
 def need(cond, what: str) -> None:
@@ -597,6 +636,107 @@ def phase_flash_kernel(dev, seed: int) -> dict:
     return errs
 
 
+def rel_err(got, want, floor=0.0) -> float:
+    """max |got - want| over max |want| (at least `floor`), in fp32."""
+    want = want.float()
+    return float((got.float() - want).abs().max()
+                 / torch.clamp(want.abs().max(), min=floor).clamp(min=1e-30))
+
+
+def phase_flash_train_kernels(dev, seed: int) -> dict:
+    """The training kernels against their plain versions on the card:
+    the forward with lse (o and lse within FLASH_TOL) and the backward
+    (fed the plain forward's o and lse; dq, dk, dv within GRAD_TOL of the
+    plain version's largest magnitude), fp32 and bf16, at the training
+    shape, a ragged S, KV == H, D = 256, D = 64, S = 1 and causal=False;
+    then determinism and causality of the backward. Returns each case's
+    errors."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_fwd_lse)
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_fwd_lse_ref)
+    need(not torch.backends.cuda.matmul.allow_tf32,
+         "TF32 matmuls are on; the plain versions must run in fp32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 41)
+    B, S = LM_TRAIN[:2]
+    cases = [  # name, (B, S, H, KV, D), layout, causal
+        ("training shape", (B, S, 16, 2, 128), "model", True),
+        ("ragged S", (2, 1000, 16, 2, 128), "model", True),
+        ("KV == H", (2, 512, 8, 8, 128), "heads", True),
+        ("D = 256", (1, 700, 16, 16, 256), "model", True),
+        ("D = 64", (2, 333, 8, 2, 64), "model", True),
+        ("S = 1", (3, 1, 4, 2, 64), "model", True),
+        ("causal=False", (1, 300, 4, 2, 128), "model", False),
+    ]
+    errs = {}
+    for name, shape, layout, causal in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(dev, gen, *shape, dtype, layout)
+            do = flash_inputs(dev, gen, *shape, dtype, layout)[0]
+            o, lse = flash_fwd_lse(q, k, v, causal)
+            ro, rlse = flash_fwd_lse_ref(q, k, v, causal)
+            got = flash_attention_bwd(q, k, v, ro, rlse, do, causal)
+            want = flash_attention_bwd_ref(q, k, v, ro, rlse, do, causal)
+            torch.cuda.synchronize()
+            tag = f"{name} {tuple(shape)} {str(dtype)[6:]}"
+            # with one key (S = 1), p = 1 and ds = dO.v - dO.o is 0 but for
+            # rounding, so dq and dk are rounding noise: they are held
+            # against the scale of dv instead of their own
+            floor = want[2].float().abs().max() if shape[1] == 1 else 0.0
+            e = {"o": float((o.float() - ro.float()).abs().max()),
+                 "lse": float((lse - rlse).abs().max()),
+                 **{n: rel_err(g, w, floor) for n, g, w in
+                    zip(("dq", "dk", "dv"), got, want)},
+                 **{n + "_abs": float((g.float() - w.float()).abs().max())
+                    for n, g, w in zip(("dq", "dk", "dv"), got, want)}}
+            need(o.dtype == dtype and lse.shape == rlse.shape
+                 and bool(torch.isfinite(o).all())
+                 and bool(torch.isfinite(lse).all())
+                 and e["o"] <= FLASH_TOL[dtype]
+                 and e["lse"] <= FLASH_TOL[dtype],
+                 f"flash_fwd_lse kernel != plain version on {tag}: {e}")
+            need(all(g.shape == w.shape and g.dtype == w.dtype
+                     and bool(torch.isfinite(g).all())
+                     for g, w in zip(got, want))
+                 and max(e[n] for n in ("dq", "dk", "dv"))
+                 <= GRAD_TOL[dtype],
+                 f"flash_attention_bwd kernels != plain version on {tag}: "
+                 f"{e} (tolerance {GRAD_TOL[dtype]} of max |ref|)")
+            errs[tag] = e
+            log(f"[flash train] kernels == plain on {tag} (B, S, H, KV, D), "
+                f"{layout} layout: o {e['o']:.3g}, lse {e['lse']:.3g} (<= "
+                f"{FLASH_TOL[dtype]}); dq {e['dq']:.3g}, dk {e['dk']:.3g}, "
+                f"dv {e['dv']:.3g} of max |ref| (<= {GRAD_TOL[dtype]})")
+            del q, k, v, do, o, lse, ro, rlse, got, want
+    q, k, v = flash_inputs(dev, gen, B, S, 16, 2, 128, torch.bfloat16)
+    do = flash_inputs(dev, gen, B, S, 16, 2, 128, torch.bfloat16)[0]
+    o, lse = flash_fwd_lse(q, k, v)
+    one = flash_attention_bwd(q, k, v, o, lse, do)
+    two = flash_attention_bwd(q, k, v, o, lse, do)
+    need(all(torch.equal(a, b) for a, b in zip(one, two)),
+         "flash_attention_bwd: two calls on the same inputs differ")
+    log(f"[flash train] deterministic: two backward calls at (B, S, H, KV, "
+        f"D) = ({B}, {S}, 16, 2, 128) bf16 give the same bits (dq, dk, "
+        f"dv)")
+    q, k, v = flash_inputs(dev, gen, 2, 1000, 16, 2, 128, torch.float32)
+    do = flash_inputs(dev, gen, 2, 1000, 16, 2, 128, torch.float32)[0]
+    p = 517
+    o1, l1 = flash_fwd_lse(q, k, v)
+    dq1 = flash_attention_bwd(q, k, v, o1, l1, do)[0]
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, p + 1:] += 7.0
+    v2[:, :, p + 1:] -= 3.0
+    o2, l2 = flash_fwd_lse(q, k2, v2)
+    dq2 = flash_attention_bwd(q, k2, v2, o2, l2, do)[0]
+    need(torch.equal(dq1[:, :, :p + 1], dq2[:, :, :p + 1])
+         and not torch.equal(dq1[:, :, p + 1:], dq2[:, :, p + 1:]),
+         "flash_attention_bwd: dQ rows up to p moved with keys after p")
+    log(f"[flash train] causal: keys and values after position {p} "
+        f"perturbed, dQ rows 0..{p} unchanged bit for bit")
+    return errs
+
+
 def lm_config(n_layers=None):
     import dataclasses
     from repro_torch.configs import get_arch
@@ -742,6 +882,169 @@ def run_lm_prefill(model, seed: int):
          f"prefill cache shape {tuple(caches['blocks']['k'].shape)}")
 
 
+def phase_train_parity(dev, seed: int, zero_counts, read_counts) -> dict:
+    """Two layers of Qwen2.5-3B at full width, fp32, one seed's weights on
+    the card and on the CPU: the gradients of `lm.loss_fn` leaf by leaf,
+    then one `make_train_step` with lr 1e-2 from the first step (the
+    loss, the moments and the step). Returns the gaps and the card step's
+    kernel launches."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    need(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    cfg = lm_config(2)
+    oc = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=10)
+    t0 = time.perf_counter()
+    models = {"cpu": lm.init_params(cfg, seed, torch.float32, "cpu")}
+    models[dev] = lm.init_params(cfg, seed, torch.float32, dev)
+    models[dev].load_state_dict(models["cpu"].state_dict())
+    tokens = np.random.default_rng(seed + 25).integers(
+        0, cfg.vocab_size, PARITY_TRAIN)
+    grads = {}
+    for where, model in models.items():
+        names, leaves = zip(*model.named_parameters())
+        loss, _ = lm.loss_fn(model, cfg, {"tokens": torch.as_tensor(
+            tokens, device=where)})
+        grads[where] = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    g_err = max(rel_err(grads[dev][n].cpu(), grads["cpu"][n])
+                for n in grads["cpu"])
+    need(g_err <= LM_TOL, f"training gradients card vs CPU: a leaf is "
+                          f"{g_err:.3g} of its max |grad| apart")
+    del grads
+    p0 = {n: t.clone() for n, t in models["cpu"].state_dict().items()}
+    out, opts = {}, {}
+    for where, model in models.items():
+        step = make_train_step(cfg, oc, device=where)
+        opts[where] = adamw_init(model, oc)
+        torch.cuda.synchronize()
+        zero_counts()
+        out[where] = step(model, opts[where], {"tokens": tokens})[2]
+        torch.cuda.synchronize()
+        if where != "cpu":
+            counts = read_counts()
+    loss_err = abs(float(out[dev]["loss"]) - float(out["cpu"]["loss"]))
+    lr = float(out["cpu"]["lr"])
+    need(math.isclose(lr, oc.lr, rel_tol=1e-6)
+         and float(out[dev]["lr"]) == lr
+         and int(opts[dev]["step"]) == int(opts["cpu"]["step"]) == 1,
+         f"train step: lr {lr} / {float(out[dev]['lr'])} (want {oc.lr}), "
+         f"step counters {int(opts[dev]['step'])} / "
+         f"{int(opts['cpu']['step'])} (want 1)")
+    # The moments are linear and quadratic in the clipped gradient, so they
+    # hold card against CPU as the gradients do. The card's step is held
+    # against plain AdamW on its own moments, and against the CPU's step
+    # where |g| >= 1e4 eps: there the step g / (|g| + eps) moves by at most
+    # lr times a gradient's error, which clipping keeps under the gradients'
+    # tolerance. Below, it turns a gradient's rounding into a step of order
+    # lr, and the two steps are held only to 2 lr.
+    bc1, bc2 = 1.0 - oc.b1, 1.0 - oc.b2
+    state = models["cpu"].state_dict()
+    errs = {"moments": 0.0, "formula": 0.0, "cpu": 0.0}
+    controls = {"no step": 0.0, "flipped": 0.0}
+    n_well, n_all = 0, 0
+
+    def step_errs(p1, n, mu, nu, well):
+        want = -lr * ((mu / bc1) / ((nu / bc2).sqrt() + oc.eps)
+                      + oc.weight_decay * p0[n])
+        got, cpu = p1 - p0[n], state[n] - p0[n]
+        return (rel_err(got, want), float(torch.where(well, got - cpu, 0.0)
+                                           .abs().max() / cpu.abs().max()
+                                           .clamp(min=1e-30)))
+
+    for n, t in models[dev].state_dict().items():
+        mu, nu = opts[dev]["mu"][n].cpu(), opts[dev]["nu"][n].cpu()
+        errs["moments"] = max(errs["moments"],
+                              rel_err(mu, opts["cpu"]["mu"][n]),
+                              rel_err(nu, opts["cpu"]["nu"][n]))
+        well = (opts["cpu"]["nu"][n] / bc2).sqrt() >= 1e4 * oc.eps
+        p1 = t.cpu()
+        e_formula, e_cpu = step_errs(p1, n, mu, nu, well)
+        errs["formula"] = max(errs["formula"], e_formula)
+        errs["cpu"] = max(errs["cpu"], e_cpu)
+        for what, fake in (("no step", p0[n]), ("flipped", 2 * p0[n] - p1)):
+            if well.any():   # a control's error over both checks
+                controls[what] = max(controls[what],
+                                     min(step_errs(fake, n, mu, nu, well)))
+        need(float((p1 - state[n]).abs().max()) <= 2 * lr,
+             f"{n}: a step differs by more than 2 lr card vs CPU")
+        n_well += int(well.sum())
+        n_all += well.numel()
+    need(loss_err <= 1e-4 and errs["moments"] <= LM_TOL
+         and errs["formula"] <= STEP_TOL and errs["cpu"] <= LM_TOL,
+         f"train step card vs CPU: loss {loss_err:.3g} (<= 1e-4), mu/nu "
+         f"{errs['moments']:.3g} of their max (<= {LM_TOL}); card's step "
+         f"against plain AdamW on its moments {errs['formula']:.3g} "
+         f"(<= {STEP_TOL}) and against the CPU's where |g| >= 1e4 eps "
+         f"{errs['cpu']:.3g} (<= {LM_TOL}) of the step's max")
+    need(min(controls.values()) > LM_TOL,
+         f"a step left out or flipped passes the step checks: {controls}")
+    need(all(counts[n] > 0 for n in ("flash_fwd_lse", "flash_bwd_dkv",
+                                     "flash_bwd_dq")),
+         f"the card's train step did not launch the training kernels: "
+         f"{counts}")
+    log(f"[train parity] 2-layer {LM_ARCH} full width fp32, B, S = "
+        f"{PARITY_TRAIN}, lr {lr:g}: card vs CPU loss "
+        f"{float(out['cpu']['loss']):.6f} +- {loss_err:.3g} (<= 1e-4); "
+        f"gradients {g_err:.3g} and mu/nu {errs['moments']:.3g} of each "
+        f"leaf's max |.| (<= {LM_TOL}); card's step against plain AdamW "
+        f"on its moments {errs['formula']:.3g} (<= {STEP_TOL}), against "
+        f"the CPU's {errs['cpu']:.3g} (<= {LM_TOL}) of the step's max on "
+        f"the {n_well} of {n_all} elements with |g| >= 1e4 eps, within "
+        f"2 lr on the rest; a step left out or flipped misses by "
+        f"{controls}; card launches {counts}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"loss_err": loss_err, "grad_rel_err": g_err,
+            "moment_rel_err": errs["moments"],
+            "step_vs_formula": errs["formula"],
+            "step_vs_cpu": errs["cpu"], "step_checked": n_well,
+            "controls": controls, "launches": counts}
+
+
+def run_lm_train(seed: int, zero_counts, read_counts, profile=False):
+    """LM_TRAIN's steps of the full 36-layer model in bf16 (fp32 AdamW
+    moments) on TokenPipeline batches. Returns per-step losses, grad
+    norms, host ms (synchronised), launches, and the peak memory."""
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = lm_config()
+    B, S, n_steps = LM_TRAIN
+    torch.cuda.reset_peak_memory_stats()
+    model = lm.init_params(cfg, seed, torch.bfloat16)
+    oc = AdamWConfig(moment_dtype=cfg.opt_dtype, total_steps=n_steps)
+    opt = adamw_init(model, oc)
+    step = make_train_step(cfg, oc)
+    pipe = TokenPipeline(cfg.vocab_size, S, B, seed=seed)
+    # weight matrices: a bf16 norm scale near 1 does not move at the
+    # warmup's learning rate (3e-6 at step 1, under half its ulp)
+    watch = ("blocks.0.attn.wq", f"blocks.{cfg.n_layers - 1}.mlp.w_out",
+             "embed.table")
+    leaves = dict(model.named_parameters())
+    before = {n: leaves[n].detach().clone() for n in watch}
+    out = {"loss": [], "grad_norm": [], "ms": [], "launches": []}
+    torch.cuda.synchronize()
+    zero_counts()
+    for _ in range(n_steps):
+        c0 = read_counts()
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, pipe.next_batch())
+        torch.cuda.synchronize()
+        out["ms"].append(1e3 * (time.perf_counter() - t0))
+        c1 = read_counts()
+        out["launches"].append({n: c1[n] - c0[n] for n in c1})
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+    out["counts"] = read_counts()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["changed"] = {n: not torch.equal(before[n], leaves[n]) for n in watch}
+    out["n_params"] = sum(p.numel() for p in leaves.values())
+    if profile:
+        profile_window("[profile lm train step 36L bf16]",
+                       lambda: step(model, opt, pipe.next_batch()), 1)
+    return out
+
+
 def same(a: dict, b: dict) -> bool:
     def eq(x, y):
         if isinstance(x, dict):
@@ -766,12 +1069,12 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="numpy seed of the network and its inputs")
     ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after the kernel checks, phases 1-3, 10 "
-                         "and 7 (a quick first check)")
+                    help="stop after the kernel checks, phases 1-3, 10, "
+                         "13 and 7 (a quick first check)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one run_lanes window per path "
-                         "on both networks, one decode tick and one "
-                         "prefill of the full LM "
+                         "on both networks, one decode tick, one "
+                         "prefill and one train step of the full LM "
                          "(torch.profiler: device busy share, launches, "
                          "top kernels)")
     args = ap.parse_args(argv)
@@ -783,8 +1086,13 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import route as route_k
     from repro_torch.kernels.lif_step import lif_step
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ref import (flash_attention_ref, lif_step_ref,
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd,
+                                                     flash_fwd_lse)
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_attention_ref,
+                                         flash_fwd_lse_ref, lif_step_ref,
                                          route_lif_ref, spike_matmul_ref)
     from repro_torch.kernels.spike_matmul import spike_matmul
 
@@ -832,9 +1140,12 @@ def main(argv=None) -> int:
     # ---- 10. the flash kernel against its plain version
     flash_errs = phase_flash_kernel(dev, args.seed)
 
+    # ---- 13. the training kernels against their plain versions
+    train_errs = phase_flash_train_kernels(dev, args.seed)
+
     if args.kernels_only:
         setup_mlp(dev, args.seed)
-        log("[kernels-only] phases 1-3, 10 and 7 passed; no result is "
+        log("[kernels-only] phases 1-3, 10, 13 and 7 passed; no result is "
             "reported")
         return 0
 
@@ -842,7 +1153,9 @@ def main(argv=None) -> int:
     route_lif = route_k.route_lif
     kernels_of = {"lif_step": lif_step, "route_lif": route_lif,
                   "spike_matmul": spike_matmul,
-                  "flash_attention": flash_attention}
+                  "flash_attention": flash_attention,
+                  "flash_fwd_lse": flash_fwd_lse,
+                  "flash_bwd_dkv": fa._bwd_dkv, "flash_bwd_dq": fa._bwd_dq}
 
     def zero_counts():
         for k in kernels_of.values():
@@ -954,6 +1267,10 @@ def main(argv=None) -> int:
     # ---- 11. the LM slice: 2 layers at full width, card vs CPU
     lm_par = phase_lm_parity(dev, args.seed)
 
+    # ---- 14. training, 2 layers at full width, card vs CPU
+    train_par = phase_train_parity(dev, args.seed, zero_counts, read_counts)
+    by_path["lm train 2L fp32 (parity)"] = train_par["launches"]
+
     # ---- 12. the full 36-layer LM: the slot server (fp32), then prefill
     # (bf16, the same weights rounded), counts from 0 for each
     torch.cuda.synchronize()
@@ -991,6 +1308,31 @@ def main(argv=None) -> int:
         profile_window("[profile lm prefill 36L bf16]",
                        lambda: run_lm_prefill(model, args.seed), 1)
     del model
+    torch.cuda.empty_cache()
+
+    # ---- 15. the full 36-layer LM training, bf16, counts from 0
+    t0 = time.perf_counter()
+    tr = run_lm_train(args.seed, zero_counts, read_counts, args.profile)
+    by_path["lm train 36L bf16"] = tr["counts"]
+    n_layers = lm_config().n_layers
+    log(f"[path lm train] {LM_ARCH} 36 layers bf16 ({tr['n_params']} "
+        f"parameters, fp32 moments), B={LM_TRAIN[0]} S={LM_TRAIN[1]}, "
+        f"{LM_TRAIN[2]} steps in {time.perf_counter() - t0:.1f} s with the "
+        f"weights' draw: losses {tr['loss']}, grad norms {tr['grad_norm']}, "
+        f"step ms {[round(x, 2) for x in tr['ms']]}; launches per step "
+        f"{tr['launches']}")
+    need(all(np.isfinite(tr["loss"])) and all(np.isfinite(tr["grad_norm"])),
+         "a training loss or grad norm is not finite")
+    need(all(tr["changed"].values()),
+         f"the parameters did not change: {tr['changed']}")
+    for c in tr["launches"]:
+        need(c["flash_fwd_lse"] == 2 * n_layers
+             and c["flash_bwd_dkv"] == n_layers
+             and c["flash_bwd_dq"] == n_layers
+             and c["flash_attention"] == 0,
+             f"a train step's launches are not 72 / 36 / 36 / 0: {c}")
+    train_ms = float(np.median(tr["ms"][1:]))
+    train_tok = LM_TRAIN[0] * LM_TRAIN[1] / (train_ms / 1e3)
     torch.cuda.empty_cache()
 
     if args.profile:
@@ -1135,6 +1477,80 @@ def main(argv=None) -> int:
 
     fa16 = time_flash(torch.bfloat16)
     fa32 = time_flash(torch.float32)
+
+    # the training kernels at the training shape, bf16 (the path's) and
+    # fp32: the forward with lse, the backward's two kernels alone and the
+    # whole backward (delta and the group sums included)
+    def time_flash_train(dtype):
+        B, S = LM_TRAIN[:2]
+        H, KV, D = 16, 2, 128
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed + 37)
+        q, k, v = flash_inputs(dev, gen, B, S, H, KV, D, dtype)
+        do = flash_inputs(dev, gen, B, S, H, KV, D, dtype)[0]
+        o, lse = flash_fwd_lse(q, k, v)
+        delta = (do.float() * o.float()).sum(dim=-1).contiguous()
+        rate = BF16_TC_FLOPS_PER_S if dtype == torch.bfloat16 \
+            else SCALAR_OPS_PER_S
+        prod = B * H * S * S * D           # one causal product, in flops
+        res = {}
+        res["fwd"] = (time_ms(lambda: flash_fwd_lse(q, k, v), flush=flush),
+                      time_ms(lambda: flash_fwd_lse_ref(q, k, v),
+                              flush=flush),
+                      *bound(nbytes(q, k, v, o, lse), 2 * prod, rate))
+        bwd_in = nbytes(q, k, v, do, lse, delta)
+        res["dkv"] = (time_ms(lambda: fa._bwd_dkv(q, k, v, do, lse, delta,
+                                                  True), flush=flush),
+                      *bound(bwd_in + 2 * 4 * B * H * S * D, 4 * prod, rate))
+        res["dq"] = (time_ms(lambda: fa._bwd_dq(q, k, v, do, lse, delta,
+                                                True), flush=flush),
+                     *bound(bwd_in + nbytes(q), 3 * prod, rate))
+        res["bwd"] = (time_ms(lambda: flash_attention_bwd(q, k, v, o, lse,
+                                                          do), flush=flush),
+                      time_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse,
+                                                              do),
+                              flush=flush),
+                      *bound(nbytes(q, k, v, o, do, lse, q, k, v),
+                             5 * prod, rate))
+        # the library yardsticks, never on the path: SDPA's forward, and
+        # autograd through SDPA with the forward excluded, KV heads repeated
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qe = q.contiguous().requires_grad_()
+        ke, ve = (t.repeat_interleave(H // KV, dim=1).contiguous()
+                  .requires_grad_() for t in (k, v))
+        with torch.no_grad():
+            lib_fwd = time_ms(lambda: sdpa(qe, ke, ve, is_causal=True),
+                              flush=flush)
+        out = sdpa(qe, ke, ve, is_causal=True)
+        doe = do.contiguous()
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            out, (qe, ke, ve), doe, retain_graph=True), flush=flush)
+        res["lib"] = (lib_fwd, lib_bwd)
+        f, bw = res["fwd"], res["bwd"]
+        log(f"[time flash_fwd_lse {str(dtype)[6:]}] {f[0]:.4f} ms at (B, S, "
+            f"H, KV, D) = {(B, S, H, KV, D)}, plain {f[1]:.4f} ms, bound "
+            f"{1e3 * f[2]:.2f} us ({f[3]}: 2 products of {prod} flops), "
+            f"{f[0] / f[2]:.1f}x the bound; library SDPA forward "
+            f"{lib_fwd:.4f} ms on {card}")
+        log(f"[time flash_attention_bwd {str(dtype)[6:]}] {bw[0]:.4f} ms "
+            f"(dK/dV kernel {res['dkv'][0]:.4f} ms, bound "
+            f"{1e3 * res['dkv'][1]:.2f} us for its 4 products; dQ kernel "
+            f"{res['dq'][0]:.4f} ms, bound {1e3 * res['dq'][1]:.2f} us for "
+            f"its 3), plain {bw[1]:.4f} ms, bound {1e3 * bw[2]:.2f} us "
+            f"({bw[3]}: 5 products; 7 as two kernels "
+            f"{1e6 * 7 * prod / rate:.2f} us), {bw[0] / bw[2]:.1f}x the "
+            f"bound; library autograd through SDPA {lib_bwd:.4f} ms on "
+            f"{card}")
+        return res
+
+    ft16 = time_flash_train(torch.bfloat16)
+    ft32 = time_flash_train(torch.float32)
+    log(f"[time lm train] {LM_ARCH} 36 layers bf16, fp32 moments, "
+        f"B={LM_TRAIN[0]} S={LM_TRAIN[1]}: {train_ms:.2f} ms per step "
+        f"(median of steps 2-{LM_TRAIN[2]}, host clock, synchronised) = "
+        f"{train_tok:.1f} tokens/s; the training kernels "
+        f"{72 * ft16['fwd'][0] + 36 * ft16['bwd'][0]:.2f} ms of it at their "
+        f"timed ms; peak device memory {tr['peak_bytes']} B on {card}")
     pre_ms = float(np.median(prefill_ms))
     n_tok = LM_PREFILL[0] * LM_PREFILL[1]
     log(f"[time lm prefill] {LM_ARCH} 36 layers bf16 B={LM_PREFILL[0]} "
@@ -1155,14 +1571,14 @@ def main(argv=None) -> int:
     kernels = [
         {"name": "lif_step", "route": "cuda",
          "source": "src/repro_torch/csrc/lif_step.cu",
-         "replaces": "src/repro/kernels/lif_step.py:42",
+         "replaces": "src/repro/kernels/lif_step.py:50",
          "launches": total("lif_step"),
          "launches_by_path": paths("lif_step"), "max_abs_err": lif_err,
          "ms": lif_ms, "plain_ms": lif_plain, "bound_ms": lif_bound,
          "bound_by": lif_by, "library_ms": None},
         {"name": "fused_route_lif_step", "route": "cuda",
          "source": "src/repro_torch/csrc/route_lif.cu",
-         "replaces": "src/repro/kernels/route.py:398",
+         "replaces": "src/repro/kernels/route.py:434",
          "launches": total("route_lif"),
          "launches_by_path": paths("route_lif"), "max_abs_err": route_err,
          "ms": route_ms, "plain_ms": route_plain, "bound_ms": route_bound,
@@ -1171,7 +1587,7 @@ def main(argv=None) -> int:
          "owner_scan_bytes": owner_scan_bytes},
         {"name": "spike_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/spike_matmul.cu",
-         "replaces": "src/repro/kernels/spike_matmul.py:42",
+         "replaces": "src/repro/kernels/spike_matmul.py:53",
          "launches": total("spike_matmul"),
          "launches_by_path": paths("spike_matmul"), "max_abs_err": sm_err,
          "ms": sm[0], "plain_ms": sm[1], "bound_ms": sm[2],
@@ -1182,7 +1598,7 @@ def main(argv=None) -> int:
          "yardstick_matmul_fp32_ms_16k": sm_big[4]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
-         "replaces": "src/repro/kernels/flash_attention.py:234",
+         "replaces": "src/repro/kernels/flash_attention.py:245",
          "launches": total("flash_attention"),
          "launches_by_path": paths("flash_attention"),
          "max_abs_err": max(e for t, e in flash_errs.items()
@@ -1196,7 +1612,47 @@ def main(argv=None) -> int:
          "lm_parity": lm_par, "prefill_ms": pre_ms,
          "prefill_tokens_per_s": n_tok / (pre_ms / 1e3),
          "decode_ms_per_tick": float(np.median(tick_ms))},
+        {"name": "_flash_fwd_lse", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:143",
+         "launches": total("flash_fwd_lse"),
+         "launches_by_path": paths("flash_fwd_lse"),
+         "max_abs_err": max(e["o"] for t, e in train_errs.items()
+                            if t.startswith("training shape")
+                            and t.endswith("bfloat16")),
+         "ms": ft16["fwd"][0], "plain_ms": ft16["fwd"][1],
+         "bound_ms": ft16["fwd"][2], "bound_by": ft16["fwd"][3],
+         "library_ms": ft16["lib"][0],
+         "ms_fp32": ft32["fwd"][0], "plain_ms_fp32": ft32["fwd"][1],
+         "bound_ms_fp32": ft32["fwd"][2], "library_ms_fp32": ft32["lib"][0],
+         "errors_by_case": train_errs, "train_parity": train_par,
+         "train_step_ms": train_ms, "train_tokens_per_s": train_tok,
+         "train_losses": tr["loss"], "train_peak_bytes": tr["peak_bytes"]},
     ]
+    for part, replaces, n_prod in (("dkv", 180, 4), ("dq", 193, 3)):
+        kernels.append({
+            "name": f"flash_attention_bwd ({part})", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"src/repro/kernels/flash_attention.py:{replaces}",
+            "launches": total(f"flash_bwd_{part}"),
+            "launches_by_path": paths(f"flash_bwd_{part}"),
+            "max_abs_err": max(
+                e[n] for t, e in train_errs.items()
+                if t.startswith("training shape") and t.endswith("bfloat16")
+                for n in (("dk_abs", "dv_abs") if part == "dkv"
+                          else ("dq_abs",))),
+            "ms": ft16[part][0], "plain_ms": ft16["bwd"][1],
+            "plain_ms_is": "the plain backward, both kernels' function",
+            "bound_ms": ft16[part][1], "bound_by": ft16[part][2],
+            "bound_products": n_prod, "library_ms": None,
+            "ms_fp32": ft32[part][0], "bound_ms_fp32": ft32[part][1],
+            "backward_ms": ft16["bwd"][0], "backward_plain_ms": ft16["bwd"][1],
+            "backward_bound_ms": ft16["bwd"][2],
+            "backward_library_ms": ft16["lib"][1],
+            "backward_ms_fp32": ft32["bwd"][0],
+            "backward_plain_ms_fp32": ft32["bwd"][1],
+            "backward_bound_ms_fp32": ft32["bwd"][2],
+            "backward_library_ms_fp32": ft32["lib"][1]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

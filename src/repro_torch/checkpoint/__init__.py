@@ -1,0 +1,4 @@
+from repro_torch.checkpoint.store import (CheckpointManager, restore_tree,
+                                          save_tree)
+
+__all__ = ["CheckpointManager", "restore_tree", "save_tree"]

@@ -11,6 +11,13 @@
 // the port's path it is the attention of every layer of `prefill`
 // (repro_torch/models/attention.py).
 //
+// With an lse pointer the same kernel (template flag LSE) also writes each
+// row's logsumexp, lse = m + log(max(l, 1e-30)) with m the running max of
+// the scaled scores and l the denominator, into a dense fp32 (B, H, S)
+// array: the Pallas kernel `_kernel_lse` (function `_flash_fwd_lse`), the
+// forward of `flash_attention_trainable`, which the training path runs in
+// every layer. Without it the kernel is the prefill's, unchanged.
+//
 // Bound on the H100: operations. The causal product is 2*B*H*S^2*D flops;
 // the function reads q, k, v once and writes o once, so from S of a few
 // hundred on it does far more arithmetic than the card can feed from
@@ -34,7 +41,9 @@
 //     kernel's `@pl.when`); the diagonal block, and the ragged tail past S
 //     in place of the TPU wrapper's padding, are masked with -1e30;
 //   - the finish divides by max(l, 1e-30) and rounds to the output type
-//     (__float2bfloat16_rn for bf16), as the TPU kernel's `_done` does.
+//     (__float2bfloat16_rn for bf16), as the TPU kernel's `_done` does,
+//     and with LSE the first thread of each row writes the row's lse, as
+//     `_kernel_lse`'s `_emit` does.
 // Padded rows (+4 floats) keep the shared-memory reads free of bank
 // conflicts. No fast-math: expf and IEEE division.
 #include <cuda_bf16.h>
@@ -82,11 +91,12 @@ __device__ __forceinline__ void load_tile(float* tile, const T* x,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool LSE>
 __global__ void __launch_bounds__(kThreads, D <= 128 ? 2 : 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
-                       Strides qs, Strides ks, Strides vs, Strides os, int S,
+                       float* __restrict__ lse, Strides qs, Strides ks,
+                       Strides vs, Strides os, int S,
                        int rep, int causal, float scale) {
   constexpr int LD = D + 4;        // padded row of the Q and K/V tiles
   constexpr int LP = kBK + 4;      // padded row of the P tile
@@ -214,6 +224,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + 4 * ty + i;
     if (row >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (LSE && tx == 0)
+      lse[((long long)b * gridDim.y + h) * S + row] = m[i] + logf(den);
     T* orow = op + (long long)row * os.s;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
@@ -223,52 +235,66 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int KV, int S, int causal, float scale, Strides qs,
+template <typename T, int D, bool LSE>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int KV, int S, int causal, float scale, Strides qs,
            Strides ks, Strides vs, Strides os, cudaStream_t st) {
-  auto kernel = flash_attention_kernel<T, D>;
+  auto kernel = flash_attention_kernel<T, D, LSE>;
   constexpr int bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, bytes, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, qs, ks, vs, os, S,
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, qs, ks, vs, os, S,
       H / KV, causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int KV, int S, int D, int causal, float scale,
-             Strides qs, Strides ks, Strides vs, Strides os,
+template <typename T, bool LSE>
+int launch_d(const void* q, const void* k, const void* v, void* o,
+             float* lse, int B, int H, int KV, int S, int D, int causal,
+             float scale, Strides qs, Strides ks, Strides vs, Strides os,
              cudaStream_t st) {
   switch (D) {
     case 64:
-      return launch<T, 64>(q, k, v, o, B, H, KV, S, causal, scale, qs, ks,
-                           vs, os, st);
+      return launch<T, 64, LSE>(q, k, v, o, lse, B, H, KV, S, causal, scale,
+                                qs, ks, vs, os, st);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, H, KV, S, causal, scale, qs, ks,
-                            vs, os, st);
+      return launch<T, 128, LSE>(q, k, v, o, lse, B, H, KV, S, causal,
+                                 scale, qs, ks, vs, os, st);
     case 256:
-      return launch<T, 256>(q, k, v, o, B, H, KV, S, causal, scale, qs, ks,
-                            vs, os, st);
+      return launch<T, 256, LSE>(q, k, v, o, lse, B, H, KV, S, causal,
+                                 scale, qs, ks, vs, os, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+int launch_t(const void* q, const void* k, const void* v, void* o,
+             float* lse, int B, int H, int KV, int S, int D, int causal,
+             float scale, Strides qs, Strides ks, Strides vs, Strides os,
+             cudaStream_t st) {
+  if (lse)
+    return launch_d<T, true>(q, k, v, o, lse, B, H, KV, S, D, causal, scale,
+                             qs, ks, vs, os, st);
+  return launch_d<T, false>(q, k, v, o, lse, B, H, KV, S, D, causal, scale,
+                            qs, ks, vs, os, st);
 }
 
 }  // namespace
 
 // q, o: (B, H, S, D); k, v: (B, KV, S, D); fp32 (bf16 == 0) or bf16
 // (bf16 == 1); D in {64, 128, 256}; H % KV == 0; each tensor's batch, head
-// and sequence strides in elements, its last axis dense. Launches on
-// `stream` and returns a cudaError_t (cudaErrorInvalidValue for a head
-// dimension it has no instance for).
+// and sequence strides in elements, its last axis dense. lse: null (the
+// forward alone, kernel 4) or a dense fp32 (B, H, S) array for the rows'
+// logsumexp (kernel 5). Launches on `stream` and returns a cudaError_t
+// (cudaErrorInvalidValue for a head dimension it has no instance for).
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int bf16, int B,
-    int H, int KV, int S, int D, int causal, float scale, long long q_sb,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int bf16, int B, int H, int KV, int S, int D, int causal, float scale,
+    long long q_sb,
     long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss, void* stream) {
@@ -277,9 +303,10 @@ extern "C" int flash_attention_launch(
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   cudaStream_t st = (cudaStream_t)stream;
+  float* l = (float*)lse;
   if (bf16)
-    return launch_d<__nv_bfloat16>(q, k, v, o, B, H, KV, S, D, causal, scale,
-                                   qs, ks, vs, os, st);
-  return launch_d<float>(q, k, v, o, B, H, KV, S, D, causal, scale, qs, ks,
-                         vs, os, st);
+    return launch_t<__nv_bfloat16>(q, k, v, o, l, B, H, KV, S, D, causal,
+                                   scale, qs, ks, vs, os, st);
+  return launch_t<float>(q, k, v, o, l, B, H, KV, S, D, causal, scale, qs,
+                         ks, vs, os, st);
 }

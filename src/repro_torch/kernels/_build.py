@@ -22,7 +22,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
@@ -34,16 +34,21 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _F = ctypes.c_float
-# every C entry point: its argument types (pointers and the stream as
-# c_void_p, sizes as c_int / c_int64, scales as c_float); each returns a
-# cudaError_t
+# each source's C entry points and their argument types (pointers and the
+# stream as c_void_p, sizes as c_int / c_int64, scales as c_float); each
+# returns a cudaError_t
 SIGNATURES = {
-    "lif_step": ("lif_step_launch", [_P] * 9 + [_I, _I, _P]),
-    "route_lif": ("route_lif_launch", [_P] * 13 + [_I64, _I, _I, _I, _P]),
-    "spike_matmul": ("spike_matmul_launch",
-                     [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P]),
-    "flash_attention": ("flash_attention_launch",
-                        [_P] * 4 + [_I] * 7 + [_F] + [_I64] * 12 + [_P]),
+    "lif_step": {"lif_step_launch": [_P] * 9 + [_I, _I, _P]},
+    "route_lif": {"route_lif_launch": [_P] * 13 + [_I64, _I, _I, _I, _P]},
+    "spike_matmul": {"spike_matmul_launch":
+                     [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P]},
+    "flash_attention": {"flash_attention_launch":
+                        [_P] * 5 + [_I] * 7 + [_F] + [_I64] * 12 + [_P]},
+    "flash_attention_bwd": {
+        "flash_bwd_dkv_launch": [_P] * 8 + [_I] * 7 + [_F] + [_I64] * 12
+        + [_P],
+        "flash_bwd_dq_launch": [_P] * 7 + [_I] * 7 + [_F] + [_I64] * 15
+        + [_P]},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -101,17 +106,19 @@ def build_all(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:
     return logs
 
 
-def load(name: str):
-    """The bound C entry point of kernel `name`, building it first if
-    its library is missing."""
+def load(name: str, entry: Optional[str] = None):
+    """The bound C entry point `entry` of source `name` (its only one
+    when None), building the library first if it is missing."""
     if name not in _loaded:
         path = library_path(name)
         if not path.exists():
             build_all([name])
         _loaded[name] = ctypes.CDLL(str(path))
-    fn_name, argtypes = SIGNATURES[name]
-    fn = getattr(_loaded[name], fn_name)
-    fn.argtypes = argtypes
+    entries = SIGNATURES[name]
+    if entry is None:
+        (entry,) = entries
+    fn = getattr(_loaded[name], entry)
+    fn.argtypes = entries[entry]
     fn.restype = ctypes.c_int
     return fn
 

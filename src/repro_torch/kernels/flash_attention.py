@@ -1,71 +1,229 @@
-"""Causal flash attention forward — wrapper of the CUDA kernel
-`csrc/flash_attention.cu`, the port of the Pallas kernel
-`flash_attention` in `repro/kernels/flash_attention.py` (with the
-any-length interface of `repro.kernels.ops.flash_attention`).
+"""Flash attention, forward and backward — wrappers of the CUDA kernels
+`csrc/flash_attention.cu` and `csrc/flash_attention_bwd.cu`, the ports of
+the three entries of `repro/kernels/flash_attention.py` (with the
+any-length interface of `repro.kernels.ops.flash_attention`):
+
+  * `flash_attention(q, k, v, causal)` -> o, the forward (Pallas `_kernel`;
+    the prefill's attention);
+  * `flash_fwd_lse(q, k, v, causal)` -> (o, lse), the same forward with
+    each row's logsumexp (Pallas `_kernel_lse`, JAX's `_flash_fwd_lse`);
+  * `flash_attention_bwd(q, k, v, o, lse, do, causal)` -> (dq, dk, dv),
+    two kernels as in JAX (`_bwd_dkv_kernel`, `_bwd_dq_kernel`);
+  * `flash_attention_trainable(q, k, v, causal)`, the differentiable
+    attention of the training path: a `torch.autograd.Function` whose
+    forward is `flash_fwd_lse` and whose backward is
+    `flash_attention_bwd`, saving (q, k, v, o, lse) as JAX's `_fat_fwd`.
 
 q is (B, H, S, D); k and v are (B, KV, S, D) with H % KV == 0, query
 head h reading KV head h // (H / KV) — the grouping of
 `repro.models.attention._sdpa`, so the model's narrow K/V go in without
-being repeated; KV == H is the TPU kernel's function. Any strides with a
+being repeated; KV == H is the TPU kernels' function. dK and dV come back
+as (B, KV, S, D), each summed over its group's H / KV query heads. lse
+is dense fp32 (B, H, S) (JAX keeps it as (B*H, S)). Any strides with a
 dense last axis: the model passes its (B, S, H, D) projections through
-`.transpose(1, 2)`, and the output keeps q's strides. Any S >= 1: the
-kernel masks its ragged tail where the TPU wrapper padded S.
+`.transpose(1, 2)`, and o and dq keep q's strides. Any S >= 1: the
+kernels mask their ragged tail where the TPU wrapper padded S. D in
+{64, 128, 256}, fp32 or bf16, every operation in fp32.
+
+CPU tensors take the plain versions (`kernels.ref`); CUDA tensors launch
+the kernels or raise. Each kernel launch adds one to its wrapper's
+`launches`: `flash_attention.launches`, `flash_fwd_lse.launches`, and
+`_bwd_dkv.launches` / `_bwd_dq.launches` for the backward's two kernels.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                     flash_attention_ref, flash_fwd_lse_ref)
 
 HEAD_DIMS = (64, 128, 256)
 
 
-def flash_attention(q, k, v, causal: bool = True):
-    """Attention with an online fp32 softmax; returns (B, H, S, D) in
-    q's dtype. CPU tensors take the plain version; CUDA tensors launch
-    the kernel (fp32 or bf16, D in HEAD_DIMS) or raise."""
-    devs = {q.device, k.device, v.device}
+def _on_cpu(name, *tensors) -> bool:
+    """True for CPU tensors (the plain version); raises unless they all
+    lie on one CUDA device otherwise."""
+    devs = {t.device for t in tensors}
     if devs == {torch.device("cpu")}:
-        return flash_attention_ref(q, k, v, causal)
-    if len(devs) != 1 or q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on one cuda device (or the "
-                         f"cpu), got {sorted(map(str, devs))}")
+        return True
+    if len(devs) != 1 or tensors[0].device.type != "cuda":
+        raise ValueError(f"{name} runs on one cuda device (or the cpu), got "
+                         f"{sorted(map(str, devs))}")
+    return False
+
+
+def _check(name, q, k, v):
+    """Validate the forward's interface for a kernel launch; returns
+    (B, H, KV, S, D)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_attention: want q (B, H, S, D) and k, v "
+        raise ValueError(f"{name}: want q (B, H, S, D) and k, v "
                          f"(B, KV, S, D), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, H, S, D = q.shape
     KV = k.shape[1]
     if (k.shape[0], k.shape[2], k.shape[3]) != (B, S, D) or KV == 0 \
             or H % KV:
-        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
-                         f"fit q {tuple(q.shape)} (H % KV must be 0)")
+        raise ValueError(f"{name}: k/v {tuple(k.shape)} do not fit q "
+                         f"{tuple(q.shape)} (H % KV must be 0)")
     if q.dtype not in (torch.float32, torch.bfloat16) \
             or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention takes fp32 or bf16 q, k, v of "
-                         f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise ValueError(f"{name} takes fp32 or bf16 q, k, v of one dtype, "
+                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in "
-                         f"{HEAD_DIMS}")
+        raise ValueError(f"{name}: head dim {D} not in {HEAD_DIMS}")
     if not 0 < B <= 65535 or not 0 < H <= 65535:
-        raise ValueError(f"flash_attention takes 1..65535 batch rows and "
-                         f"heads, got B={B}, H={H}")
+        raise ValueError(f"{name} takes 1..65535 batch rows and heads, got "
+                         f"B={B}, H={H}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError(f"{name}: the head dim must be dense (stride 1) in "
+                         f"q, k and v")
+    return B, H, KV, S, D
+
+
+def _strides(*tensors):
+    return [s for t in tensors for s in t.stride()[:3]]
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _forward(name, q, k, v, causal, lse):
+    B, H, KV, S, D = _check(name, q, k, v)
     out = torch.empty_like(q)
-    if any(t.stride(3) != 1 for t in (q, k, v, out)):
-        raise ValueError("flash_attention: the head dim must be dense "
-                         "(stride 1) in q, k and v")
-    if S == 0:
-        return out
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    fn = _build.load("flash_attention")
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             int(q.dtype == torch.bfloat16), B, H, KV, S, D, int(causal),
-             D ** -0.5, *strides,
-             torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_attention")
-    flash_attention.launches += 1
+    if out.stride(3) != 1:
+        raise ValueError(f"{name}: the head dim must be dense in q")
+    if S:
+        err = _build.load("flash_attention")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            int(q.dtype == torch.bfloat16), B, H, KV, S, D, int(causal),
+            D ** -0.5, *_strides(q, k, v, out), _stream(q))
+        _build.check(err, name)
     return out
 
 
+def flash_attention(q, k, v, causal: bool = True):
+    """Attention with an online fp32 softmax; returns (B, H, S, D) in
+    q's dtype. CPU tensors take the plain version; CUDA tensors launch
+    the kernel (fp32 or bf16, D in HEAD_DIMS) or raise."""
+    if _on_cpu("flash_attention", q, k, v):
+        return flash_attention_ref(q, k, v, causal)
+    out = _forward("flash_attention", q, k, v, causal, None)
+    if q.shape[2]:
+        flash_attention.launches += 1
+    return out
+
+
+def flash_fwd_lse(q, k, v, causal: bool = True):
+    """`flash_attention` plus each row's logsumexp: returns (o in q's
+    dtype (B, H, S, D), lse dense fp32 (B, H, S)). CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise."""
+    if _on_cpu("flash_fwd_lse", q, k, v):
+        return flash_fwd_lse_ref(q, k, v, causal)
+    B, H, S = q.shape[:3]
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    out = _forward("flash_fwd_lse", q, k, v, causal, lse)
+    if S:
+        flash_fwd_lse.launches += 1
+    return out, lse
+
+
+def _bwd_dkv(q, k, v, do, lse, delta, causal):
+    """dK and dV per query head, dense fp32 (B, H, S, D) each (the first
+    of the backward's two kernels); the caller sums the groups."""
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    dk = torch.empty((B, H, S, D), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    err = _build.load("flash_attention_bwd", "flash_bwd_dkv_launch")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        int(q.dtype == torch.bfloat16), B, H, KV, S, D, int(causal),
+        D ** -0.5, *_strides(q, k, v, do), _stream(q))
+    _build.check(err, "flash_bwd_dkv")
+    _bwd_dkv.launches += 1
+    return dk, dv
+
+
+def _bwd_dq(q, k, v, do, lse, delta, causal):
+    """dQ in q's dtype and strides (the second of the backward's two
+    kernels)."""
+    B, H, S, D = q.shape
+    dq = torch.empty_like(q)
+    if dq.stride(3) != 1:
+        raise ValueError("flash_attention_bwd: the head dim must be dense "
+                         "in q")
+    err = _build.load("flash_attention_bwd", "flash_bwd_dq_launch")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        int(q.dtype == torch.bfloat16), B, H, k.shape[1], S, D, int(causal),
+        D ** -0.5, *_strides(q, k, v, do, dq), _stream(q))
+    _build.check(err, "flash_bwd_dq")
+    _bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
+    """The flash backward: (dq, dk, dv) in the dtypes of q, k and v, from
+    the forward's o and lse and the output gradient do (B, H, S, D).
+    delta = rowsum(do * o) in fp32 is a torch op, as JAX computes it
+    outside its kernels; dK/dV are the fp32 per-head partials of the
+    first kernel summed over each group in order (deterministic, no float
+    atomics). CPU tensors take the plain version; CUDA tensors launch
+    both kernels or raise."""
+    if _on_cpu("flash_attention_bwd", q, k, v, o, lse, do):
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+    B, H, KV, S, D = _check("flash_attention_bwd", q, k, v)
+    if o.shape != q.shape or do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd: o and do must be q's shape "
+                         f"{tuple(q.shape)} and do q's dtype, got "
+                         f"{tuple(o.shape)}, {tuple(do.shape)} {do.dtype}")
+    if do.stride(3) != 1:
+        raise ValueError("flash_attention_bwd: the head dim must be dense "
+                         "(stride 1) in do")
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd: want a dense fp32 lse of "
+                         f"shape {(B, H, S)}, got {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    if S == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    delta = (do.float() * o.float()).sum(dim=-1).contiguous()
+    dk, dv = _bwd_dkv(q, k, v, do, lse, delta, causal)
+    dq = _bwd_dq(q, k, v, do, lse, delta, causal)
+
+    def group_sum(t, like):
+        return t.view(B, KV, H // KV, S, D).sum(dim=2).to(like.dtype)
+    return dq, group_sum(dk, k), group_sum(dv, v)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_fwd_lse(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.stride(3) != 1:
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention_trainable(q, k, v, causal: bool = True):
+    """Differentiable flash attention: `flash_fwd_lse` forward,
+    `flash_attention_bwd` backward (both kernels on the card, both plain
+    versions on the CPU). Returns o (B, H, S, D) in q's dtype."""
+    return _FlashAttention.apply(q, k, v, causal)
+
+
 flash_attention.launches = 0
+flash_fwd_lse.launches = 0
+_bwd_dkv.launches = 0
+_bwd_dq.launches = 0

@@ -2,10 +2,13 @@
 
 They take exactly the kernels' arguments and compute the same function
 with torch ops: int32 for the SNN kernels, an fp32 softmax for flash
-attention. The kernel wrappers call them for tensors on the CPU (the
-tests, which hold them against the JAX package), and `chip_smoke.py`
-holds each kernel against its plain version on the card. Nothing on the
-engine's, the simulator's or the LM's path calls them for CUDA tensors.
+attention's forward (`flash_attention_ref`, and `flash_fwd_lse_ref`
+with the logsumexp rows) and the explicit flash backward formula
+(`flash_attention_bwd_ref`). The kernel wrappers call them for tensors
+on the CPU (the tests, which hold them against the JAX package), and
+`chip_smoke.py` holds each kernel against its plain version on the card.
+Nothing on the engine's, the simulator's or the LM's serving or
+training path calls them for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -95,3 +98,55 @@ def flash_attention_ref(q, k, v, causal: bool = True):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrqk,bgkd->bgrqd", p, v.float())
     return o.reshape(B, H, S, D).to(q.dtype)
+
+
+def _scores(q, k, causal: bool):
+    """fp32 scores (B, KV, H // KV, S, S) of q scaled by D**-0.5 against
+    k, masked to -1e30 past the diagonal when causal."""
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    qg = q.reshape(B, KV, H // KV, S, D).float() * D ** -0.5
+    s = torch.einsum("bgrqd,bgkd->bgrqk", qg, k.float())
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
+    return s
+
+
+def flash_fwd_lse_ref(q, k, v, causal: bool = True):
+    """`flash_attention_ref` plus each row's logsumexp: returns (o in q's
+    dtype (B, H, S, D), lse fp32 (B, H, S)), lse = m + log(max(l, 1e-30))
+    with m the row's max scaled score and l its sum of exp(s - m), as the
+    TPU kernel's `_kernel_lse` finishes (JAX keeps lse as (B*H, S))."""
+    B, H, S, D = q.shape
+    s = _scores(q, k, causal)
+    m = s.amax(dim=-1)
+    l = torch.exp(s - m[..., None]).sum(dim=-1)
+    lse = m + torch.log(l.clamp(min=1e-30))
+    o = torch.einsum("bgrqk,bgkd->bgrqd", torch.softmax(s, dim=-1),
+                     v.float())
+    return o.reshape(B, H, S, D).to(q.dtype), lse.reshape(B, H, S)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True):
+    """The flash backward by its explicit formula (not autograd): p from
+    the lse rows, delta = rowsum(dO * O), ds = p * (dO V^T - delta),
+    dV = p^T dO, dK = ds^T q_hat with q_hat = q * D**-0.5, dQ = D**-0.5 *
+    ds K, all in fp32. q, o, do (B, H, S, D); k, v (B, KV, S, D); lse
+    (B, H, S). dK and dV sum each KV head's H // KV query heads. Returns
+    (dq, dk, dv) in the dtypes of q, k and v."""
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    shape = (B, KV, H // KV, S)
+    s = _scores(q, k, causal)
+    p = torch.exp(s - lse.reshape(shape)[..., None])
+    dof = do.reshape(shape + (D,)).float()
+    delta = (dof * o.reshape(shape + (D,)).float()).sum(dim=-1)
+    dv = torch.einsum("bgrqk,bgrqd->bgkd", p, dof)
+    dp = torch.einsum("bgrqd,bgkd->bgrqk", dof, v.float())
+    ds = p * (dp - delta[..., None])
+    q_hat = q.reshape(shape + (D,)).float() * D ** -0.5
+    dk = torch.einsum("bgrqk,bgrqd->bgkd", ds, q_hat)
+    dq = torch.einsum("bgrqk,bgkd->bgrqd", ds, k.float()) * D ** -0.5
+    return (dq.reshape(B, H, S, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

@@ -1,1 +1,2 @@
-"""LM launchers: the prefill/decode step factories and the slot server."""
+"""LM launchers: the train/prefill/decode step factories, the training
+loop and the slot server."""

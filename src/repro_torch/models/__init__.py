@@ -1,3 +1,4 @@
-"""The LM stack's models (dense family, serving half): layers, GQA
-attention over the flash kernel, the LM assembly and the converter of the
-JAX package's parameters."""
+"""The LM stack's models (dense family): layers and the chunked loss, GQA
+attention over the flash kernels, the LM assembly (loss, prefill,
+decode) and the converters of the JAX package's parameters and AdamW
+state."""

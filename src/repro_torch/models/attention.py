@@ -1,11 +1,18 @@
-"""Grouped-query attention, serving half — the port of the GQA half of
+"""Grouped-query attention — the port of the GQA half of
 `repro/models/attention.py`.
 
-Prefill, a pass over a whole sequence, runs the flash kernel
-(`kernels.flash_attention`): the CUDA kernel on the card, its plain
-version on the CPU. Decode (one token against a cache) stays in torch ops,
-a softmax over the cache masked to `k_idx <= q_idx` and
-`k_idx < kv_len`, as JAX computes it in XLA outside any Pallas kernel.
+A pass over a whole sequence runs the flash kernels: the training path
+(grad enabled and an input that requires grad) through
+`flash_attention_trainable`, whose forward is `flash_fwd_lse` and whose
+backward is `flash_attention_bwd`; prefill through `flash_attention`
+alone. On the card these are the CUDA kernels, on the CPU their plain
+versions; the narrow (B, KV, S, hd) K/V go in as they are, never
+repeated. JAX's training loss computes the same function in XLA
+(`attend`, q-chunked and rematerialized).
+
+Decode (one token against a cache) stays in torch ops, a softmax over
+the cache masked to `k_idx <= q_idx` and `k_idx < kv_len`, as JAX
+computes it in XLA outside any Pallas kernel.
 The decode step writes the new K/V row into the cache in place (JAX
 returns an updated copy); like JAX's `dynamic_update_slice` it writes
 every batch row at `cache_pos`, clamped into the cache.
@@ -19,7 +26,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_trainable)
 from repro_torch.models.layers import apply_rope, dense_init
 
 NEG_INF = -1e30
@@ -81,8 +89,8 @@ def attend(q, k, v, q_start, kv_len):
 def gqa_apply(p, x, cfg, positions, cache=None, cache_pos=None):
     """Full causal GQA. Returns (out, kv). Decode — a cache and one token
     (S == 1) at cache_pos — updates the cache in place and returns it;
-    otherwise attention runs over the sequence itself (the flash kernel)
-    and kv is its {k, v} (B, S, KV, hd), the prefill's cache."""
+    otherwise attention runs over the sequence itself (the flash
+    kernels) and kv is its {k, v} (B, S, KV, hd), the prefill's cache."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
     if cache is not None and S == 1:
@@ -94,8 +102,11 @@ def gqa_apply(p, x, cfg, positions, cache=None, cache_pos=None):
                      kv_len=cache_pos + 1)
     else:
         kv = {"k": k, "v": v}
-        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2)).transpose(1, 2)
+        qkv = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        train = torch.is_grad_enabled() and any(t.requires_grad
+                                                for t in qkv)
+        fn = flash_attention_trainable if train else flash_attention
+        out = fn(*qkv).transpose(1, 2)
     return out.flatten(2) @ p.wo.flatten(0, 1), kv
 
 

@@ -1,5 +1,6 @@
-"""Shared layers of the LM stack, serving half: norms, RoPE and sinusoidal
-positions, MLPs and embeddings — the port of `repro/models/layers.py`.
+"""Shared layers of the LM stack: norms, RoPE and sinusoidal positions,
+MLPs, embeddings and the sequence-chunked cross-entropy loss — the port
+of `repro/models/layers.py`.
 
 Parameters live in `nn.Module`s whose attribute names are the JAX
 parameter tree's keys (`scale`, `bias`, `w_in`, `w_gate`, `w_out`,
@@ -9,8 +10,7 @@ plain functions, as in JAX (`apply_norm`, `apply_rope`, `mlp_apply`,
 `embed_lookup`, `unembed`); each module's constructor is JAX's `*_init`.
 Weights are drawn from a `torch.Generator` on the device they live on:
 the same scales as JAX, not the same bits (tests move JAX's weights
-over with `weights.params_from_jax`). The sequence-chunked
-cross-entropy loss comes with the training slice.
+over with `weights.params_from_jax`).
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def dense_init(gen: torch.Generator, shape, dtype, fan_in=None):
@@ -144,3 +145,37 @@ def unembed(p, h, cfg):
     if cfg.tie_embeddings:
         return h @ p.table.t()
     return h @ p.out
+
+
+def chunked_ce_loss(emb, h, labels, mask, cfg):
+    """Mean next-token cross entropy over the mask: h (B, S, d), labels
+    (B, S) integer, mask (B, S) fp32. The sequence is cut into chunks of
+    the largest divisor of S not above `cfg.loss_chunk`, so the (B, S,
+    Vp) logits never exist at once; each chunk's fp32 logits mask the
+    vocab padding to -1e30 and are rematerialized in the backward
+    (`torch.utils.checkpoint`, JAX's `jax.checkpoint` on the scan body).
+    Returns tot / max(cnt, 1) as an fp32 scalar."""
+    B, S, _ = h.shape
+    chunk = min(cfg.loss_chunk, S)
+    while S % chunk:        # largest divisor of S not above loss_chunk
+        chunk -= 1
+
+    def body(hx, lx, mx):
+        logits = unembed(emb, hx, cfg).float()
+        pad = torch.arange(logits.shape[-1], device=logits.device) \
+            >= cfg.vocab_size
+        logits = torch.where(pad, torch.full((), -1e30, device=h.device),
+                             logits)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, lx[..., None].long(),
+                                    dim=-1)[..., 0]
+        return ((lse - gold) * mx).sum(), mx.sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, c0 + chunk)
+        ce, n = checkpoint(body, h[:, sl], labels[:, sl], mask[:, sl],
+                           use_reentrant=False)
+        tot, cnt = tot + ce, cnt + n
+    return tot / cnt.clamp(min=1.0)

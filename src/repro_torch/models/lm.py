@@ -1,5 +1,5 @@
-"""LM assembly, dense family, serving half — the port of the dense path
-of `repro/models/lm.py`.
+"""LM assembly, dense family — the port of the dense path of
+`repro/models/lm.py`.
 
 The model is an `nn.Module` (`LM`) with the JAX parameter tree's names:
 `embed`, `final_norm`, and `blocks.<i>` for each layer, each block with
@@ -7,11 +7,12 @@ The model is an `nn.Module` (`LM`) with the JAX parameter tree's names:
 layers where JAX scans a layer-stacked segment; caches keep JAX's
 layer-stacked layout, {"blocks": {"k", "v": (L, B, T, KV, hd)}}.
 
-Entry points: `init_params`, `init_cache`, `prefill` and `decode_step`.
-They run on the card unless the caller asks for the CPU
-(`device="cpu"`, or a model already there). MoE, MLA, SSM, hybrid and
-frontend configs raise NotImplementedError; they are ROADMAP item 10's
-later slices. The training loss comes with the training slice.
+Entry points: `init_params`, `loss_fn` (the training loss, with each
+block rematerialized when `cfg.remat` holds, JAX's `jax.checkpoint` per
+block), `init_cache`, `prefill` and `decode_step`. They run on the card
+unless the caller asks for the CPU (`device="cpu"`, or a model already
+there). MoE, MLA, SSM, hybrid and frontend configs raise
+NotImplementedError; they are ROADMAP item 10's later slices.
 """
 from __future__ import annotations
 
@@ -19,11 +20,12 @@ from typing import Any, Dict
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (MLP, Embed, Norm, embed_lookup,
-                                       unembed)
+from repro_torch.models.layers import (MLP, Embed, Norm, chunked_ce_loss,
+                                       embed_lookup, unembed)
 
 
 def check_supported(cfg) -> None:
@@ -89,17 +91,26 @@ def block_apply(p, x, cfg, positions, cache=None, cache_pos=None):
 
 
 def backbone(params, cfg, batch, positions=None, caches=None,
-             cache_pos=None, with_cache=False):
+             cache_pos=None, with_cache=False, remat=None):
     """Returns (h, caches). Decode passes `caches` and `cache_pos` and
     gets them back, updated in place; a full-sequence pass with
     `with_cache` gets its {"blocks": {"k", "v"}} stacked over the
-    layers; otherwise caches is None."""
+    layers; otherwise caches is None. With `remat` (default
+    `cfg.remat`) and grad enabled, each block runs under
+    `torch.utils.checkpoint` and is recomputed in the backward."""
+    remat = cfg.remat if remat is None else remat
+    remat = remat and torch.is_grad_enabled() and caches is None \
+        and not with_cache
     tokens = batch["tokens"]
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
     h = embed_lookup(params.embed, tokens)
     ks, vs = [], []
     for i, blk in enumerate(params.blocks):
+        if remat:
+            h = checkpoint(lambda x, blk=blk: block_apply(
+                blk, x, cfg, positions)[0], h, use_reentrant=False)
+            continue
         cl = None
         if caches is not None:
             cl = {"k": caches["blocks"]["k"][i],
@@ -112,6 +123,26 @@ def backbone(params, cfg, batch, positions=None, caches=None,
     if caches is None and with_cache:
         caches = {"blocks": {"k": torch.stack(ks), "v": torch.stack(vs)}}
     return h, caches
+
+
+def loss_fn(params, cfg, batch):
+    """The training loss of batch["tokens"] (B, S): next-token cross
+    entropy (labels are the tokens rolled by one, the last position
+    masked, times batch["loss_mask"] when given) through
+    `chunked_ce_loss`. Returns (ce + aux, {"ce", "aux"}); aux, the MoE
+    router loss, is 0 for the dense family."""
+    check_supported(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    h, _ = backbone(params, cfg, batch)
+    labels = torch.roll(tokens, -1, dims=1)
+    mask = torch.ones((B, S), dtype=torch.float32, device=tokens.device)
+    mask[:, -1] = 0.0
+    if "loss_mask" in batch:
+        mask = mask * batch["loss_mask"]
+    ce = chunked_ce_loss(params.embed, h, labels, mask, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def init_cache(cfg, batch_size, max_len, dtype=torch.bfloat16, device=None):

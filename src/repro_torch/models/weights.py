@@ -11,7 +11,12 @@ the tied `embed.table` over the padded vocab) and the same dtypes:
     model = lm.init_params(cfg, dtype=..., device=...)
     model.load_state_dict(params_from_jax(tree, cfg))
 
-The port's tests use it to make both packages compute one function.
+`opt_state_from_jax(opt_tree, cfg)` maps JAX's AdamW state
+(`repro.optim.adamw_init` / `adamw_update`: {"mu", "nu", "step"}, as
+numpy) onto the port's (`repro_torch.optim.adamw_init`): mu and nu by
+the same names as the parameters, step an int32 scalar tensor.
+
+The port's tests use them to make both packages compute one function.
 """
 from __future__ import annotations
 
@@ -54,3 +59,10 @@ def params_from_jax(tree, cfg) -> Dict[str, torch.Tensor]:
 
     walk(tree, ())
     return state
+
+
+def opt_state_from_jax(opt_tree, cfg):
+    return {"mu": params_from_jax(opt_tree["mu"], cfg),
+            "nu": params_from_jax(opt_tree["nu"], cfg),
+            "step": torch.as_tensor(np.array(opt_tree["step"]),
+                                    dtype=torch.int32)}

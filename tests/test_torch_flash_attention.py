@@ -1,20 +1,30 @@
-"""The port's flash attention (on CPU tensors, its plain version) against
-the JAX package's: the Pallas kernel through `repro.kernels.ops` in
-interpret mode (bq = bk = 64) and the jnp oracle `ref.flash_attention_ref`,
-at the shapes of tests/test_kernels.py plus ragged lengths; the grouped
-(GQA) form against repeated heads and against `models.attention._sdpa`;
-causality. Tolerances are tests/test_kernels.py's: 2e-5 for fp32, 2e-2
-for bf16 (inputs rounded to bf16 the same way in both packages)."""
+"""The port's flash attention (on CPU tensors, its plain versions) against
+the JAX package's: the Pallas kernels in interpret mode (bq = bk = 64) —
+the forward through `repro.kernels.ops`, `_flash_fwd_lse`,
+`flash_attention_bwd` and the custom_vjp `flash_attention_trainable` —
+and the jnp oracle `ref.flash_attention_ref`, at the shapes of
+tests/test_kernels.py plus ragged lengths; the grouped (GQA) form against
+repeated heads and against `models.attention._sdpa`; causality.
+Tolerances are tests/test_kernels.py's: 2e-5 for fp32 outputs and lse,
+2e-2 for bf16 (inputs rounded to bf16 the same way in both packages),
+1e-4 for gradients."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import flash_attention as jfa
 from repro.kernels import ops
 from repro.kernels import ref as jref
 from repro.models import attention as jattn
-from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_trainable,
+                                                 flash_fwd_lse)
+from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                     flash_attention_ref, flash_fwd_lse_ref)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 DT = {"float32": (jnp.float32, torch.float32),
@@ -114,6 +124,133 @@ def test_full_attention_matches_oracle():
 
 def test_cpu_tensors_take_the_plain_version():
     q, k, v = map(torch.from_numpy, qkv(1, 1, 2, 1, 33, 64))
-    before = flash_attention.launches
+    counters = (flash_attention, flash_fwd_lse, tfa._bwd_dkv, tfa._bwd_dq)
+    before = [f.launches for f in counters]
     assert torch.equal(flash_attention(q, k, v), flash_attention_ref(q, k, v))
-    assert flash_attention.launches == before
+    o, lse = flash_fwd_lse(q, k, v)
+    ro, rlse = flash_fwd_lse_ref(q, k, v)
+    assert torch.equal(o, ro) and torch.equal(lse, rlse)
+    do = torch.ones_like(q)
+    for a, b in zip(flash_attention_bwd(q, k, v, o, lse, do),
+                    flash_attention_bwd_ref(q, k, v, o, lse, do)):
+        assert torch.equal(a, b)
+    assert [f.launches for f in counters] == before
+
+
+# ------------------------------------------------------------------ training
+def jax_fwd_lse(q, k, v, causal=True):
+    """JAX's `_flash_fwd_lse` in interpret mode: (o, lse (B*H, S))."""
+    return jfa._flash_fwd_lse(jnp.asarray(q), jnp.asarray(k),
+                              jnp.asarray(v), causal, 64, 64, True)
+
+
+@pytest.mark.parametrize("S", [128, 256])
+@pytest.mark.parametrize("D", [32, 64])
+def test_fwd_lse_matches_pallas_kernel(S, D):
+    B, H = 2, 3
+    q, k, v = qkv(S + D, B, H, H, S, D)
+    jo, jlse = jax_fwd_lse(q, k, v)
+    o, lse = flash_fwd_lse(*map(torch.from_numpy, (q, k, v)))
+    assert o.dtype == torch.float32 and lse.dtype == torch.float32
+    assert lse.shape == (B, H, S)
+    assert err(to_np(o), jo) < TOL["float32"]
+    assert err(lse.reshape(B * H, S).numpy(), jlse) < 2e-5
+    # lse is the rows' logsumexp of the scaled, masked scores
+    s = np.einsum("bhqd,bhkd->bhqk", q * D ** -0.5, k)
+    s = np.where(np.tril(np.ones((S, S), bool)), s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    want = (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+    assert err(lse.numpy(), want) < 2e-5
+
+
+@pytest.mark.parametrize("S,causal", [(128, True), (256, True),
+                                      (128, False)])
+def test_bwd_matches_pallas_kernels(S, causal):
+    """The plain backward fed JAX's own o and lse, against JAX's two
+    Pallas backward kernels (KV == H, S % 64 == 0: their contract)."""
+    B, H, D = 1, 2, 64
+    q, k, v = qkv(S + 1, B, H, H, S, D)
+    do = np.random.default_rng(S).standard_normal((B, H, S, D)) \
+        .astype(np.float32)
+    jo, jlse = jax_fwd_lse(q, k, v, causal)
+    want = jfa.flash_attention_bwd(
+        *map(jnp.asarray, (q, k, v, jo, jlse, do)), causal=causal, bq=64,
+        bk=64, interpret=True)
+    got = flash_attention_bwd(
+        *map(torch.from_numpy, (q, k, v, np.array(jo),
+                                np.array(jlse).reshape(B, H, S), do)),
+        causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        assert err(to_np(g), w) < 1e-4
+
+
+def torch_grads(fn, q, k, v):
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    return torch.autograd.grad(torch.tanh(fn(*ts)).sum(), ts)
+
+
+@pytest.mark.parametrize("H,S,D", [(2, 128, 64), (1, 256, 32)])
+def test_trainable_grads_match_jax_custom_vjp(H, S, D):
+    """torch.autograd.grad of sum(tanh(flash_attention_trainable)) against
+    jax.grad of JAX's flash_attention_trainable (fwd and bwd both Pallas
+    kernels in interpret mode)."""
+    q, k, v = qkv(H * S + D, 1, H, H, S, D)
+
+    def jloss(q, k, v):
+        return jnp.sum(jnp.tanh(jfa.flash_attention_trainable(
+            q, k, v, True, 64, 64, True)))
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    got = torch_grads(flash_attention_trainable, q, k, v)
+    for g, w in zip(got, want):
+        assert err(to_np(g), w) < 1e-4
+
+
+@pytest.mark.parametrize("H,KV,S,causal", [(4, 2, 96, True),
+                                           (8, 2, 64, True),
+                                           (4, 1, 80, True),
+                                           (6, 3, 100, False)])
+def test_trainable_grouped_heads_match_repeated_heads(H, KV, S, causal):
+    """GQA (KV < H): dK/dV come back (B, KV, S, D), each the sum over its
+    group's query heads — autograd through the plain forward with the
+    KV heads repeated gives the same."""
+    q, k, v = qkv(H + KV + S, 2, H, KV, S, 64)
+    got = torch_grads(lambda *t: flash_attention_trainable(*t, causal),
+                      q, k, v)
+    rep = H // KV
+
+    def repeated(q, k, v):
+        return flash_attention_ref(q, k.repeat_interleave(rep, 1),
+                                   v.repeat_interleave(rep, 1), causal)
+    want = torch_grads(repeated, q, k, v)
+    assert got[1].shape == (2, KV, S, 64)
+    for g, w in zip(got, want):
+        assert err(to_np(g), to_np(w)) < 1e-4
+
+
+@pytest.mark.parametrize("S,causal", [(100, True), (77, False), (1, True)])
+def test_trainable_ragged_lengths(S, causal):
+    """Any S: against autograd through the port's plain forward (JAX's
+    kernels take only S % 64 == 0)."""
+    q, k, v = qkv(S, 1, 4, 2, S, 64)
+    got = torch_grads(lambda *t: flash_attention_trainable(*t, causal),
+                      q, k, v)
+    want = torch_grads(lambda *t: flash_attention_ref(*t, causal), q, k, v)
+    for g, w in zip(got, want):
+        assert err(to_np(g), to_np(w)) < 1e-4
+
+
+def test_bwd_bf16_rounds_like_the_inputs():
+    """bf16 in: fp32 arithmetic, each gradient rounded to bf16 once,
+    within 2e-2 of the fp32 backward on the same rounded inputs."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in qkv(3, 1, 4, 2, 128, 64))
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(0)) \
+        .to(torch.bfloat16)
+    o, lse = flash_fwd_lse(q, k, v)
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    want = flash_attention_bwd_ref(*(t.float() for t in (q, k, v, o)), lse,
+                                   do.float())
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        assert err(to_np(g), to_np(w)) < TOL["bfloat16"]

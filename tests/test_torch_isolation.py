@@ -123,6 +123,24 @@ def test_lm_entry_points_default_to_the_card():
     assert len(srv.outputs[0]) == 1
 
 
+def test_training_entry_points_default_to_the_card():
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig
+    cfg, oc = get_reduced("qwen2_5_3b"), AdamWConfig()
+    argv = ["--arch", "qwen2_5_3b", "--reduced", "--steps", "1",
+            "--batch", "1", "--seq", "8"]
+    if torch.cuda.is_available():
+        assert train.main(argv) > 0
+    else:
+        for run in (lambda: make_train_step(cfg, oc),
+                    lambda: train.main(argv)):
+            with pytest.raises(RuntimeError, match='device="cpu"'):
+                run()
+    assert train.main(argv + ["--device", "cpu"]) > 0
+
+
 def run_smoke(cwd):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
