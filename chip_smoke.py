@@ -15,21 +15,32 @@ raises and the script exits non-zero:
   3. the fused route+LIF kernel against its plain version on the smoke
      network's own tables, with gates from real steps (B = 8); exact
      equality on V_next, spikes and the pointer/row reads;
- 10. the `flash_attention` kernel against its plain version on the card,
-     fp32 within 2e-5 and bf16 within 2e-2: at the prefill shape (B = 1,
-     S = 4,096, 16 query heads, 2 KV heads, D = 128), a ragged S = 1,000
-     (B = 2), KV == H (the TPU kernel's contract), D = 256, S = 1 and
-     causal=False; then causality (keys and values after p perturbed,
-     outputs up to p unchanged bit for bit);
+ 10. the `flash_attention` kernel: first `cuobjdump -sass` of its built
+     library, where every bf16 instance (the tensor-core kernel, one per
+     head dim and lse flag) must hold HGMMA instructions and no fp32
+     instance (the FMA kernel) any, with each instance's HGMMA count,
+     registers, spills and shared memory printed; then the kernel
+     against its plain version on the card, fp32 within 2e-5 and bf16
+     within 2e-2 (bf16 also within 2e-2 of the plain version in fp32 on
+     the same inputs): at the prefill shape (B = 1, S = 4,096, 16 query
+     heads, 2 KV heads, D = 128), a ragged S = 1,000 (B = 2), KV == H
+     (the TPU kernel's contract), D = 256, S = 1, causal=False, a peaky
+     softmax (q and k x 4 at (2, 1,000, 16, 2, 128)) and a flat one over
+     8 k keys (q x 0.05 at (1, 8,192, 4, 1, 128)), where the rounding of
+     P to bf16 before P V adds up; a bf16 q 2 bytes off 16-byte
+     alignment must raise ValueError, launching nothing; then causality
+     in fp32 and bf16 (keys and values after p perturbed, outputs up to
+     p unchanged bit for bit);
  13. the training kernels against their plain versions on the card: the
      forward with logsumexp rows (`flash_fwd_lse`: o and lse within 2e-5
-     in fp32, 2e-2 in bf16) and the backward's two kernels
-     (`flash_attention_bwd`: dq, dk, dv within 1e-4 of the plain
-     version's largest magnitude in fp32, 2e-2 in bf16; at S = 1, where
-     dq and dk are 0 but for rounding, of dv's), at the training
-     shape (B = 1, S = 4,096, 16 / 2 heads, D = 128), a ragged S = 1,000
-     (B = 2), KV == H, D = 256, D = 64, S = 1 and causal=False; then two
-     backward calls give the same bits, and perturbing the keys and
+     in fp32, 2e-2 in bf16, bf16 o also against the fp32 plain version)
+     and the backward's two kernels (`flash_attention_bwd`: dq, dk, dv
+     within 1e-4 of the plain version's largest magnitude in fp32, 2e-2
+     in bf16; at S = 1, where dq and dk are 0 but for rounding, of
+     dv's), at the training shape (B = 1, S = 4,096, 16 / 2 heads,
+     D = 128), a ragged S = 1,000 (B = 2), KV == H, D = 256, D = 64,
+     S = 1, causal=False and phase 10's peaky and flat softmaxes; then
+     two backward calls give the same bits, and perturbing the keys and
      values after p leaves dQ's rows up to p unchanged bit for bit;
   4. the main path at full width — NetworkSpec -> compile_spec ->
      deploy(device=None) -> run_lanes x 3 windows, run, run_batch —
@@ -89,7 +100,8 @@ raises and the script exits non-zero:
   6. timing: each kernel's median time against its plain version and
      its bound (spike_matmul also at 16,384 x 16,384 int32, past the L2
      cache; flash_attention at the prefill shape in bf16 and fp32),
-     beside a library call or a time-only yardstick where one exists,
+     beside a library call or a time-only yardstick where one exists
+     (the flash kernels also in TFLOP/s and as a multiple of the library),
      run_lanes' time per step on both networks, and the full LM's
      prefill tokens/s and decode ms per tick; the training kernels at
      the training shape in bf16 and fp32 (the forward with lse against
@@ -571,42 +583,121 @@ def phase_profile(compiled, fused: bool, seed: int, A: int):
 
 
 # ------------------------------------------------------------- the LM slice
-def flash_inputs(dev, gen, B, S, H, KV, D, dtype, layout="model"):
-    """q (B, H, S, D) and k, v (B, KV, S, D), N(0, 1) in `dtype`: views
-    of (B, S, heads, D) storage as the model passes them (layout
-    "model"), or dense (B, heads, S, D)."""
-    def mk(n):
+def flash_inputs(dev, gen, B, S, H, KV, D, dtype, layout="model",
+                 mul=(1.0, 1.0)):
+    """q (B, H, S, D) and k, v (B, KV, S, D), N(0, 1) in `dtype` (q and k
+    times `mul`): views of (B, S, heads, D) storage as the model passes
+    them (layout "model"), or dense (B, heads, S, D)."""
+    def mk(n, m=1.0):
         if layout == "model":
-            return torch.randn((B, S, n, D), generator=gen, device=dev) \
-                .to(dtype).transpose(1, 2)
-        return torch.randn((B, n, S, D), generator=gen, device=dev).to(dtype)
-    return mk(H), mk(KV), mk(KV)
+            x = torch.randn((B, S, n, D), generator=gen, device=dev)
+            return (x * m).to(dtype).transpose(1, 2)
+        x = torch.randn((B, n, S, D), generator=gen, device=dev)
+        return (x * m).to(dtype)
+    return mk(H, mul[0]), mk(KV, mul[1]), mk(KV)
+
+
+# the harder bf16 cases of phases 10 and 13: a peaky softmax (q and k x 4:
+# scores of standard deviation 16, one key takes nearly all the weight)
+# and a flat one over 8 k keys (q x 0.05), where the rounding of P to bf16
+# before P V adds up over the most terms
+HARD_FLASH_CASES = [  # name, (B, S, H, KV, D), layout, causal, (q, k) x
+    ("peaky softmax", (2, 1000, 16, 2, 128), "model", True, (4.0, 4.0)),
+    ("flat softmax", (1, 8192, 4, 1, 128), "model", True, (0.05, 1.0)),
+]
+
+
+def flash_instances(lib_path, build_log):
+    """Each flash forward instance of the built library: {name: (HGMMA
+    count in its SASS, registers, spill-store bytes)} (registers and
+    spills None when the library was not built in this run). Names are
+    'wgmma<D, LSE>' (bf16) and 'fma<D, LSE>' (fp32)."""
+    import re
+    from torch.utils.cpp_extension import CUDA_HOME
+    tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+
+    def short(mangled):
+        m = re.search(r"flash_attention_(wgmma_)?kernelILi(\d+)ELb(\d)E",
+                      mangled)
+        return m and (f"{'wgmma' if m.group(1) else 'fma'}<{m.group(2)}, "
+                      f"{'lse' if m.group(3) == '1' else 'no lse'}>")
+    usage, entry = {}, None
+    for line in (build_log or "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = short(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and entry:
+            usage.setdefault(entry, {})["spill"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            usage.setdefault(entry, {})["regs"] = int(m.group(1))
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        name = short(part.split()[0])
+        if name:
+            u = usage.get(name, {})
+            out[name] = (part.count("HGMMA"), u.get("regs"), u.get("spill"))
+    return out
+
+
+def phase_tensor_cores(build_log) -> dict:
+    """cuobjdump -sass of the built flash_attention library: every bf16
+    instance (wgmma<D, LSE>) holds HGMMA instructions, no fp32 one (fma<D,
+    LSE>) does. Logs each instance's HGMMA count, registers, spills and
+    dynamic shared memory; returns them."""
+    from repro_torch.kernels import _build
+    inst = flash_instances(_build.library_path("flash_attention"),
+                           build_log)
+    smem = _build.load("flash_attention", "flash_attention_smem_bytes")
+    need(len(inst) == 12, f"want 12 flash forward instances, found "
+                          f"{sorted(inst)}")
+    rec = {}
+    for name, (n_hgmma, regs, spill) in sorted(inst.items()):
+        bf16 = name.startswith("wgmma")
+        D = int(name.split("<")[1].split(",")[0])
+        need(n_hgmma > 0 if bf16 else n_hgmma == 0,
+             f"flash_attention instance {name}: {n_hgmma} HGMMA "
+             f"instructions (bf16 must use the tensor cores, fp32 not)")
+        rec[name] = {"hgmma": n_hgmma, "registers": regs,
+                     "spill_store_bytes": spill,
+                     "dynamic_smem_bytes": smem(int(bf16), D)}
+        log(f"[flash_attention] {name}: {n_hgmma} HGMMA in its SASS, "
+            f"{regs} registers, {spill} B spill stores, "
+            f"{rec[name]['dynamic_smem_bytes']} B dynamic shared memory")
+    return rec
 
 
 def phase_flash_kernel(dev, seed: int) -> dict:
     """The flash kernel against its plain version on the card, fp32 and
     bf16, at the prefill shape, a ragged S, KV == H (the TPU kernel's
-    contract), D = 256 (Gemma's), S = 1 and causal=False; then causality.
+    contract), D = 256 (Gemma's), S = 1, causal=False and the harder
+    softmaxes of HARD_FLASH_CASES (bf16 also against the fp32 plain
+    version); a misaligned bf16 q raises; then causality in both dtypes.
     Returns each case's max |error|."""
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_fwd_lse)
     from repro_torch.kernels.ref import flash_attention_ref
     need(not torch.backends.cuda.matmul.allow_tf32,
          "TF32 matmuls are on; the plain version must run in fp32")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 13)
     B, S = LM_PREFILL
-    cases = [  # name, (B, S, H, KV, D), layout, causal
-        ("prefill shape", (B, S, 16, 2, 128), "model", True),
-        ("ragged S", (2, 1000, 16, 2, 128), "model", True),
-        ("KV == H", (2, 512, 8, 8, 64), "heads", True),
-        ("D = 256", (1, 700, 16, 16, 256), "model", True),
-        ("S = 1", (3, 1, 4, 2, 64), "model", True),
-        ("causal=False", (1, 300, 4, 2, 128), "model", False),
-    ]
+    cases = [  # name, (B, S, H, KV, D), layout, causal, (q, k) x
+        ("prefill shape", (B, S, 16, 2, 128), "model", True, (1.0, 1.0)),
+        ("ragged S", (2, 1000, 16, 2, 128), "model", True, (1.0, 1.0)),
+        ("KV == H", (2, 512, 8, 8, 64), "heads", True, (1.0, 1.0)),
+        ("D = 256", (1, 700, 16, 16, 256), "model", True, (1.0, 1.0)),
+        ("S = 1", (3, 1, 4, 2, 64), "model", True, (1.0, 1.0)),
+        ("causal=False", (1, 300, 4, 2, 128), "model", False, (1.0, 1.0)),
+    ] + HARD_FLASH_CASES
     errs = {}
-    for name, shape, layout, causal in cases:
+    for name, shape, layout, causal, mul in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = flash_inputs(dev, gen, *shape, dtype, layout)
+            q, k, v = flash_inputs(dev, gen, *shape, dtype, layout, mul)
             got = flash_attention(q, k, v, causal)
             want = flash_attention_ref(q, k, v, causal)
             torch.cuda.synchronize()
@@ -618,21 +709,53 @@ def phase_flash_kernel(dev, seed: int) -> dict:
                  f"flash_attention kernel != plain version on {tag} "
                  f"(max |d| {e:.3g}, tolerance {FLASH_TOL[dtype]})")
             errs[tag] = e
+            extra = ""
+            if dtype == torch.bfloat16:
+                # and against the plain version in fp32 on the same
+                # (bf16-valued) inputs, its output not rounded
+                e32 = float((got.float() - flash_attention_ref(
+                    q.float(), k.float(), v.float(), causal)).abs().max())
+                need(e32 <= FLASH_TOL[dtype],
+                     f"flash_attention kernel != fp32 plain version on "
+                     f"{tag} (max |d| {e32:.3g})")
+                errs[tag + " vs fp32"] = e32
+                extra = f"; {e32:.3g} against the fp32 plain version"
             log(f"[flash_attention] kernel == plain on {tag} (B, S, H, KV, "
-                f"D), {layout} layout: max_abs_err {e:.3g} <= "
-                f"{FLASH_TOL[dtype]}")
-    q, k, v = flash_inputs(dev, gen, 2, 1000, 16, 2, 128, torch.float32)
+                f"D), {layout} layout, q, k x {mul}: max_abs_err {e:.3g} "
+                f"<= {FLASH_TOL[dtype]}{extra}")
+            del q, k, v, got, want
+    # a bf16 q 2 bytes off 16-byte alignment: the tensor-core kernel's TMA
+    # cannot take it, and the wrapper raises rather than fall back
+    raw = torch.zeros(1 * 64 * 4 * 128 + 1, dtype=torch.bfloat16, device=dev)
+    q = raw[1:].view(1, 64, 4, 128).transpose(1, 2)
+    k, v = flash_inputs(dev, gen, 1, 64, 4, 2, 128, torch.bfloat16)[1:]
+    before = (flash_attention.launches, flash_fwd_lse.launches)
+    for fn in (flash_attention, flash_fwd_lse):
+        try:
+            fn(q, k, v)
+            raised = False
+        except ValueError:
+            raised = True
+        need(raised, f"{fn.__name__} took a misaligned bf16 q")
+    need((flash_attention.launches, flash_fwd_lse.launches) == before,
+         "a misaligned bf16 q launched a kernel")
+    log("[flash_attention] a bf16 q 2 bytes off 16-byte alignment raises "
+        "ValueError in flash_attention and flash_fwd_lse, no launch")
     p = 517
-    o1 = flash_attention(q, k, v)
-    k2, v2 = k.clone(), v.clone()
-    k2[:, :, p + 1:] += 7.0
-    v2[:, :, p + 1:] -= 3.0
-    o2 = flash_attention(q, k2, v2)
-    need(torch.equal(o1[:, :, :p + 1], o2[:, :, :p + 1])
-         and not torch.equal(o1[:, :, p + 1:], o2[:, :, p + 1:]),
-         "flash_attention: outputs up to p moved with keys after p")
-    log(f"[flash_attention] causal: keys and values after position {p} "
-        f"perturbed, outputs 0..{p} unchanged bit for bit")
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = flash_inputs(dev, gen, 2, 1000, 16, 2, 128, dtype)
+        o1 = flash_attention(q, k, v)
+        k2, v2 = k.clone(), v.clone()
+        k2[:, :, p + 1:] += 7.0
+        v2[:, :, p + 1:] -= 3.0
+        o2 = flash_attention(q, k2, v2)
+        need(torch.equal(o1[:, :, :p + 1], o2[:, :, :p + 1])
+             and not torch.equal(o1[:, :, p + 1:], o2[:, :, p + 1:]),
+             f"flash_attention: outputs up to p moved with keys after p "
+             f"({dtype})")
+        log(f"[flash_attention] causal, {str(dtype)[6:]}: keys and values "
+            f"after position {p} perturbed, outputs 0..{p} unchanged bit "
+            f"for bit")
     return errs
 
 
@@ -648,9 +771,9 @@ def phase_flash_train_kernels(dev, seed: int) -> dict:
     the forward with lse (o and lse within FLASH_TOL) and the backward
     (fed the plain forward's o and lse; dq, dk, dv within GRAD_TOL of the
     plain version's largest magnitude), fp32 and bf16, at the training
-    shape, a ragged S, KV == H, D = 256, D = 64, S = 1 and causal=False;
-    then determinism and causality of the backward. Returns each case's
-    errors."""
+    shape, a ragged S, KV == H, D = 256, D = 64, S = 1, causal=False and
+    HARD_FLASH_CASES; then determinism and causality of the backward.
+    Returns each case's errors."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_fwd_lse)
     from repro_torch.kernels.ref import (flash_attention_bwd_ref,
@@ -660,19 +783,19 @@ def phase_flash_train_kernels(dev, seed: int) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 41)
     B, S = LM_TRAIN[:2]
-    cases = [  # name, (B, S, H, KV, D), layout, causal
-        ("training shape", (B, S, 16, 2, 128), "model", True),
-        ("ragged S", (2, 1000, 16, 2, 128), "model", True),
-        ("KV == H", (2, 512, 8, 8, 128), "heads", True),
-        ("D = 256", (1, 700, 16, 16, 256), "model", True),
-        ("D = 64", (2, 333, 8, 2, 64), "model", True),
-        ("S = 1", (3, 1, 4, 2, 64), "model", True),
-        ("causal=False", (1, 300, 4, 2, 128), "model", False),
-    ]
+    cases = [  # name, (B, S, H, KV, D), layout, causal, (q, k) x
+        ("training shape", (B, S, 16, 2, 128), "model", True, (1.0, 1.0)),
+        ("ragged S", (2, 1000, 16, 2, 128), "model", True, (1.0, 1.0)),
+        ("KV == H", (2, 512, 8, 8, 128), "heads", True, (1.0, 1.0)),
+        ("D = 256", (1, 700, 16, 16, 256), "model", True, (1.0, 1.0)),
+        ("D = 64", (2, 333, 8, 2, 64), "model", True, (1.0, 1.0)),
+        ("S = 1", (3, 1, 4, 2, 64), "model", True, (1.0, 1.0)),
+        ("causal=False", (1, 300, 4, 2, 128), "model", False, (1.0, 1.0)),
+    ] + HARD_FLASH_CASES
     errs = {}
-    for name, shape, layout, causal in cases:
+    for name, shape, layout, causal, mul in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = flash_inputs(dev, gen, *shape, dtype, layout)
+            q, k, v = flash_inputs(dev, gen, *shape, dtype, layout, mul)
             do = flash_inputs(dev, gen, *shape, dtype, layout)[0]
             o, lse = flash_fwd_lse(q, k, v, causal)
             ro, rlse = flash_fwd_lse_ref(q, k, v, causal)
@@ -690,6 +813,15 @@ def phase_flash_train_kernels(dev, seed: int) -> dict:
                     zip(("dq", "dk", "dv"), got, want)},
                  **{n + "_abs": float((g.float() - w.float()).abs().max())
                     for n, g, w in zip(("dq", "dk", "dv"), got, want)}}
+            if dtype == torch.bfloat16:
+                # o also against the plain version in fp32 on the same
+                # inputs, its output not rounded (lse is the same there)
+                e["o_fp32"] = float((o.float() - flash_fwd_lse_ref(
+                    q.float(), k.float(), v.float(), causal)[0])
+                    .abs().max())
+                need(e["o_fp32"] <= FLASH_TOL[dtype],
+                     f"flash_fwd_lse kernel != fp32 plain version on {tag}: "
+                     f"{e}")
             need(o.dtype == dtype and lse.shape == rlse.shape
                  and bool(torch.isfinite(o).all())
                  and bool(torch.isfinite(lse).all())
@@ -705,7 +837,9 @@ def phase_flash_train_kernels(dev, seed: int) -> dict:
                  f"{e} (tolerance {GRAD_TOL[dtype]} of max |ref|)")
             errs[tag] = e
             log(f"[flash train] kernels == plain on {tag} (B, S, H, KV, D), "
-                f"{layout} layout: o {e['o']:.3g}, lse {e['lse']:.3g} (<= "
+                f"{layout} layout, q, k x {mul}: o {e['o']:.3g}"
+                + (f" ({e['o_fp32']:.3g} against fp32)" if "o_fp32" in e
+                   else "") + f", lse {e['lse']:.3g} (<= "
                 f"{FLASH_TOL[dtype]}); dq {e['dq']:.3g}, dk {e['dk']:.3g}, "
                 f"dv {e['dv']:.3g} of max |ref| (<= {GRAD_TOL[dtype]})")
             del q, k, v, do, o, lse, ro, rlse, got, want
@@ -1137,7 +1271,9 @@ def main(argv=None) -> int:
     route_args, route_spikes, route_counts, route_err = \
         phase_route_kernel(dep_probe, B, args.seed)
 
-    # ---- 10. the flash kernel against its plain version
+    # ---- 10. the flash kernel: tensor cores in its bf16 SASS, then
+    # against its plain version
+    flash_tc = phase_tensor_cores(logs.get("flash_attention"))
     flash_errs = phase_flash_kernel(dev, args.seed)
 
     # ---- 13. the training kernels against their plain versions
@@ -1468,11 +1604,12 @@ def main(argv=None) -> int:
             else SCALAR_OPS_PER_S
         bnd, by = bound(n_bytes, flops, rate)
         log(f"[time flash_attention {str(dtype)[6:]}] {ms:.4f} ms at (B, S, "
-            f"H, KV, D) = {(B, S, H, KV, D)}, plain {plain:.4f} ms, bound "
+            f"H, KV, D) = {(B, S, H, KV, D)} ({flops / ms / 1e9:.1f} "
+            f"TFLOP/s), plain {plain:.4f} ms, bound "
             f"{1e3 * bnd:.2f} us ({by}: {flops} flops at {rate:.3g}/s, "
-            f"{n_bytes} B), {ms / bnd:.1f}x the bound; library "
+            f"{n_bytes} B), {ms / bnd:.2f}x the bound; library "
             f"scaled_dot_product_attention(is_causal=True), KV heads "
-            f"repeated, {lib:.4f} ms on {card}")
+            f"repeated, {lib:.4f} ms ({ms / lib:.2f}x) on {card}")
         return ms, plain, bnd, by, lib
 
     fa16 = time_flash(torch.bfloat16)
@@ -1528,10 +1665,11 @@ def main(argv=None) -> int:
         res["lib"] = (lib_fwd, lib_bwd)
         f, bw = res["fwd"], res["bwd"]
         log(f"[time flash_fwd_lse {str(dtype)[6:]}] {f[0]:.4f} ms at (B, S, "
-            f"H, KV, D) = {(B, S, H, KV, D)}, plain {f[1]:.4f} ms, bound "
+            f"H, KV, D) = {(B, S, H, KV, D)} ({2 * prod / f[0] / 1e9:.1f} "
+            f"TFLOP/s), plain {f[1]:.4f} ms, bound "
             f"{1e3 * f[2]:.2f} us ({f[3]}: 2 products of {prod} flops), "
-            f"{f[0] / f[2]:.1f}x the bound; library SDPA forward "
-            f"{lib_fwd:.4f} ms on {card}")
+            f"{f[0] / f[2]:.2f}x the bound; library SDPA forward "
+            f"{lib_fwd:.4f} ms ({f[0] / lib_fwd:.2f}x) on {card}")
         log(f"[time flash_attention_bwd {str(dtype)[6:]}] {bw[0]:.4f} ms "
             f"(dK/dV kernel {res['dkv'][0]:.4f} ms, bound "
             f"{1e3 * res['dkv'][1]:.2f} us for its 4 products; dQ kernel "
@@ -1609,6 +1747,7 @@ def main(argv=None) -> int:
          "ms_fp32": fa32[0], "plain_ms_fp32": fa32[1],
          "bound_ms_fp32": fa32[2], "bound_by_fp32": fa32[3],
          "library_ms_fp32": fa32[4], "max_abs_err_by_case": flash_errs,
+         "instances": flash_tc,
          "lm_parity": lm_par, "prefill_ms": pre_ms,
          "prefill_tokens_per_s": n_tok / (pre_ms / 1e3),
          "decode_ms_per_tick": float(np.median(tick_ms))},

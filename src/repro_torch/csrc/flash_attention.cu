@@ -1,9 +1,8 @@
 // flash_attention: attention forward with an online softmax, causal or
-// full, fp32 or bf16 in and out, every operation in fp32:
+// full, fp32 or bf16 in and out:
 //   o[b, h, i] = sum_j softmax_j(scale * q[b, h, i] . k[b, g, j]) v[b, g, j]
 // over j <= i when causal, with g = h / (H / KV) (grouped-query heads;
-// KV == H is the TPU kernel's contract) and scale = D**-0.5 applied to q
-// before the product.
+// KV == H is the TPU kernel's contract) and scale = D**-0.5.
 //
 // Replaces the Pallas kernel `_kernel` of src/repro/kernels/flash_attention.py
 // (function `flash_attention`, reached through
@@ -16,17 +15,70 @@
 // the scaled scores and l the denominator, into a dense fp32 (B, H, S)
 // array: the Pallas kernel `_kernel_lse` (function `_flash_fwd_lse`), the
 // forward of `flash_attention_trainable`, which the training path runs in
-// every layer. Without it the kernel is the prefill's, unchanged.
+// every layer. Without it the kernel is the prefill's.
 //
 // Bound on the H100: operations. The causal product is 2*B*H*S^2*D flops;
 // the function reads q, k, v once and writes o once, so from S of a few
 // hundred on it does far more arithmetic than the card can feed from
-// memory. This kernel does that arithmetic on the CUDA cores in fp32, as
-// the TPU kernel's contract asks (the scale before the product, an fp32
-// running max, denominator and accumulator), and so sits far above the bf16
-// tensor-core bound; mma/wgmma with TMA pipelining are later work.
+// memory. Two designs, one per input type:
 //
-// Design (simple first):
+// bf16 (`flash_attention_wgmma_kernel`, the path's; Hopper tensor cores):
+//   - one block per (128 query rows, query head, batch row): two consumer
+//     warpgroups of 64 rows each share every K/V tile (at D = 256 one
+//     consumer warpgroup and 64 rows: its O accumulator alone is 128
+//     registers a thread), plus a producer warpgroup, which hands its
+//     registers to the consumers (setmaxnreg: 24 and 240 of the 168 a
+//     thread the block starts with); the blocks with the most key tiles
+//     launch first (heads vary fastest in the grid, so this holds across
+//     heads);
+//   - one producer thread loads Q once and K and V tiles of BK keys (128
+//     at D <= 128, 64 at D = 256) into a 2-stage ring with TMA (128-byte
+//     swizzle, tensor maps over the model's (B, S, heads, D) strides); K
+//     and V have `full` and `empty` mbarriers of their own, since a K
+//     tile is free once its scores are in and a V tile only one step
+//     later. TMA zero-fills rows past S. Causal key tiles in a block's
+//     future are never loaded;
+//   - S = Q K^T with wgmma m64nBKk16, both operands K-major in swizzled
+//     shared memory, fp32 accumulators; the scale is applied to the fp32
+//     scores, not to a bf16 Q (which would add a rounding);
+//   - the online softmax runs on the accumulator fragment in registers:
+//     a row's columns lie in the 4 threads of a quad (two shuffles for the
+//     row max); the diagonal tile and the ragged tail are masked to -1e30;
+//     exp2f of s * (scale * log2 e) - m, with m kept in log2 units (the
+//     lse is turned back to natural log at the end);
+//   - O += P V with wgmma m64nDk16: P is fed from registers as the A
+//     operand (the accumulator layout, packed in bf16 pairs, is the
+//     A-fragment layout), V as an MN-major B operand from shared memory
+//     (the transpose-B bit); O is rescaled by each row's alpha first;
+//   - P is split as P_hi + P_lo, both bf16 (hi = p rounded, lo = the
+//     rest rounded), and P V is two products: with P rounded once, the
+//     rounding (2^-9 of p) moved an output across a bf16 rounding boundary
+//     (one ulp, 0.031 at |o| in [4, 8)) on a peaky softmax, past the 2e-2
+//     tolerance; hi + lo keeps ~16 bits of p. The denominator l is the
+//     fp32 sum of the unrounded p. The cost: 1.5x the tensor-core work;
+//   - within a warpgroup, tile t's scores and tile t - 1's P V are started
+//     together, and tile t's softmax runs while that P V is on the tensor
+//     cores; P is split into its bf16 operand registers only after that
+//     P V completes (writing a pending product's operands makes ptxas
+//     serialize the products);
+//   - the finish divides by max(l, 1e-30), rounds with
+//     __float2bfloat16_rn, stages the rows in the warpgroup's own (free)
+//     Q tile and stores them with 16-byte stores; with LSE one thread of
+//     each quad writes its rows' lse.
+//   Alignment: TMA and the 16-byte stores need 16-byte-aligned bases and
+//   (B, heads, S) strides that are multiples of 8 elements; the wrapper
+//   raises for a bf16 tensor that breaks this. What bounds it now (PERF.md
+//   has the measurements): the tensor-core work of three products a tile,
+//   the shared-memory reads of their operands (Q and K for the scores, V
+//   twice) and the K/V tiles each block streams from L2; no softmax/GEMM
+//   ping-pong between the warpgroups and no TMA multicast across blocks
+//   that share a KV head yet.
+//
+// fp32 (`flash_attention_kernel<D, LSE>`): every operation in fp32
+// on the CUDA cores, as the TPU kernel's contract asks (the scale before
+// the product, an fp32 running max, denominator and accumulator); TF32
+// would round to 10 mantissa bits and break the fp32 tolerance (2e-5).
+// It only serves the fp32 parity phases, off the bf16 main path:
 //   - one block of 256 threads per (64-row query block, query head, batch
 //     row); the query blocks with the most key blocks are launched first;
 //   - the scaled query tile stays in shared memory as fp32; key and value
@@ -40,15 +92,18 @@
 //   - causal key blocks in a query block's future are never loaded (the TPU
 //     kernel's `@pl.when`); the diagonal block, and the ragged tail past S
 //     in place of the TPU wrapper's padding, are masked with -1e30;
-//   - the finish divides by max(l, 1e-30) and rounds to the output type
-//     (__float2bfloat16_rn for bf16), as the TPU kernel's `_done` does,
-//     and with LSE the first thread of each row writes the row's lse, as
-//     `_kernel_lse`'s `_emit` does.
-// Padded rows (+4 floats) keep the shared-memory reads free of bank
-// conflicts. No fast-math: expf and IEEE division.
+//   - the finish divides by max(l, 1e-30), as the TPU kernel's `_done`
+//     does, and with LSE the first thread of each row writes the row's
+//     lse, as `_kernel_lse`'s `_emit` does.
+//   Padded rows (+4 floats) keep the shared-memory reads free of bank
+//   conflicts. No fast-math: expf and IEEE division.
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -61,14 +116,6 @@ struct Strides {                 // in elements; the last axis is dense
   long long b, h, s;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 template <int D>
 constexpr int smem_bytes() {
@@ -79,22 +126,23 @@ static_assert(kBQ == kBK, "load_tile loads the Q and K/V tiles alike");
 
 // rows [r0, r0 + 64) of one head of x into a (64, D + 4) fp32 tile, times
 // `mul`; rows at or past S are zeros
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* tile, const T* x,
+template <int D>
+__device__ __forceinline__ void load_tile(float* tile, const float* x,
                                           long long stride_s, int r0, int S,
                                           float mul) {
   for (int i = threadIdx.x; i < kBK * D; i += kThreads) {
     const int r = i / D, d = i % D;
     float val = 0.f;
-    if (r0 + r < S) val = to_f32(x[(long long)(r0 + r) * stride_s + d]) * mul;
+    if (r0 + r < S) val = x[(long long)(r0 + r) * stride_s + d] * mul;
     tile[r * (D + 4) + d] = val;
   }
 }
 
-template <typename T, int D, bool LSE>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(kThreads, D <= 128 ? 2 : 1)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
                        float* __restrict__ lse, Strides qs, Strides ks,
                        Strides vs, Strides os, int S,
                        int rep, int causal, float scale) {
@@ -111,12 +159,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y, b = blockIdx.z;
   const int g = h / rep;
   const int q0 = qb * kBQ;
-  const T* qp = q + b * qs.b + h * qs.h;
-  const T* kp = k + b * ks.b + g * ks.h;
-  const T* vp = v + b * vs.b + g * vs.h;
-  T* op = o + b * os.b + h * os.h;
+  const float* qp = q + b * qs.b + h * qs.h;
+  const float* kp = k + b * ks.b + g * ks.h;
+  const float* vp = v + b * vs.b + g * vs.h;
+  float* op = o + b * os.b + h * os.h;
 
-  load_tile<T, D>(Qs, qp, qs.s, q0, S, scale);
+  load_tile<D>(Qs, qp, qs.s, q0, S, scale);
 
   float m[4], l[4], acc[4][4 * NJ];
 #pragma unroll
@@ -132,7 +180,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kb = 0; kb < n_kb; ++kb) {
     const int k0 = kb * kBK;
     __syncthreads();               // Qs is written; KVs and Ps are free
-    load_tile<T, D>(KVs, kp, ks.s, k0, S, 1.f);
+    load_tile<D>(KVs, kp, ks.s, k0, S, 1.f);
     __syncthreads();
 
     // scores of rows 4 ty + i against keys tx + 16 j
@@ -195,7 +243,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < 4 * NJ; ++c) acc[i][c] *= alpha;
     }
     __syncthreads();               // every read of the K tile is done
-    load_tile<T, D>(KVs, vp, vs.s, k0, S, 1.f);
+    load_tile<D>(KVs, vp, vs.s, k0, S, 1.f);
     __syncthreads();
 
     // acc += P V over the tile's 64 keys
@@ -226,68 +274,449 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float den = fmaxf(l[i], 1e-30f);
     if (LSE && tx == 0)
       lse[((long long)b * gridDim.y + h) * S + row] = m[i] + logf(den);
-    T* orow = op + (long long)row * os.s;
+    float* orow = op + (long long)row * os.s;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        store(orow + 4 * tx + 64 * j + e, acc[i][4 * j + e] / den);
+        orow[4 * tx + 64 * j + e] = acc[i][4 * j + e] / den;
   }
 }
 
-template <typename T, int D, bool LSE>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int H, int KV, int S, int causal, float scale, Strides qs,
-           Strides ks, Strides vs, Strides os, cudaStream_t st) {
-  auto kernel = flash_attention_kernel<T, D, LSE>;
+// ------------------------------------------- bf16: wgmma, TMA, mbarriers
+template <int D>
+struct Wg {                          // the tensor-core kernel's shape at D
+  // consumer warpgroups, 64 query rows each: one at D = 256, where the O
+  // accumulator alone is 128 registers a thread
+  static constexpr int kWGs = D <= 128 ? 2 : 1;
+  static constexpr int kBQ = 64 * kWGs;             // query rows per block
+  static constexpr int kBK = D <= 128 ? 128 : 64;   // keys per K/V tile
+  static constexpr int kCols = D / 64;              // 128-byte column blocks
+  static constexpr int kThreads = 128 * (kWGs + 1); // + the producer's
+  static constexpr int kQBytes = kBQ * D * 2;
+  static constexpr int kTileBytes = kBK * D * 2;    // one K or one V tile
+  static constexpr int kStages = 2;
+  // Q, the ring of K and V tiles, 9 mbarriers, 1,024 bytes of alignment
+  // slack
+  static constexpr int kSmem =
+      1024 + kQBytes + kStages * 2 * kTileBytes + 128;
+  // the first key of a block's last causal tile is at most its first row,
+  // so no warpgroup meets a tile wholly in its future
+  static_assert(kBK % kBQ == 0, "key tiles must cover whole query blocks");
+};
+
+// with two consumer warpgroups a block starts at 168 registers a thread
+// (65,536 / 384); the producer warpgroup gives its spare ones to them
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr float kLn2 = 0.693147180559945309f;
+
+// (a, b) = hi + lo, each a pair of bf16: hi the rounded values, lo the
+// rounded rests (a - hi is exact in fp32), so hi + lo keeps ~16 bits of p
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// starts S = Q K^T (64 x BK, fp32) over D / 16 products; Q's rows are BQ
+// long in each 64-column block, K's BK
+template <int D, int BQ, int BK>
+__device__ __forceinline__ void start_qk(float (&sc)[BK / 2], uint32_t q_addr,
+                                         uint32_t k_addr) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // 16 columns: column block kk / 4, 32 bytes into its 128-byte rows
+    const uint32_t off = (kk % 4) * 32;
+    const uint64_t qd =
+        hopper::sw128_desc(q_addr + (kk / 4) * BQ * 128 + off, 16, 1024);
+    const uint64_t kd =
+        hopper::sw128_desc(k_addr + (kk / 4) * BK * 128 + off, 16, 1024);
+    if (kk == 0)
+      hopper::wgmma_ss_first<BK>(sc, qd, kd);
+    else
+      hopper::wgmma_ss<BK>(sc, qd, kd);
+  }
+}
+
+// starts O += P_hi V + P_lo V: P (64 x BK) from registers, V (BK x D)
+// MN-major
+template <int D, int BK>
+__device__ __forceinline__ void start_pv(float (&acc)[D / 2],
+                                         const uint32_t (&hi)[BK / 4],
+                                         const uint32_t (&lo)[BK / 4],
+                                         uint32_t v_addr) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t vd =
+        hopper::sw128_desc(v_addr + kk * 16 * 128, BK * 128, 1024);
+    const uint32_t a_hi[4] = {hi[4 * kk], hi[4 * kk + 1], hi[4 * kk + 2],
+                              hi[4 * kk + 3]};
+    const uint32_t a_lo[4] = {lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2],
+                              lo[4 * kk + 3]};
+    hopper::wgmma_rs_tb<D>(acc, a_hi, vd);
+    hopper::wgmma_rs_tb<D>(acc, a_lo, vd);
+  }
+}
+
+// the online softmax of one key tile on this thread's two rows (row0 and
+// row0 + 8, columns k0 + 8 i + col and the next one), across its quad:
+// masks the diagonal tile and the ragged tail to -1e30, updates the
+// running max m (log2 units) and the denominator l (the fp32 sum of p),
+// returns each row's rescale alpha and leaves p = exp2(s * scale * log2 e
+// - m) in sc, in the accumulator's layout
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], int k0,
+                                             int row0, int col, int S,
+                                             int causal, int wq0,
+                                             float scale_log2, float (&m)[2],
+                                             float (&l)[2],
+                                             float (&alpha)[2]) {
+  if (k0 + BK > S || (causal && k0 + BK - 1 > wq0)) {
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 8 * (e >> 1), key = k0 + 8 * i + col + (e & 1);
+        if (key >= S || (causal && key > row)) sc[4 * i + e] = kNeg;
+      }
+  }
+  float mx[2] = {kNeg, kNeg};
+#pragma unroll
+  for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * i + e]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+    alpha[r] = exp2f(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(fmaf(sc[4 * i + e], scale_log2, -m[e >> 1]));
+      l[e >> 1] += p;
+      sc[4 * i + e] = p;
+    }
+}
+
+// p (fp32, the accumulator's layout) as P_hi + P_lo, the A operands of
+// P V: bf16 pairs in the same layout
+template <int BK>
+__device__ __forceinline__ void split_p(const float (&p)[BK / 2],
+                                        uint32_t (&hi)[BK / 4],
+                                        uint32_t (&lo)[BK / 4]) {
+#pragma unroll
+  for (int i = 0; i < BK / 4; ++i)
+    split_bf16(p[2 * i], p[2 * i + 1], hi[i], lo[i]);
+}
+
+template <int D, bool LSE>
+__global__ void __launch_bounds__(Wg<D>::kThreads, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap,
+                             __nv_bfloat16* __restrict__ o,
+                             float* __restrict__ lse, Strides os, int S,
+                             int rep, int causal, float scale_log2) {
+  using namespace hopper;
+  using C = Wg<D>;
+  constexpr int BQ = C::kBQ, BK = C::kBK, NS = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  // 1,024-byte alignment, so that the 128-byte swizzle's rows line up
+  uint8_t* const Qs = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* const KVs = Qs + C::kQBytes;  // stage s: K, then V
+  uint64_t* const full_k = reinterpret_cast<uint64_t*>(
+      KVs + NS * 2 * C::kTileBytes);
+  uint64_t* const full_v = full_k + NS;
+  uint64_t* const empty_k = full_v + NS;
+  uint64_t* const empty_v = empty_k + NS;
+  uint64_t* const qbar = empty_v + NS;
+
+  const int h = blockIdx.x, b = blockIdx.z, g = h / rep;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest first
+  const int n_all = (S + BK - 1) / BK;
+  const int n_kb = causal ? min(n_all, (q0 + BQ - 1) / BK + 1) : n_all;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], 4 * C::kWGs);  // one arrival per consumer warp
+      mbar_init(&empty_v[s], 4 * C::kWGs);
+    }
+    mbar_init(qbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * C::kWGs) {
+    // the producer warpgroup: one thread starts every TMA copy. K and V
+    // have barriers of their own: a K tile is free once its scores are
+    // computed, a V tile only after the next tile's softmax
+    if constexpr (C::kWGs == 2) setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 128 * C::kWGs) {
+      mbar_expect_tx(qbar, C::kQBytes);
+      for (int c = 0; c < C::kCols; ++c)
+        tma_load_4d(Qs + c * BQ * 128, &qmap, qbar, 64 * c, q0, h, b);
+      for (int t = 0; t < n_kb; ++t) {
+        const int s = t % NS;
+        const uint32_t parity = (t / NS - 1) & 1;
+        uint8_t* Ks = KVs + s * 2 * C::kTileBytes;
+        uint8_t* Vs = Ks + C::kTileBytes;
+        if (t >= NS) mbar_wait(&empty_k[s], parity);
+        mbar_expect_tx(&full_k[s], C::kTileBytes);
+        for (int c = 0; c < C::kCols; ++c)
+          tma_load_4d(Ks + c * BK * 128, &kmap, &full_k[s], 64 * c, t * BK,
+                      g, b);
+        if (t >= NS) mbar_wait(&empty_v[s], parity);
+        mbar_expect_tx(&full_v[s], C::kTileBytes);
+        for (int c = 0; c < C::kCols; ++c)
+          tma_load_4d(Vs + c * BK * 128, &vmap, &full_v[s], 64 * c, t * BK,
+                      g, b);
+      }
+    }
+    return;
+  }
+  if constexpr (C::kWGs == 2) setmaxnreg_inc<kConsumerRegs>();
+
+  // a consumer warpgroup: query rows wq0 .. wq0 + 63
+  const int wg = warp / 4;
+  const int wq0 = q0 + 64 * wg;
+  const int r_in = 64 * wg + 16 * (warp % 4) + lane / 4;  // row in the block
+  const int row0 = q0 + r_in;           // this thread's rows: row0, row0 + 8
+  const int col = 2 * (lane % 4);       // its first column of each 8
+  const uint32_t q_addr = smem_addr(Qs) + 64 * wg * 128;
+  const uint32_t kv_addr = smem_addr(KVs);
+  auto k_addr = [&](int t) { return kv_addr + (t % NS) * 2 * C::kTileBytes; };
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f}, alpha[2];  // m: log2 units
+  float sc[BK / 2];
+  uint32_t hi[BK / 4], lo[BK / 4];
+
+  // tile 0: its scores and softmax (O is still 0: no rescale)
+  mbar_wait(qbar, 0);
+  mbar_wait(&full_k[0], 0);
+  fence_operands(sc);
+  wgmma_fence();
+  start_qk<D, BQ, BK>(sc, q_addr, k_addr(0));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operands(sc);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&empty_k[0]);
+  softmax_tile<BK>(sc, 0, row0, col, S, causal, wq0, scale_log2, m, l, alpha);
+  split_p<BK>(sc, hi, lo);
+
+  // tile t's scores and tile t - 1's P V run on the tensor cores while the
+  // warpgroup does tile t's softmax; P is split into its bf16 registers
+  // only once that P V is done (writing a pending product's operands
+  // would make ptxas serialize the products)
+  for (int t = 1; t < n_kb; ++t) {
+    mbar_wait(&full_k[t % NS], (t / NS) & 1);
+    mbar_wait(&full_v[(t - 1) % NS], ((t - 1) / NS) & 1);
+    fence_operands(sc);
+    fence_operands(acc);
+    wgmma_fence();
+    start_qk<D, BQ, BK>(sc, q_addr, k_addr(t));
+    wgmma_commit();
+    wgmma_fence();
+    start_pv<D, BK>(acc, hi, lo, k_addr(t - 1) + C::kTileBytes);
+    wgmma_commit();
+    wgmma_wait<1>();                   // the scores are in
+    fence_operands(sc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty_k[t % NS]);
+    softmax_tile<BK>(sc, t * BK, row0, col, S, causal, wq0, scale_log2, m, l,
+                     alpha);
+    wgmma_wait<0>();                   // P V of tile t - 1 is in
+    fence_operands(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty_v[(t - 1) % NS]);
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      acc[4 * i + 0] *= alpha[0];
+      acc[4 * i + 1] *= alpha[0];
+      acc[4 * i + 2] *= alpha[1];
+      acc[4 * i + 3] *= alpha[1];
+    }
+    split_p<BK>(sc, hi, lo);
+  }
+  // the last tile's P V
+  mbar_wait(&full_v[(n_kb - 1) % NS], ((n_kb - 1) / NS) & 1);
+  fence_operands(acc);
+  wgmma_fence();
+  start_pv<D, BK>(acc, hi, lo, k_addr(n_kb - 1) + C::kTileBytes);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operands(acc);
+
+  // finish: o = acc / max(l, 1e-30) in bf16, lse = m ln 2 + log(max(l, ..))
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    den[r] = fmaxf(l[r], 1e-30f);
+    if (LSE && lane % 4 == 0 && row0 + 8 * r < S)
+      lse[((long long)b * gridDim.x + h) * S + row0 + 8 * r] =
+          m[r] * kLn2 + logf(den[r]);
+  }
+  // the rows go through this warpgroup's rows of the Q tile (its last
+  // Q K^T has completed), in the same swizzled layout, then out in 16-byte
+  // stores
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int R = r_in + 8 * r;
+      *reinterpret_cast<uint32_t*>(
+          Qs + (i / 8) * BQ * 128 + R * 128 + (((i % 8) ^ (R % 8)) << 4) +
+          2 * col) = pack_bf16(acc[4 * i + 2 * r] / den[r],
+                               acc[4 * i + 2 * r + 1] / den[r]);
+    }
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+  constexpr int kChunks = D / 8;        // 16-byte chunks in a row
+  __nv_bfloat16* op = o + b * os.b + h * os.h;
+  for (int idx = threadIdx.x % 128; idx < 64 * kChunks; idx += 128) {
+    const int R = 64 * wg + idx / kChunks, ch = idx % kChunks;
+    if (q0 + R < S)
+      *reinterpret_cast<uint4*>(op + (long long)(q0 + R) * os.s + 8 * ch) =
+          *reinterpret_cast<const uint4*>(
+              Qs + (ch / 8) * BQ * 128 + R * 128 + (((ch % 8) ^ (R % 8)) << 4));
+  }
+}
+
+// lets `Kernel` take `bytes` of dynamic shared memory: once per device (a
+// launch's host time is tens of microseconds, this call a good part of it)
+template <auto Kernel>
+cudaError_t allow_smem(int bytes) {
+  constexpr int kMaxDevices = 64;
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && done[dev])) return err;
+  err = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
+
+template <int D, bool LSE>
+int launch_fma(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int H, int KV, int S, int causal,
+               float scale, Strides qs, Strides ks, Strides vs, Strides os,
+               cudaStream_t st) {
+  auto kernel = flash_attention_kernel<D, LSE>;
   constexpr int bytes = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  cudaError_t err = allow_smem<flash_attention_kernel<D, LSE>>(bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, bytes, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, qs, ks, vs, os, S,
-      H / KV, causal, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, qs,
+      ks, vs, os, S, H / KV, causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool LSE>
-int launch_d(const void* q, const void* k, const void* v, void* o,
-             float* lse, int B, int H, int KV, int S, int D, int causal,
-             float scale, Strides qs, Strides ks, Strides vs, Strides os,
-             cudaStream_t st) {
-  switch (D) {
-    case 64:
-      return launch<T, 64, LSE>(q, k, v, o, lse, B, H, KV, S, causal, scale,
-                                qs, ks, vs, os, st);
-    case 128:
-      return launch<T, 128, LSE>(q, k, v, o, lse, B, H, KV, S, causal,
-                                 scale, qs, ks, vs, os, st);
-    case 256:
-      return launch<T, 256, LSE>(q, k, v, o, lse, B, H, KV, S, causal,
-                                 scale, qs, ks, vs, os, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+// cuTensorMapEncodeTiled from libcuda, found through the runtime (no -lcuda)
+PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault,
+                                         &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
   }
+  return fn;
 }
 
-template <typename T>
-int launch_t(const void* q, const void* k, const void* v, void* o,
+// a 4-d bf16 tensor map over (D, S, heads, B) with the tensor's strides,
+// boxes of 64 columns x `rows` rows, 128-byte swizzle, zeros past S. A
+// stride of an axis of extent 1 is never used; it is replaced by the
+// dense extent so that any value the caller had passes the encoder.
+int make_map(CUtensorMap* map, const void* base, int D, int S, int heads,
+             int B, Strides st, int rows) {
+  auto encode = encode_fn();
+  if (!encode) return (int)cudaErrorNotSupported;
+  const long long dense = (long long)D * S * heads * B;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const long long el[3] = {st.s, st.h, st.b};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i)
+    strides[i] = 2 * (cuuint64_t)(dims[i + 1] == 1 ? dense : el[i]);
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
+}
+
+template <int D, bool LSE>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int H, int KV, int S, int causal,
+                 float scale, Strides qs, Strides ks, Strides vs, Strides os,
+                 cudaStream_t st) {
+  using C = Wg<D>;
+  CUtensorMap qm, km, vm;
+  int err = make_map(&qm, q, D, S, H, B, qs, C::kBQ);
+  if (!err) err = make_map(&km, k, D, S, KV, B, ks, C::kBK);
+  if (!err) err = make_map(&vm, v, D, S, KV, B, vs, C::kBK);
+  if (err) return err;
+  auto kernel = flash_attention_wgmma_kernel<D, LSE>;
+  err = (int)allow_smem<flash_attention_wgmma_kernel<D, LSE>>(C::kSmem);
+  if (err) return err;
+  dim3 grid(H, (S + C::kBQ - 1) / C::kBQ, B);
+  kernel<<<grid, C::kThreads, C::kSmem, st>>>(
+      qm, km, vm, (__nv_bfloat16*)o, lse, os, S, H / KV, causal,
+      (float)(scale * 1.4426950408889634));
+  return (int)cudaGetLastError();
+}
+
+// bf16 -> the tensor-core kernel, fp32 -> the FMA kernel, at head dim D
+template <bool LSE>
+int launch_d(int bf16, const void* q, const void* k, const void* v, void* o,
              float* lse, int B, int H, int KV, int S, int D, int causal,
              float scale, Strides qs, Strides ks, Strides vs, Strides os,
              cudaStream_t st) {
-  if (lse)
-    return launch_d<T, true>(q, k, v, o, lse, B, H, KV, S, D, causal, scale,
-                             qs, ks, vs, os, st);
-  return launch_d<T, false>(q, k, v, o, lse, B, H, KV, S, D, causal, scale,
-                            qs, ks, vs, os, st);
+#define FLASH_LAUNCH(DIM)                                                    \
+  return bf16 ? launch_wgmma<DIM, LSE>(q, k, v, o, lse, B, H, KV, S, causal, \
+                                       scale, qs, ks, vs, os, st)            \
+              : launch_fma<DIM, LSE>(q, k, v, o, lse, B, H, KV, S, causal,   \
+                                     scale, qs, ks, vs, os, st)
+  switch (D) {
+    case 64: FLASH_LAUNCH(64);
+    case 128: FLASH_LAUNCH(128);
+    case 256: FLASH_LAUNCH(256);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FLASH_LAUNCH
 }
 
 }  // namespace
 
-// q, o: (B, H, S, D); k, v: (B, KV, S, D); fp32 (bf16 == 0) or bf16
-// (bf16 == 1); D in {64, 128, 256}; H % KV == 0; each tensor's batch, head
-// and sequence strides in elements, its last axis dense. lse: null (the
+// q, o: (B, H, S, D); k, v: (B, KV, S, D); fp32 (bf16 == 0, the FMA
+// kernel) or bf16 (bf16 == 1, the tensor-core kernel); D in {64, 128,
+// 256}; H % KV == 0; each tensor's batch, head and sequence strides in
+// elements, its last axis dense; for bf16 every base 16-byte aligned and
+// every stride of an axis longer than 1 a multiple of 8. lse: null (the
 // forward alone, kernel 4) or a dense fp32 (B, H, S) array for the rows'
 // logsumexp (kernel 5). Launches on `stream` and returns a cudaError_t
 // (cudaErrorInvalidValue for a head dimension it has no instance for).
@@ -304,9 +733,19 @@ extern "C" int flash_attention_launch(
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   cudaStream_t st = (cudaStream_t)stream;
   float* l = (float*)lse;
-  if (bf16)
-    return launch_t<__nv_bfloat16>(q, k, v, o, l, B, H, KV, S, D, causal,
-                                   scale, qs, ks, vs, os, st);
-  return launch_t<float>(q, k, v, o, l, B, H, KV, S, D, causal, scale, qs,
-                         ks, vs, os, st);
+  return l ? launch_d<true>(bf16, q, k, v, o, l, B, H, KV, S, D, causal,
+                            scale, qs, ks, vs, os, st)
+           : launch_d<false>(bf16, q, k, v, o, l, B, H, KV, S, D, causal,
+                             scale, qs, ks, vs, os, st);
+}
+
+// dynamic shared memory of one block of the kernel for (bf16, D), in bytes
+// (0 for a head dimension it has no instance for)
+extern "C" int flash_attention_smem_bytes(int bf16, int D) {
+  switch (D) {
+    case 64: return bf16 ? Wg<64>::kSmem : smem_bytes<64>();
+    case 128: return bf16 ? Wg<128>::kSmem : smem_bytes<128>();
+    case 256: return bf16 ? Wg<256>::kSmem : smem_bytes<256>();
+    default: return 0;
+  }
 }

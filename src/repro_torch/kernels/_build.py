@@ -36,14 +36,15 @@ _I64 = ctypes.c_int64
 _F = ctypes.c_float
 # each source's C entry points and their argument types (pointers and the
 # stream as c_void_p, sizes as c_int / c_int64, scales as c_float); each
-# returns a cudaError_t
+# launch returns a cudaError_t (flash_attention_smem_bytes a byte count)
 SIGNATURES = {
     "lif_step": {"lif_step_launch": [_P] * 9 + [_I, _I, _P]},
     "route_lif": {"route_lif_launch": [_P] * 13 + [_I64, _I, _I, _I, _P]},
     "spike_matmul": {"spike_matmul_launch":
                      [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P]},
     "flash_attention": {"flash_attention_launch":
-                        [_P] * 5 + [_I] * 7 + [_F] + [_I64] * 12 + [_P]},
+                        [_P] * 5 + [_I] * 7 + [_F] + [_I64] * 12 + [_P],
+                        "flash_attention_smem_bytes": [_I, _I]},
     "flash_attention_bwd": {
         "flash_bwd_dkv_launch": [_P] * 8 + [_I] * 7 + [_F] + [_I64] * 12
         + [_P],
@@ -52,6 +53,7 @@ SIGNATURES = {
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_bound: Dict[tuple, object] = {}
 
 
 def _nvcc() -> str:
@@ -108,18 +110,22 @@ def build_all(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:
 
 def load(name: str, entry: Optional[str] = None):
     """The bound C entry point `entry` of source `name` (its only one
-    when None), building the library first if it is missing."""
+    when None), building the library first if it is missing. Bound once:
+    setting a ctypes function's argument types costs more than a launch."""
+    fn = _bound.get((name, entry))
+    if fn is not None:
+        return fn
     if name not in _loaded:
         path = library_path(name)
         if not path.exists():
             build_all([name])
         _loaded[name] = ctypes.CDLL(str(path))
     entries = SIGNATURES[name]
-    if entry is None:
-        (entry,) = entries
-    fn = getattr(_loaded[name], entry)
-    fn.argtypes = entries[entry]
+    (only,) = entries if entry is None else (entry,)
+    fn = getattr(_loaded[name], only)
+    fn.argtypes = entries[only]
     fn.restype = ctypes.c_int
+    _bound[(name, entry)] = fn
     return fn
 
 

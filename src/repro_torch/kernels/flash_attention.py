@@ -23,7 +23,21 @@ is dense fp32 (B, H, S) (JAX keeps it as (B*H, S)). Any strides with a
 dense last axis: the model passes its (B, S, H, D) projections through
 `.transpose(1, 2)`, and o and dq keep q's strides. Any S >= 1: the
 kernels mask their ragged tail where the TPU wrapper padded S. D in
-{64, 128, 256}, fp32 or bf16, every operation in fp32.
+{64, 128, 256}, fp32 or bf16.
+
+The forward has one kernel per input type. fp32 runs every operation in
+fp32 FMAs on the CUDA cores (the TPU kernel's contract; TF32 would break
+its 2e-5). bf16 runs on Hopper's tensor cores: Q K^T and P V as wgmma
+products with fp32 accumulators, the scale applied to the fp32 scores,
+an fp32 online softmax, K/V tiles staged by TMA in a 2-stage ring. P
+enters P V as P_hi + P_lo, two bf16 parts (~16 bits of p; the
+denominator sums the unrounded p): P rounded once moved outputs of a
+peaky softmax a bf16 ulp past the 2e-2 tolerance (`csrc` header).
+The bf16 kernel's TMA loads and 16-byte stores need 16-byte-aligned
+q, k, v (and o) with (B, heads, S) strides that are multiples of 8
+elements; a bf16 CUDA tensor that breaks this raises ValueError (it
+never falls back to the fp32 kernel). The backward's two kernels run
+in fp32 for both types.
 
 CPU tensors take the plain versions (`kernels.ref`); CUDA tensors launch
 the kernels or raise. Each kernel launch adds one to its wrapper's
@@ -89,13 +103,28 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _check_aligned(name, **tensors):
+    """The bf16 kernel's TMA loads and 16-byte stores want 16-byte-aligned
+    bases and (B, heads, S) strides that are multiples of 8 elements (an
+    axis of extent 1 is never stepped); raises ValueError otherwise."""
+    for n, t in tensors.items():
+        if t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(3)
+                                    if t.shape[i] > 1):
+            raise ValueError(
+                f"{name}: the bf16 kernel needs {n} 16-byte aligned with "
+                f"strides that are multiples of 8 elements, got data_ptr % "
+                f"16 = {t.data_ptr() % 16}, strides {t.stride()}")
+
+
 def _forward(name, q, k, v, causal, lse):
     B, H, KV, S, D = _check(name, q, k, v)
     out = torch.empty_like(q)
     if out.stride(3) != 1:
         raise ValueError(f"{name}: the head dim must be dense in q")
+    if q.dtype == torch.bfloat16:
+        _check_aligned(name, q=q, k=k, v=v, o=out)
     if S:
-        err = _build.load("flash_attention")(
+        err = _build.load("flash_attention", "flash_attention_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
             int(q.dtype == torch.bfloat16), B, H, KV, S, D, int(causal),

@@ -4,7 +4,10 @@ the forward through `repro.kernels.ops`, `_flash_fwd_lse`,
 `flash_attention_bwd` and the custom_vjp `flash_attention_trainable` —
 and the jnp oracle `ref.flash_attention_ref`, at the shapes of
 tests/test_kernels.py plus ragged lengths; the grouped (GQA) form against
-repeated heads and against `models.attention._sdpa`; causality.
+repeated heads and against `models.attention._sdpa`; causality. A torch
+emulation of the bf16 tensor-core kernel's arithmetic (P split into two
+bf16 parts before P V) is held against the same JAX kernels and oracles,
+since the kernel itself runs only on the card.
 Tolerances are tests/test_kernels.py's: 2e-5 for fp32 outputs and lse,
 2e-2 for bf16 (inputs rounded to bf16 the same way in both packages),
 1e-4 for gradients."""
@@ -254,3 +257,108 @@ def test_bwd_bf16_rounds_like_the_inputs():
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16
         assert err(to_np(g), to_np(w)) < TOL["bfloat16"]
+
+
+# ------------------------------------------ the bf16 tensor-core kernel's math
+def tensor_core_emulation(q, k, v, causal=True):
+    """The arithmetic of the bf16 tensor-core kernel (csrc/flash_attention.cu,
+    `flash_attention_wgmma_kernel`) written out in torch on the CPU: fp32
+    scores of the bf16 inputs, the scale applied to them after the product
+    (folded with log2 e into exp2), an online softmax over key tiles of BK
+    (128 at D <= 128, 64 at D = 256) with the running max in log2 units, P
+    taken under that running max as P_hi + P_lo, both bf16 (p rounded, and
+    the rest rounded), for P V while the denominator sums the unrounded p,
+    and the output rounded to bf16 once. Returns (o in bf16, lse in
+    fp32)."""
+    B, H, S, D = q.shape
+    rep = H // k.shape[1]
+    kf = k.float().repeat_interleave(rep, 1)
+    vf = v.float().repeat_interleave(rep, 1)
+    c = torch.tensor(D ** -0.5 * np.log2(np.e), dtype=torch.float32)
+    bk = 128 if D <= 128 else 64
+    m = torch.full((B, H, S), -1e30)
+    l = torch.zeros((B, H, S))
+    acc = torch.zeros((B, H, S, D))
+    rows = torch.arange(S)[:, None]
+    for k0 in range(0, S, bk):
+        s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf[:, :, k0:k0 + bk])
+        if causal:
+            keys = torch.arange(k0, min(k0 + bk, S))[None, :]
+            s = torch.where(keys > rows, torch.tensor(-1e30), s)
+        m_new = torch.maximum(m, s.amax(-1) * c)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s * c - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        hi = p.bfloat16().float()
+        lo = (p - hi).bfloat16().float()
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", hi + lo, vf[:, :, k0:k0 + bk])
+        m = m_new
+    den = l.clamp(min=1e-30)
+    return ((acc / den[..., None]).bfloat16(),
+            m * np.float32(np.log(2.0)) + torch.log(den))
+
+
+# the shapes of tests/test_kernels.py, then a peaky softmax (q and k x 4:
+# one key takes nearly all the weight) and a flat one (q x 0.05) over the
+# most keys the CPU affords, where the rounding of P adds up over most terms
+TC_CASES = [((1, 1, 128, 64), 1.0, 1.0), ((2, 3, 256, 64), 1.0, 1.0),
+            ((1, 2, 512, 128), 1.0, 1.0), ((1, 2, 256, 128), 4.0, 4.0),
+            ((1, 1, 1024, 128), 0.05, 1.0)]
+
+
+@pytest.mark.parametrize("shape,qmul,kmul", TC_CASES)
+def test_tensor_core_numerics_match_pallas_kernel_and_oracle(shape, qmul,
+                                                            kmul):
+    """P as P_hi + P_lo in bf16 before P V (the rounding the fp32 contract
+    lacks) keeps the bf16 kernel's arithmetic within 2e-2 of JAX's Pallas
+    kernel (interpret mode, bf16), of JAX's oracle and of the port's plain
+    version, on the same bf16 inputs."""
+    B, H, S, D = shape
+    q, k, v = qkv(sum(shape), B, H, H, S, D)
+    q, k = q * qmul, k * kmul
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got, lse = tensor_core_emulation(tq, tk, tv)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, H, S, D)
+    kernel = ops.flash_attention(jq, jk, jv, bq=64, bk=64)
+    oracle = jref.flash_attention_ref(jq, jk, jv)
+    assert err(to_np(got), kernel.astype(jnp.float32)) < TOL["bfloat16"]
+    assert err(to_np(got), oracle.astype(jnp.float32)) < TOL["bfloat16"]
+    ro, rlse = flash_fwd_lse_ref(tq, tk, tv)
+    assert err(to_np(got), to_np(ro)) < TOL["bfloat16"]
+    assert err(lse.numpy(), rlse.numpy()) < TOL["bfloat16"]
+
+
+def test_tensor_core_numerics_lse_and_groups_match_pallas_lse_kernel():
+    """The emulation's lse against JAX's `_flash_fwd_lse` (interpret mode)
+    on bf16 inputs, and grouped heads (KV < H) against the same heads
+    repeated: the kernel maps the groups, the arithmetic is per head."""
+    B, H, KV, S, D = 1, 4, 2, 256, 64
+    q, k, v = qkv(11, B, H, KV, S, D)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got, lse = tensor_core_emulation(tq, tk, tv)
+    rep = H // KV
+    kr, vr = (t.repeat_interleave(rep, 1) for t in (tk, tv))
+    rgot, rlse = tensor_core_emulation(tq, kr, vr)
+    assert torch.equal(got, rgot) and torch.equal(lse, rlse)
+    jo, jlse = jfa._flash_fwd_lse(
+        *(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+          for t in (tq, kr, vr)), True, 64, 64, True)
+    assert err(to_np(got), jnp.asarray(jo).astype(jnp.float32)) \
+        < TOL["bfloat16"]
+    assert err(lse.reshape(B * H, S).numpy(), jlse) < TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("S,causal", [(200, True), (65, True), (1, True),
+                                      (300, False)])
+def test_tensor_core_numerics_ragged_and_full(S, causal):
+    """Ragged lengths (the kernel masks its last tile; TMA fills zeros),
+    S = 1 and causal=False, D = 256 (key tiles of 64): within 2e-2 of the
+    port's plain version on the same bf16 inputs."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in qkv(S + 3, 1, 2, 1, S, 256))
+    got, lse = tensor_core_emulation(q, k, v, causal)
+    ro, rlse = flash_fwd_lse_ref(q, k, v, causal)
+    assert err(to_np(got), to_np(ro)) < TOL["bfloat16"]
+    assert err(lse.numpy(), rlse.numpy()) < TOL["bfloat16"]
