@@ -15,11 +15,15 @@ raises and the script exits non-zero:
   3. the fused route+LIF kernel against its plain version on the smoke
      network's own tables, with gates from real steps (B = 8); exact
      equality on V_next, spikes and the pointer/row reads;
- 10. the `flash_attention` kernel: first `cuobjdump -sass` of its built
-     library, where every bf16 instance (the tensor-core kernel, one per
-     head dim and lse flag) must hold HGMMA instructions and no fp32
-     instance (the FMA kernel) any, with each instance's HGMMA count,
-     registers, spills and shared memory printed; then the kernel
+ 10. the `flash_attention` kernel: first `cuobjdump -sass` of the built
+     forward and backward libraries, where every bf16 instance (the
+     tensor-core kernels: the forward's one per head dim and lse flag,
+     the backward's dK/dV and dQ kernels per head dim) must hold HGMMA
+     instructions and no fp32 instance (the FMA kernels) any, and the
+     backward's bf16 instances must spill nothing (this run's ptxas -v;
+     the script rebuilds a flash library that an earlier run left), with
+     each instance's HGMMA count, registers, spills and dynamic shared
+     memory printed; then the kernel
      against its plain version on the card, fp32 within 2e-5 and bf16
      within 2e-2 (bf16 also within 2e-2 of the plain version in fp32 on
      the same inputs): at the prefill shape (B = 1, S = 4,096, 16 query
@@ -37,8 +41,10 @@ raises and the script exits non-zero:
      and the backward's two kernels (`flash_attention_bwd`: dq, dk, dv
      within 1e-4 of the plain version's largest magnitude in fp32, 2e-2
      in bf16; at S = 1, where dq and dk are 0 but for rounding, of
-     dv's), at the training shape (B = 1, S = 4,096, 16 / 2 heads,
-     D = 128), a ragged S = 1,000 (B = 2), KV == H, D = 256, D = 64,
+     dv's; each gradient's relative and absolute error and the plain
+     version's max |.| printed, and that max must be > 0 wherever the
+     gradient cannot vanish), at the training shape (B = 1, S = 4,096,
+     16 / 2 heads, D = 128), a ragged S = 1,000 (B = 2), KV == H, D = 256, D = 64,
      S = 1, causal=False and phase 10's peaky and flat softmaxes; then
      two backward calls give the same bits, and perturbing the keys and
      values after p leaves dQ's rows up to p unchanged bit for bit;
@@ -545,7 +551,8 @@ def run_main_path(compiled, fused: bool, seed: int, A: int, device=None):
 def profile_window(tag: str, fn, steps: int, top: int = 12) -> None:
     """Where one call's time goes: wall time, the device time summed over
     kernels (busy share), device events per step, and the kernels that
-    take the most device time. `fn` ends in a host read or a sync."""
+    take the most device time, and every kernel of the port's own.
+    `fn` ends in a host read or a sync."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -562,7 +569,11 @@ def profile_window(tag: str, fn, steps: int, top: int = 12) -> None:
     log(f"{tag} {wall_us / 1e3:.3f} ms wall for {steps} step(s); device "
         f"busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%); "
         f"{launches} device events ({launches / steps:.1f}/step)")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    # the top kernels, then the port's own (csrc's anonymous namespace)
+    own = [e for e in ranked[top:]
+           if e.key.startswith("void (anonymous namespace)::")]
+    for e in ranked[:top] + own:
         log(f"{tag}   {e.self_device_time_total / 1e3:9.3f} ms "
             f"{100 * e.self_device_time_total / max(busy, 1):5.1f}% "
             f"x{e.count:<5d} {e.key[:110]}")
@@ -607,28 +618,36 @@ HARD_FLASH_CASES = [  # name, (B, S, H, KV, D), layout, causal, (q, k) x
 ]
 
 
+def flash_instance_name(mangled):
+    """'wgmma<D, lse>' / 'fma<D, lse>' for a flash forward instance (bf16 /
+    fp32), 'dkv wgmma<D>' / 'dq fma<D>' ... for a backward one, None for
+    any other function."""
+    import re
+    m = re.search(r"flash_attention_(wgmma_)?kernelILi(\d+)ELb(\d)E", mangled)
+    if m:
+        return (f"{'wgmma' if m.group(1) else 'fma'}<{m.group(2)}, "
+                f"{'lse' if m.group(3) == '1' else 'no lse'}>")
+    m = re.search(r"flash_bwd_(dkv|dq)_(wgmma_)?kernelIf?Li(\d+)E", mangled)
+    return m and (f"{m.group(1)} {'wgmma' if m.group(2) else 'fma'}"
+                  f"<{m.group(3)}>")
+
+
 def flash_instances(lib_path, build_log):
-    """Each flash forward instance of the built library: {name: (HGMMA
-    count in its SASS, registers, spill-store bytes)} (registers and
-    spills None when the library was not built in this run). Names are
-    'wgmma<D, LSE>' (bf16) and 'fma<D, LSE>' (fp32)."""
+    """Each flash kernel instance of a built library: {name: (HGMMA count
+    in its SASS, registers, spill-store bytes)} (names as
+    `flash_instance_name`; registers and spills from the build's -Xptxas
+    -v lines, None where the log lacks them)."""
     import re
     from torch.utils.cpp_extension import CUDA_HOME
     tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-
-    def short(mangled):
-        m = re.search(r"flash_attention_(wgmma_)?kernelILi(\d+)ELb(\d)E",
-                      mangled)
-        return m and (f"{'wgmma' if m.group(1) else 'fma'}<{m.group(2)}, "
-                      f"{'lse' if m.group(3) == '1' else 'no lse'}>")
     usage, entry = {}, None
     for line in (build_log or "").splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            entry = short(m.group(1))
+            entry = flash_instance_name(m.group(1))
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and entry:
             usage.setdefault(entry, {})["spill"] = int(m.group(1))
@@ -637,37 +656,45 @@ def flash_instances(lib_path, build_log):
             usage.setdefault(entry, {})["regs"] = int(m.group(1))
     out = {}
     for part in sass.split("Function : ")[1:]:
-        name = short(part.split()[0])
+        name = flash_instance_name(part.split()[0])
         if name:
             u = usage.get(name, {})
             out[name] = (part.count("HGMMA"), u.get("regs"), u.get("spill"))
     return out
 
 
-def phase_tensor_cores(build_log) -> dict:
-    """cuobjdump -sass of the built flash_attention library: every bf16
-    instance (wgmma<D, LSE>) holds HGMMA instructions, no fp32 one (fma<D,
-    LSE>) does. Logs each instance's HGMMA count, registers, spills and
-    dynamic shared memory; returns them."""
+def phase_tensor_cores(logs) -> dict:
+    """cuobjdump -sass of the built flash libraries: every bf16 instance
+    (the forward's wgmma<D, LSE>, the backward's dkv / dq wgmma<D>) holds
+    HGMMA instructions, no fp32 one (fma) does; the backward's bf16
+    instances spill nothing (-Xptxas -v of this run's build). Logs each
+    instance's HGMMA count, registers, spills and dynamic shared memory;
+    returns them."""
     from repro_torch.kernels import _build
-    inst = flash_instances(_build.library_path("flash_attention"),
-                           build_log)
-    smem = _build.load("flash_attention", "flash_attention_smem_bytes")
-    need(len(inst) == 12, f"want 12 flash forward instances, found "
-                          f"{sorted(inst)}")
+    fwd_smem = _build.load("flash_attention", "flash_attention_smem_bytes")
+    bwd_smem = _build.load("flash_attention_bwd", "flash_bwd_smem_bytes")
     rec = {}
-    for name, (n_hgmma, regs, spill) in sorted(inst.items()):
-        bf16 = name.startswith("wgmma")
-        D = int(name.split("<")[1].split(",")[0])
-        need(n_hgmma > 0 if bf16 else n_hgmma == 0,
-             f"flash_attention instance {name}: {n_hgmma} HGMMA "
-             f"instructions (bf16 must use the tensor cores, fp32 not)")
-        rec[name] = {"hgmma": n_hgmma, "registers": regs,
-                     "spill_store_bytes": spill,
-                     "dynamic_smem_bytes": smem(int(bf16), D)}
-        log(f"[flash_attention] {name}: {n_hgmma} HGMMA in its SASS, "
-            f"{regs} registers, {spill} B spill stores, "
-            f"{rec[name]['dynamic_smem_bytes']} B dynamic shared memory")
+    for lib in ("flash_attention", "flash_attention_bwd"):
+        inst = flash_instances(_build.library_path(lib), logs.get(lib))
+        need(len(inst) == 12, f"want 12 {lib} instances, found "
+                              f"{sorted(inst)}")
+        for name, (n_hgmma, regs, spill) in sorted(inst.items()):
+            bf16 = "wgmma" in name
+            D = int(name.split("<")[1].split(",")[0].rstrip(">"))
+            need(n_hgmma > 0 if bf16 else n_hgmma == 0,
+                 f"{lib} instance {name}: {n_hgmma} HGMMA instructions "
+                 f"(bf16 must use the tensor cores, fp32 not)")
+            if lib == "flash_attention_bwd" and bf16:
+                need(spill == 0, f"{lib} instance {name} spills {spill} B "
+                                 f"(from this run's ptxas -v)")
+            smem = fwd_smem(int(bf16), D) if lib == "flash_attention" \
+                else bwd_smem(int(name.startswith("dq")), int(bf16), D)
+            rec[name] = {"hgmma": n_hgmma, "registers": regs,
+                         "spill_store_bytes": spill,
+                         "dynamic_smem_bytes": smem}
+            log(f"[{lib}] {name}: {n_hgmma} HGMMA in its SASS, {regs} "
+                f"registers, {spill} B spill stores, {smem} B dynamic "
+                f"shared memory")
     return rec
 
 
@@ -812,7 +839,9 @@ def phase_flash_train_kernels(dev, seed: int) -> dict:
                  **{n: rel_err(g, w, floor) for n, g, w in
                     zip(("dq", "dk", "dv"), got, want)},
                  **{n + "_abs": float((g.float() - w.float()).abs().max())
-                    for n, g, w in zip(("dq", "dk", "dv"), got, want)}}
+                    for n, g, w in zip(("dq", "dk", "dv"), got, want)},
+                 **{n + "_max": float(w.float().abs().max())
+                    for n, w in zip(("dq", "dk", "dv"), want)}}
             if dtype == torch.bfloat16:
                 # o also against the plain version in fp32 on the same
                 # inputs, its output not rounded (lse is the same there)
@@ -828,6 +857,11 @@ def phase_flash_train_kernels(dev, seed: int) -> dict:
                  and e["o"] <= FLASH_TOL[dtype]
                  and e["lse"] <= FLASH_TOL[dtype],
                  f"flash_fwd_lse kernel != plain version on {tag}: {e}")
+            # a gradient that cannot vanish must not: two zero tensors
+            # would read as a match (at S = 1 only dv cannot)
+            need(all(e[n + "_max"] > 0 for n in
+                     (("dv",) if shape[1] == 1 else ("dq", "dk", "dv"))),
+                 f"flash_attention_bwd plain version vanishes on {tag}: {e}")
             need(all(g.shape == w.shape and g.dtype == w.dtype
                      and bool(torch.isfinite(g).all())
                      for g, w in zip(got, want))
@@ -840,8 +874,10 @@ def phase_flash_train_kernels(dev, seed: int) -> dict:
                 f"{layout} layout, q, k x {mul}: o {e['o']:.3g}"
                 + (f" ({e['o_fp32']:.3g} against fp32)" if "o_fp32" in e
                    else "") + f", lse {e['lse']:.3g} (<= "
-                f"{FLASH_TOL[dtype]}); dq {e['dq']:.3g}, dk {e['dk']:.3g}, "
-                f"dv {e['dv']:.3g} of max |ref| (<= {GRAD_TOL[dtype]})")
+                f"{FLASH_TOL[dtype]}); " + ", ".join(
+                    f"{n} {e[n]:.3g} ({e[n + '_abs']:.3g} of max |ref| "
+                    f"{e[n + '_max']:.3g})" for n in ("dq", "dk", "dv"))
+                + f" (<= {GRAD_TOL[dtype]} of max |ref|)")
             del q, k, v, do, o, lse, ro, rlse, got, want
     q, k, v = flash_inputs(dev, gen, B, S, 16, 2, 128, torch.bfloat16)
     do = flash_inputs(dev, gen, B, S, 16, 2, 128, torch.bfloat16)[0]
@@ -1238,6 +1274,13 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
     logs = _build.build_all()
+    # phase 10's spill check reads this run's ptxas lines of both flash
+    # libraries: rebuild one that an earlier run left
+    again = [n for n in ("flash_attention", "flash_attention_bwd")
+             if n not in logs]
+    for n in again:
+        _build.library_path(n).unlink()
+    logs.update(_build.build_all(again))
     log(f"[build] {len(logs)} kernel(s) built in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
@@ -1273,7 +1316,7 @@ def main(argv=None) -> int:
 
     # ---- 10. the flash kernel: tensor cores in its bf16 SASS, then
     # against its plain version
-    flash_tc = phase_tensor_cores(logs.get("flash_attention"))
+    flash_tc = phase_tensor_cores(logs)
     flash_errs = phase_flash_kernel(dev, args.seed)
 
     # ---- 13. the training kernels against their plain versions
@@ -1617,7 +1660,7 @@ def main(argv=None) -> int:
 
     # the training kernels at the training shape, bf16 (the path's) and
     # fp32: the forward with lse, the backward's two kernels alone and the
-    # whole backward (delta and the group sums included)
+    # whole backward (delta and the chunk sums included)
     def time_flash_train(dtype):
         B, S = LM_TRAIN[:2]
         H, KV, D = 16, 2, 128
@@ -1636,9 +1679,11 @@ def main(argv=None) -> int:
                               flush=flush),
                       *bound(nbytes(q, k, v, o, lse), 2 * prod, rate))
         bwd_in = nbytes(q, k, v, do, lse, delta)
+        # the dK/dV kernel's function writes dK and dV once, in k's and
+        # v's dtype; its fp32 chunk partials are the design's own traffic
         res["dkv"] = (time_ms(lambda: fa._bwd_dkv(q, k, v, do, lse, delta,
                                                   True), flush=flush),
-                      *bound(bwd_in + 2 * 4 * B * H * S * D, 4 * prod, rate))
+                      *bound(bwd_in + nbytes(k, v), 4 * prod, rate))
         res["dq"] = (time_ms(lambda: fa._bwd_dq(q, k, v, do, lse, delta,
                                                 True), flush=flush),
                      *bound(bwd_in + nbytes(q), 3 * prod, rate))
@@ -1747,7 +1792,8 @@ def main(argv=None) -> int:
          "ms_fp32": fa32[0], "plain_ms_fp32": fa32[1],
          "bound_ms_fp32": fa32[2], "bound_by_fp32": fa32[3],
          "library_ms_fp32": fa32[4], "max_abs_err_by_case": flash_errs,
-         "instances": flash_tc,
+         "instances": {n: r for n, r in flash_tc.items()
+                       if not n.startswith(("dkv", "dq"))},
          "lm_parity": lm_par, "prefill_ms": pre_ms,
          "prefill_tokens_per_s": n_tok / (pre_ms / 1e3),
          "decode_ms_per_tick": float(np.median(tick_ms))},
@@ -1784,6 +1830,8 @@ def main(argv=None) -> int:
             "plain_ms_is": "the plain backward, both kernels' function",
             "bound_ms": ft16[part][1], "bound_by": ft16[part][2],
             "bound_products": n_prod, "library_ms": None,
+            "instances": {n: r for n, r in flash_tc.items()
+                          if n.startswith(part + " ")},
             "ms_fp32": ft32[part][0], "bound_ms_fp32": ft32[part][1],
             "backward_ms": ft16["bwd"][0], "backward_plain_ms": ft16["bwd"][1],
             "backward_bound_ms": ft16["bwd"][2],

@@ -359,6 +359,12 @@ class Deployment:
                                        W_MIN, W_MAX))
         self.weight_uploads += 1
 
+    def read_synapse(self, pre: int, post: int) -> int:
+        return int(self.read_synapses([pre], [post])[0])
+
+    def write_synapse(self, pre: int, post: int, weight: int) -> None:
+        self.write_synapses([pre], [post], [int(weight)])
+
 
 def deploy(compiled: CompiledNetwork, *, seed: int = 0, device=None,
            fused: bool = False, vectorized: bool = True) -> Deployment:

@@ -112,10 +112,9 @@ constexpr int kBK = 64;          // key rows per tile
 constexpr int kThreads = 256;    // 16 x 16
 constexpr float kNeg = -1e30f;
 
-struct Strides {                 // in elements; the last axis is dense
-  long long b, h, s;
-};
-
+using hopper::allow_smem;
+using hopper::make_map;
+using hopper::Strides;
 
 template <int D>
 constexpr int smem_bytes() {
@@ -321,26 +320,6 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&r);
 }
 
-// starts S = Q K^T (64 x BK, fp32) over D / 16 products; Q's rows are BQ
-// long in each 64-column block, K's BK
-template <int D, int BQ, int BK>
-__device__ __forceinline__ void start_qk(float (&sc)[BK / 2], uint32_t q_addr,
-                                         uint32_t k_addr) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    // 16 columns: column block kk / 4, 32 bytes into its 128-byte rows
-    const uint32_t off = (kk % 4) * 32;
-    const uint64_t qd =
-        hopper::sw128_desc(q_addr + (kk / 4) * BQ * 128 + off, 16, 1024);
-    const uint64_t kd =
-        hopper::sw128_desc(k_addr + (kk / 4) * BK * 128 + off, 16, 1024);
-    if (kk == 0)
-      hopper::wgmma_ss_first<BK>(sc, qd, kd);
-    else
-      hopper::wgmma_ss<BK>(sc, qd, kd);
-  }
-}
-
 // starts O += P_hi V + P_lo V: P (64 x BK) from registers, V (BK x D)
 // MN-major
 template <int D, int BK>
@@ -510,7 +489,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   mbar_wait(&full_k[0], 0);
   fence_operands(sc);
   wgmma_fence();
-  start_qk<D, BQ, BK>(sc, q_addr, k_addr(0));
+  ss_kmajor<D, BK, BQ, BK>(sc, q_addr, k_addr(0));
   wgmma_commit();
   wgmma_wait<0>();
   fence_operands(sc);
@@ -529,7 +508,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     fence_operands(sc);
     fence_operands(acc);
     wgmma_fence();
-    start_qk<D, BQ, BK>(sc, q_addr, k_addr(t));
+    ss_kmajor<D, BK, BQ, BK>(sc, q_addr, k_addr(t));
     wgmma_commit();
     wgmma_fence();
     start_pv<D, BK>(acc, hi, lo, k_addr(t - 1) + C::kTileBytes);
@@ -598,21 +577,6 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// lets `Kernel` take `bytes` of dynamic shared memory: once per device (a
-// launch's host time is tens of microseconds, this call a good part of it)
-template <auto Kernel>
-cudaError_t allow_smem(int bytes) {
-  constexpr int kMaxDevices = 64;
-  static bool done[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev < kMaxDevices && done[dev])) return err;
-  err = cudaFuncSetAttribute(
-      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
-  return err;
-}
-
 template <int D, bool LSE>
 int launch_fma(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int H, int KV, int S, int causal,
@@ -627,46 +591,6 @@ int launch_fma(const void* q, const void* k, const void* v, void* o,
       (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, qs,
       ks, vs, os, S, H / KV, causal, scale);
   return (int)cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled from libcuda, found through the runtime (no -lcuda)
-PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault,
-                                         &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
-// a 4-d bf16 tensor map over (D, S, heads, B) with the tensor's strides,
-// boxes of 64 columns x `rows` rows, 128-byte swizzle, zeros past S. A
-// stride of an axis of extent 1 is never used; it is replaced by the
-// dense extent so that any value the caller had passes the encoder.
-int make_map(CUtensorMap* map, const void* base, int D, int S, int heads,
-             int B, Strides st, int rows) {
-  auto encode = encode_fn();
-  if (!encode) return (int)cudaErrorNotSupported;
-  const long long dense = (long long)D * S * heads * B;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
-                              (cuuint64_t)heads, (cuuint64_t)B};
-  const long long el[3] = {st.s, st.h, st.b};
-  cuuint64_t strides[3];
-  for (int i = 0; i < 3; ++i)
-    strides[i] = 2 * (cuuint64_t)(dims[i + 1] == 1 ? dense : el[i]);
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
 }
 
 template <int D, bool LSE>

@@ -3,9 +3,8 @@
 //   p  = exp(q_hat . k - lse),  q_hat = q * D**-0.5  (0 where masked)
 //   ds = p * (dO . v - delta),  delta = rowsum(dO * o)
 //   dV = p^T dO,  dK = ds^T q_hat,  dQ = D**-0.5 * ds K
-// fp32 or bf16 in, every operation in fp32. Query head h reads KV head
-// g = h / (H / KV) (grouped-query heads; KV == H is the TPU kernel's
-// contract).
+// Query head h reads KV head g = h / (H / KV) (grouped-query heads; KV == H
+// is the TPU kernel's contract).
 //
 // Replaces the two Pallas kernels of `flash_attention_bwd` in
 // src/repro/kernels/flash_attention.py: `_bwd_dkv_kernel` (dK and dV, one
@@ -17,11 +16,70 @@
 //
 // Bound on the H100: operations. The function needs five causal products
 // (s, dV, dP, dK, dQ; B*H*S^2*D multiply-adds each); the two kernels, like
-// the TPU's, recompute s and dP in both, seven in all, as fp32 FMAs on the
-// CUDA cores (the TPU kernels' fp32 contract); tensor cores are later work.
+// the TPU's, recompute s and dP in both, seven in all: two kernels and not
+// one with a float-atomic dQ, so that two calls give the same bits. dK and
+// dV leave the dK/dV kernel as fp32 partials (B, KV, chunks, S, D), one per
+// chunk of each group's query heads, which the wrapper sums in order.
 //
-// Design (simple first), both kernels with 256 threads (16 x 16) per block
-// and 64-row tiles:
+// bf16 (`flash_bwd_dkv_wgmma_kernel`, `flash_bwd_dq_wgmma_kernel`, the
+// path's; Hopper tensor cores, with the building blocks and tile layout of
+// the forward, flash_attention.cu and hopper.cuh):
+//   - every product is a wgmma with fp32 accumulators on 128-byte-swizzled
+//     bf16 tiles that TMA loads over the model's (B, S, heads, D) strides
+//     (zeros past S); a producer warpgroup hands its registers to two
+//     consumer warpgroups (setmaxnreg 24 / 240) and keeps an mbarrier ring
+//     of 2 stages full; the blocks with the longest causal walks launch
+//     first;
+//   - the scale is applied to the fp32 scores (exp2 of s * scale * log2 e
+//     - lse * log2 e) and to the fp32 dK and dQ at the end, never to a bf16
+//     q, which would add a rounding;
+//   - P and dS enter their products rounded to bf16 once: the tolerance is
+//     2e-2 of each gradient's largest magnitude, and a CPU emulation of
+//     this arithmetic (tests/test_torch_flash_attention.py) stays within
+//     about 0.004 of it on the training-shape, peaky, flat, ragged, full
+//     and D = 256 cases;
+//   - dK/dV: one block per (key tile, KV head, batch row, chunk of the
+//     group's H / KV query heads). Each consumer warpgroup owns 64 keys
+//     (a block 128); K and V stay in shared memory while the producer
+//     streams the chunk's (Q, dO) tiles of 64 rows, head after head, from
+//     the key tile's diagonal on (all when not causal), and one producer
+//     warp stages each tile's 64 lse * log2 e and delta values (+inf and 0
+//     past S, so p = 0 there). Per tile: S^T = K Q^T and dP^T = V dO^T
+//     (both operands K-major), P^T with each column's lse, dV += P^T dO
+//     (P^T from registers, dO MN-major), dS^T = P^T (dP^T - delta), dK +=
+//     dS^T Q (Q MN-major). dK + dV take 128 registers a thread at D = 128,
+//     S^T and dP^T 64 more. At D = 256, where dK + dV alone would be 256,
+//     the two warpgroups share one tile of 64 keys: one holds dV (S^T, P^T,
+//     P^T dO), the other dK (S^T and dP^T, dS^T, dS^T Q); each computes S^T
+//     itself, one product more than passing P^T through shared memory but
+//     no barrier between them;
+//   - the GQA chunks: the fewest chunks of the group's query heads (a
+//     divisor of H / KV) that give at least 256 blocks, two per SM of the
+//     H100's 132 (causal walks differ in length, so one wave would leave
+//     SMs idle). At the training shape (B = 1, S = 4,096, 16 / 2 heads,
+//     D = 128) that is 4 chunks of 2 heads, 256 blocks, and partials of
+//     2 x 16.8 MB in place of the 2 x 33.5 MB that one partial per query
+//     head took. The count depends on the shape only, so two calls give
+//     the same bits;
+//   - dQ: one block per (128 query rows in two consumer warpgroups, query
+//     head, batch row; 64 rows and one warpgroup at D = 256); Q, dO and
+//     each thread's two rows of lse and delta stay resident while K and V
+//     tiles of 128 keys (64 at D = 256) stream through a 2-stage ring up to
+//     the diagonal, K and V with full and empty barriers of their own (a V
+//     tile is free once dP is in). Per tile: S = Q K^T, dP = dO V^T, P and
+//     dS per row, dQ += dS K (dS from registers, K MN-major). The finish
+//     scales dQ, rounds it with __float2bfloat16_rn, stages it in the
+//     warpgroup's own rows of the Q tile and stores it in q's strides with
+//     16-byte stores.
+//   Alignment: TMA and the 16-byte stores need 16-byte-aligned q, k, v, dO
+//   and dQ with (B, heads, S) strides that are multiples of 8 elements; the
+//   wrapper raises for a bf16 tensor that breaks this.
+//
+// fp32 (`flash_bwd_dkv_kernel<float, D>`, `flash_bwd_dq_kernel<float, D>`):
+// every operation in fp32 FMAs on the CUDA cores, the TPU kernels' fp32
+// contract (TF32 would break the 1e-4 tolerance); only the fp32 parity
+// phases run them. Both with 256 threads (16 x 16) per block and 64-row
+// tiles:
 //   - flash_bwd_dkv_kernel: one block per (64-key tile, query head, batch
 //     row); its K and V tiles stay in shared memory while it walks the q
 //     tiles at and after its diagonal (all of them when not causal), the
@@ -30,9 +88,7 @@
 //     4 ty + i, keys tx + 16 j) and a 4 x D/16 tile of dK and dV (keys
 //     4 ty + i, float4 columns 4 tx + 64 j) in registers. p and then ds go
 //     through one shared (64, 68) tile, read transposed for p^T dO and
-//     ds^T q_hat. It writes fp32 partials per query head, (B, H, S, D):
-//     the wrapper sums each group of H / KV heads in a fixed order, so dK
-//     and dV are deterministic without float atomics;
+//     ds^T q_hat. Its partials are per query head (H / KV chunks);
 //   - flash_bwd_dq_kernel: one block per (64-row q tile, query head, batch
 //     row); its Q (scaled) and dO tiles stay in shared memory while it
 //     walks the kv tiles up to its diagonal, the longest walks first. V
@@ -41,14 +97,17 @@
 //   - p is recomputed from the lse, with masked pairs and the ragged tail
 //     past S set to 0 (the TPU kernels mask the scores to -1e30, whose
 //     exp is 0); rows past S load as zeros and are never written.
-// Padded rows (+4 floats) keep the shared-memory reads free of bank
-// conflicts. Shared memory is 3 (64, D + 4) tiles, the (64, 68) tile and
-// two 64-float rows: 70 KB at D = 64, 119 KB at D = 128, 218 KB at D = 256,
-// past the 48 KB static limit, so the launch sets
-// cudaFuncAttributeMaxDynamicSharedMemorySize. No fast-math: expf.
+//   Padded rows (+4 floats) keep the shared-memory reads free of bank
+//   conflicts. Shared memory is 3 (64, D + 4) tiles, the (64, 68) tile and
+//   two 64-float rows: 70 KB at D = 64, 119 KB at D = 128, 218 KB at
+//   D = 256. No fast-math: expf.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -56,18 +115,12 @@ constexpr int kB = 64;           // rows of every tile (query and key)
 constexpr int kThreads = 256;    // 16 x 16
 constexpr int LP = kB + 4;       // padded row of the p / ds tile
 
-struct Strides {                 // in elements; the last axis is dense
-  long long b, h, s;
-};
+using hopper::allow_smem;
+using hopper::make_map;
+using hopper::Strides;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 template <int D>
 constexpr int smem_bytes() {
@@ -392,76 +445,560 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dkv_d(int D, const void* q, const void* k, const void* v,
-          const void* dout, const float* lse, const float* delta, float* dk,
-          float* dv, int B, int H, int KV, int S, int causal, float scale,
-          Strides qs, Strides ks, Strides vs, Strides dos, cudaStream_t st) {
-  switch (D) {
-    case 64:
-      return launch_dkv<T, 64>(q, k, v, dout, lse, delta, dk, dv, B, H, KV,
-                               S, causal, scale, qs, ks, vs, dos, st);
-    case 128:
-      return launch_dkv<T, 128>(q, k, v, dout, lse, delta, dk, dv, B, H, KV,
-                                S, causal, scale, qs, ks, vs, dos, st);
-    case 256:
-      return launch_dkv<T, 256>(q, k, v, dout, lse, delta, dk, dv, B, H, KV,
-                                S, causal, scale, qs, ks, vs, dos, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+
+// ------------------------------------------- bf16: wgmma, TMA, mbarriers
+// with two consumer warpgroups a block starts at 168 registers a thread
+// (65,536 / 384); the producer warpgroup gives its spare ones to them
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
+// the dK/dV kernel takes the fewest chunks of a group's query heads that
+// give it this many blocks
+constexpr long long kMinBlocks = 256;
+
+template <int D>
+struct Dkv {                         // the dK/dV tensor-core kernel's shape
+  // at D = 256 the two consumer warpgroups share 64 keys, one holding dV
+  // and one dK; below, each owns 64 keys and both
+  static constexpr bool kSplit = D == 256;
+  static constexpr int kKeys = kSplit ? 64 : 128;   // keys per block
+  static constexpr int kBQ = 64;                    // rows per Q / dO tile
+  static constexpr int kCols = D / 64;              // 128-byte column blocks
+  static constexpr int kThreads = 384;              // 2 consumer WGs + 1
+  static constexpr int kKVBytes = kKeys * D * 2;    // the K (or V) tile
+  static constexpr int kTileBytes = kBQ * D * 2;    // one Q (or dO) tile
+  static constexpr int kStages = 2;
+  // K, V, the ring of (Q, dO) tiles and of their lse * log2 e and delta
+  // rows, 5 mbarriers, 1,024 bytes of alignment slack
+  static constexpr int kSmem =
+      1024 + 2 * kKVBytes + kStages * (2 * kTileBytes + 2 * kBQ * 4) + 64;
+};
+
+template <int D>
+struct Dq {                          // the dQ tensor-core kernel's shape
+  // consumer warpgroups, 64 query rows each: one at D = 256, where dQ
+  // alone is 128 registers a thread
+  static constexpr int kWGs = D <= 128 ? 2 : 1;
+  static constexpr int kBQ = 64 * kWGs;             // query rows per block
+  static constexpr int kBK = D <= 128 ? 128 : 64;   // keys per K/V tile
+  static constexpr int kCols = D / 64;
+  static constexpr int kThreads = 128 * (kWGs + 1); // + the producer's
+  static constexpr int kQBytes = kBQ * D * 2;       // Q (or dO)
+  static constexpr int kTileBytes = kBK * D * 2;    // one K or one V tile
+  static constexpr int kStages = 2;
+  // Q, dO, the ring of K and V tiles, 9 mbarriers, 1,024 bytes of slack
+  static constexpr int kSmem =
+      1024 + 2 * kQBytes + kStages * 2 * kTileBytes + 128;
+  // a key tile is never wholly in a warpgroup's causal future
+  static_assert(kBK % kBQ == 0, "key tiles must cover whole query blocks");
+};
+
+// one consumer warpgroup of the dK/dV kernel: keys wk0 .. wk0 + 63 against
+// each of the block's n_it (Q, dO) tiles (head it / nt, q tile t0 + it %
+// nt); DV / DK: which of the two accumulators it holds. Writes its rows of
+// the chunk's fp32 partials (dK scaled).
+template <int D, bool DV, bool DK>
+__device__ __forceinline__ void dkv_consumer(
+    const uint8_t* ring, const float* rows, uint64_t* full, uint64_t* empty,
+    uint32_t k_addr, uint32_t v_addr, float* __restrict__ dk,
+    float* __restrict__ dv, int wk0, int t0, int nt, int n_it, int S,
+    int causal, float scale, float scale_log2) {
+  using namespace hopper;
+  using C = Dkv<D>;
+  constexpr int NS = C::kStages, BQ = C::kBQ;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int r_in = 16 * warp + lane / 4;  // its keys: wk0 + r_in, + 8
+  const int col = 2 * (lane % 4);         // its first query of each 8
+  float dva[DV ? D / 2 : 1], dka[DK ? D / 2 : 1];
+#pragma unroll
+  for (int i = 0; i < (DV ? D / 2 : 1); ++i) dva[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (DK ? D / 2 : 1); ++i) dka[i] = 0.f;
+  float st[BQ / 2], dp[BQ / 2];           // S^T (then P^T), dP^T (then dS^T)
+  uint32_t ab[BQ / 4];                    // P^T or dS^T in bf16 pairs
+
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % NS;
+    const int q0 = (t0 + it % nt) * BQ;
+    mbar_wait(&full[s], (it / NS) & 1);
+    if (wk0 < S && !(causal && wk0 > q0 + BQ - 1)) {
+      const uint32_t q_addr = smem_addr(ring + s * 2 * C::kTileBytes);
+      const uint32_t do_addr = q_addr + C::kTileBytes;
+      const float* lrow = rows + s * 2 * BQ;  // lse * log2 e, then delta
+      const float* drow = lrow + BQ;
+      fence_operands(st);
+      if constexpr (DK) fence_operands(dp);
+      wgmma_fence();
+      ss_kmajor<D, BQ, C::kKeys, BQ>(st, k_addr, q_addr);   // S^T = K Q^T
+      wgmma_commit();
+      if constexpr (DK) {
+        ss_kmajor<D, BQ, C::kKeys, BQ>(dp, v_addr, do_addr);  // V dO^T
+        wgmma_commit();
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_operands(st);
+      // P^T = exp2(S^T scale log2 e - lse log2 e), one lse per column; on
+      // the diagonal the keys after their query are 0
+      const bool diag = causal && wk0 + 63 > q0;
+#pragma unroll
+      for (int i = 0; i < BQ / 8; ++i) {
+        const float2 l = *reinterpret_cast<const float2*>(lrow + 8 * i + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(st[4 * i + e], scale_log2, -((e & 1) ? l.y : l.x)));
+          if (diag && wk0 + r_in + 8 * (e >> 1) > q0 + 8 * i + col + (e & 1))
+            p = 0.f;
+          st[4 * i + e] = p;
+        }
+      }
+      if constexpr (DV) {
+        pack_a<BQ>(st, ab);
+        fence_operands(dva);
+        wgmma_fence();
+        rs_mnmajor<D, BQ, BQ>(dva, ab, do_addr);              // dV += P^T dO
+        wgmma_commit();
+      }
+      if constexpr (DK) {
+        if constexpr (DV) wgmma_wait<1>();                    // dP^T is in
+        else wgmma_wait<0>();
+        fence_operands(dp);
+#pragma unroll
+        for (int i = 0; i < BQ / 8; ++i) {
+          const float2 d = *reinterpret_cast<const float2*>(drow + 8 * i + col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[4 * i + e] = st[4 * i + e] * (dp[4 * i + e] - ((e & 1) ? d.y : d.x));
+        }
+        if constexpr (DV) {                // P^T dO is done: ab is free
+          wgmma_wait<0>();
+          fence_operands(dva);
+        }
+        pack_a<BQ>(dp, ab);
+        fence_operands(dka);
+        wgmma_fence();
+        rs_mnmajor<D, BQ, BQ>(dka, ab, q_addr);               // dK += dS^T Q
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      if constexpr (DV) fence_operands(dva);
+      if constexpr (DK) fence_operands(dka);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wk0 + r_in + 8 * r;
+    if (row >= S) continue;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      if constexpr (DV)
+        *reinterpret_cast<float2*>(dv + (long long)row * D + 8 * i + col) =
+            make_float2(dva[4 * i + 2 * r], dva[4 * i + 2 * r + 1]);
+      if constexpr (DK)
+        *reinterpret_cast<float2*>(dk + (long long)row * D + 8 * i + col) =
+            make_float2(scale * dka[4 * i + 2 * r],
+                        scale * dka[4 * i + 2 * r + 1]);
+    }
   }
 }
 
-template <typename T>
-int dq_d(int D, const void* q, const void* k, const void* v,
-         const void* dout, const float* lse, const float* delta, void* dq,
-         int B, int H, int KV, int S, int causal, float scale, Strides qs,
-         Strides ks, Strides vs, Strides dos, Strides dqs, cudaStream_t st) {
-  switch (D) {
-    case 64:
-      return launch_dq<T, 64>(q, k, v, dout, lse, delta, dq, B, H, KV, S,
-                              causal, scale, qs, ks, vs, dos, dqs, st);
-    case 128:
-      return launch_dq<T, 128>(q, k, v, dout, lse, delta, dq, B, H, KV, S,
-                               causal, scale, qs, ks, vs, dos, dqs, st);
-    case 256:
-      return launch_dq<T, 256>(q, k, v, dout, lse, delta, dq, B, H, KV, S,
-                               causal, scale, qs, ks, vs, dos, dqs, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+// dK and dV partials, dk / dv fp32 (B, KV, chunks, S, D): grid (KV *
+// chunks, key tiles, B)
+template <int D>
+__global__ void __launch_bounds__(Dkv<D>::kThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const __grid_constant__ CUtensorMap domap,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dk, float* __restrict__ dv,
+                           int S, int H, int rep, int chunks, int causal,
+                           float scale, float scale_log2) {
+  using namespace hopper;
+  using C = Dkv<D>;
+  constexpr int NS = C::kStages, BQ = C::kBQ;
+  extern __shared__ uint8_t smem_raw[];
+  // 1,024-byte alignment, so that the 128-byte swizzle's rows line up
+  uint8_t* const Ks = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* const Vs = Ks + C::kKVBytes;
+  uint8_t* const ring = Vs + C::kKVBytes;           // stage s: Q, then dO
+  float* const rows = reinterpret_cast<float*>(ring + NS * 2 * C::kTileBytes);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(rows + NS * 2 * BQ);
+  uint64_t* const empty = full + NS;
+  uint64_t* const kvbar = empty + NS;
+
+  const int g = blockIdx.x / chunks, chunk = blockIdx.x % chunks;
+  const int KV = gridDim.x / chunks, b = blockIdx.z;
+  const int k0 = blockIdx.y * C::kKeys;   // the longest walks (k0 = 0) first
+  const int per = rep / chunks;            // the chunk's query heads
+  const int h0 = g * rep + chunk * per;
+  const int nq = (S + BQ - 1) / BQ;
+  const int t0 = causal ? k0 / BQ : 0;     // the first q tile seeing a key
+  const int nt = nq - t0, n_it = per * nt;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1 + 32);   // the TMA thread and the rows' warp
+      mbar_init(&empty[s], 8);       // one arrival per consumer warp
+    }
+    mbar_init(kvbar, 1);
+    mbar_init_fence();
   }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // the producer warpgroup: one thread starts every TMA copy, one warp
+    // stages the rows of lse (times log2 e; +inf past S, so p = 0 there)
+    // and delta
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 8 && lane == 0) {
+      mbar_expect_tx(kvbar, 2 * C::kKVBytes);
+      for (int c = 0; c < C::kCols; ++c) {
+        tma_load_4d(Ks + c * C::kKeys * 128, &kmap, kvbar, 64 * c, k0, g, b);
+        tma_load_4d(Vs + c * C::kKeys * 128, &vmap, kvbar, 64 * c, k0, g, b);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % NS, h = h0 + it / nt, q0 = (t0 + it % nt) * BQ;
+        uint8_t* Qs = ring + s * 2 * C::kTileBytes;
+        if (it >= NS) mbar_wait(&empty[s], (it / NS - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * C::kTileBytes);
+        for (int c = 0; c < C::kCols; ++c) {
+          tma_load_4d(Qs + c * BQ * 128, &qmap, &full[s], 64 * c, q0, h, b);
+          tma_load_4d(Qs + C::kTileBytes + c * BQ * 128, &domap, &full[s],
+                      64 * c, q0, h, b);
+        }
+      }
+    } else if (warp == 9) {
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % NS, h = h0 + it / nt, q0 = (t0 + it % nt) * BQ;
+        float* r = rows + s * 2 * BQ;
+        const long long at = ((long long)b * H + h) * S;
+        if (it >= NS) mbar_wait(&empty[s], (it / NS - 1) & 1);
+        for (int i = lane; i < BQ; i += 32) {
+          const bool in = q0 + i < S;
+          r[i] = in ? lse[at + q0 + i] * kLog2e : CUDART_INF_F;
+          r[BQ + i] = in ? delta[at + q0 + i] : 0.f;
+        }
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  const int wg = warp / 4;
+  const int off = C::kSplit ? 0 : 64 * wg;  // the warpgroup's first key
+  const uint32_t k_addr = smem_addr(Ks) + off * 128;
+  const uint32_t v_addr = smem_addr(Vs) + off * 128;
+  const long long out0 =
+      (((long long)b * KV + g) * chunks + chunk) * S * D;
+  mbar_wait(kvbar, 0);
+  if constexpr (C::kSplit) {
+    if (wg == 0)
+      dkv_consumer<D, true, false>(ring, rows, full, empty, k_addr, v_addr,
+                                   dk + out0, dv + out0, k0, t0, nt, n_it, S,
+                                   causal, scale, scale_log2);
+    else
+      dkv_consumer<D, false, true>(ring, rows, full, empty, k_addr, v_addr,
+                                   dk + out0, dv + out0, k0, t0, nt, n_it, S,
+                                   causal, scale, scale_log2);
+  } else {
+    dkv_consumer<D, true, true>(ring, rows, full, empty, k_addr, v_addr,
+                                dk + out0, dv + out0, k0 + off, t0, nt, n_it,
+                                S, causal, scale, scale_log2);
+  }
+}
+
+// dQ in bf16, q's strides: grid (H, query blocks, B)
+template <int D>
+__global__ void __launch_bounds__(Dq<D>::kThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const __grid_constant__ CUtensorMap domap,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, Strides dqs, int S,
+                          int rep, int causal, float scale,
+                          float scale_log2) {
+  using namespace hopper;
+  using C = Dq<D>;
+  constexpr int BQ = C::kBQ, BK = C::kBK, NS = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const Qs = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* const DOs = Qs + C::kQBytes;
+  uint8_t* const KVs = DOs + C::kQBytes;   // stage s: K, then V
+  uint64_t* const full_k = reinterpret_cast<uint64_t*>(
+      KVs + NS * 2 * C::kTileBytes);
+  uint64_t* const full_v = full_k + NS;
+  uint64_t* const empty_k = full_v + NS;
+  uint64_t* const empty_v = empty_k + NS;
+  uint64_t* const qbar = empty_v + NS;
+
+  const int h = blockIdx.x, b = blockIdx.z, g = h / rep, H = gridDim.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest first
+  const int n_all = (S + BK - 1) / BK;
+  const int n_kb = causal ? min(n_all, (q0 + BQ - 1) / BK + 1) : n_all;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], 4 * C::kWGs);  // one arrival per consumer warp
+      mbar_init(&empty_v[s], 4 * C::kWGs);
+    }
+    mbar_init(qbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * C::kWGs) {
+    // the producer warpgroup: one thread starts every TMA copy; a V tile
+    // is free once dP is in, a K tile only after dQ += dS K
+    if constexpr (C::kWGs == 2) setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 128 * C::kWGs) {
+      mbar_expect_tx(qbar, 2 * C::kQBytes);
+      for (int c = 0; c < C::kCols; ++c) {
+        tma_load_4d(Qs + c * BQ * 128, &qmap, qbar, 64 * c, q0, h, b);
+        tma_load_4d(DOs + c * BQ * 128, &domap, qbar, 64 * c, q0, h, b);
+      }
+      for (int t = 0; t < n_kb; ++t) {
+        const int s = t % NS;
+        const uint32_t parity = (t / NS - 1) & 1;
+        uint8_t* Ks = KVs + s * 2 * C::kTileBytes;
+        uint8_t* Vs = Ks + C::kTileBytes;
+        if (t >= NS) mbar_wait(&empty_k[s], parity);
+        mbar_expect_tx(&full_k[s], C::kTileBytes);
+        for (int c = 0; c < C::kCols; ++c)
+          tma_load_4d(Ks + c * BK * 128, &kmap, &full_k[s], 64 * c, t * BK,
+                      g, b);
+        if (t >= NS) mbar_wait(&empty_v[s], parity);
+        mbar_expect_tx(&full_v[s], C::kTileBytes);
+        for (int c = 0; c < C::kCols; ++c)
+          tma_load_4d(Vs + c * BK * 128, &vmap, &full_v[s], 64 * c, t * BK,
+                      g, b);
+      }
+    }
+    return;
+  }
+  if constexpr (C::kWGs == 2) setmaxnreg_inc<kConsumerRegs>();
+
+  // a consumer warpgroup: query rows wq0 .. wq0 + 63
+  const int wg = warp / 4;
+  const int wq0 = q0 + 64 * wg;
+  const int r_in = 64 * wg + 16 * (warp % 4) + lane / 4;  // row in the block
+  const int row0 = q0 + r_in;           // this thread's rows: row0, row0 + 8
+  const int col = 2 * (lane % 4);       // its first column of each 8
+  const uint32_t q_addr = smem_addr(Qs) + 64 * wg * 128;
+  const uint32_t do_addr = smem_addr(DOs) + 64 * wg * 128;
+  const uint32_t kv_addr = smem_addr(KVs);
+  float l2[2], dl[2];                    // lse * log2 e (+inf past S), delta
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const long long at = ((long long)b * H + h) * S + row;
+    l2[r] = row < S ? lse[at] * kLog2e : CUDART_INF_F;
+    dl[r] = row < S ? delta[at] : 0.f;
+  }
+  float dqa[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+  float sc[BK / 2], dp[BK / 2];          // S (then P), dP (then dS)
+  uint32_t ab[BK / 4];                   // dS in bf16 pairs
+
+  mbar_wait(qbar, 0);
+  for (int t = 0; t < n_kb; ++t) {
+    const int s = t % NS, k0 = t * BK;
+    const uint32_t parity = (t / NS) & 1;
+    const uint32_t k_addr = kv_addr + s * 2 * C::kTileBytes;
+    const uint32_t v_addr = k_addr + C::kTileBytes;
+    mbar_wait(&full_k[s], parity);
+    fence_operands(sc);
+    wgmma_fence();
+    ss_kmajor<D, BK, BQ, BK>(sc, q_addr, k_addr);           // S = Q K^T
+    wgmma_commit();
+    mbar_wait(&full_v[s], parity);
+    fence_operands(dp);
+    wgmma_fence();
+    ss_kmajor<D, BK, BQ, BK>(dp, do_addr, v_addr);          // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait<1>();                   // S is in
+    fence_operands(sc);
+    // P = exp2(S scale log2 e - lse log2 e); the diagonal tile and the
+    // ragged tail masked to 0
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > wq0);
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(sc[4 * i + e], scale_log2, -l2[e >> 1]));
+        if (edge) {
+          const int key = k0 + 8 * i + col + (e & 1);
+          if (key >= S || (causal && key > row0 + 8 * (e >> 1))) p = 0.f;
+        }
+        sc[4 * i + e] = p;
+      }
+    wgmma_wait<0>();                   // dP is in: the V tile is free
+    fence_operands(dp);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty_v[s]);
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[4 * i + e] = sc[4 * i + e] * (dp[4 * i + e] - dl[e >> 1]);
+    pack_a<BK>(dp, ab);
+    fence_operands(dqa);
+    wgmma_fence();
+    rs_mnmajor<D, BK, BK>(dqa, ab, k_addr);                 // dQ += dS K
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(dqa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty_k[s]);
+  }
+
+  // finish: dQ * scale in bf16 through this warpgroup's rows of the Q tile
+  // (its last product has completed), in the same swizzled layout, then
+  // out in 16-byte stores
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int R = r_in + 8 * r;
+      *reinterpret_cast<uint32_t*>(
+          Qs + (i / 8) * BQ * 128 + R * 128 + (((i % 8) ^ (R % 8)) << 4) +
+          2 * col) = pack_bf16(scale * dqa[4 * i + 2 * r],
+                               scale * dqa[4 * i + 2 * r + 1]);
+    }
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+  constexpr int kChunks = D / 8;        // 16-byte chunks in a row
+  __nv_bfloat16* dqp = dq + b * dqs.b + h * dqs.h;
+  for (int idx = threadIdx.x % 128; idx < 64 * kChunks; idx += 128) {
+    const int R = 64 * wg + idx / kChunks, ch = idx % kChunks;
+    if (q0 + R < S)
+      *reinterpret_cast<uint4*>(dqp + (long long)(q0 + R) * dqs.s + 8 * ch) =
+          *reinterpret_cast<const uint4*>(
+              Qs + (ch / 8) * BQ * 128 + R * 128 + (((ch % 8) ^ (R % 8)) << 4));
+  }
+}
+
+// the dK/dV partials' chunk count: one per query head for the FMA kernel;
+// for the tensor-core kernel the fewest chunks of the group's H / KV heads
+// (a divisor) that give at least kMinBlocks blocks
+int dkv_chunks(int bf16, int B, int H, int KV, int S, int D) {
+  const int rep = H / KV;
+  if (!bf16) return rep;
+  const int keys = D == 256 ? Dkv<256>::kKeys : Dkv<128>::kKeys;
+  const long long base = (long long)B * KV * ((S + keys - 1) / keys);
+  for (int c = 1; c < rep; ++c)
+    if (rep % c == 0 && base * c >= kMinBlocks) return c;
+  return rep;
+}
+
+template <int D>
+int launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* delta,
+                     float* dk, float* dv, int B, int H, int KV, int S,
+                     int causal, int chunks, float scale, Strides qs,
+                     Strides ks, Strides vs, Strides dos, cudaStream_t st) {
+  using C = Dkv<D>;
+  CUtensorMap qm, km, vm, dm;
+  int err = make_map(&qm, q, D, S, H, B, qs, C::kBQ);
+  if (!err) err = make_map(&km, k, D, S, KV, B, ks, C::kKeys);
+  if (!err) err = make_map(&vm, v, D, S, KV, B, vs, C::kKeys);
+  if (!err) err = make_map(&dm, dout, D, S, H, B, dos, C::kBQ);
+  if (err) return err;
+  err = (int)allow_smem<flash_bwd_dkv_wgmma_kernel<D>>(C::kSmem);
+  if (err) return err;
+  dim3 grid(KV * chunks, (S + C::kKeys - 1) / C::kKeys, B);
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, C::kThreads, C::kSmem, st>>>(
+      qm, km, vm, dm, lse, delta, dk, dv, S, H, H / KV, chunks, causal, scale,
+      scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq_wgmma(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    void* dq, int B, int H, int KV, int S, int causal,
+                    float scale, Strides qs, Strides ks, Strides vs,
+                    Strides dos, Strides dqs, cudaStream_t st) {
+  using C = Dq<D>;
+  CUtensorMap qm, km, vm, dm;
+  int err = make_map(&qm, q, D, S, H, B, qs, C::kBQ);
+  if (!err) err = make_map(&km, k, D, S, KV, B, ks, C::kBK);
+  if (!err) err = make_map(&vm, v, D, S, KV, B, vs, C::kBK);
+  if (!err) err = make_map(&dm, dout, D, S, H, B, dos, C::kBQ);
+  if (err) return err;
+  err = (int)allow_smem<flash_bwd_dq_wgmma_kernel<D>>(C::kSmem);
+  if (err) return err;
+  dim3 grid(H, (S + C::kBQ - 1) / C::kBQ, B);
+  flash_bwd_dq_wgmma_kernel<D><<<grid, C::kThreads, C::kSmem, st>>>(
+      qm, km, vm, dm, lse, delta, (__nv_bfloat16*)dq, dqs, S, H / KV, causal,
+      scale, scale * kLog2e);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Both entries: q, dout (B, H, S, D) and k, v (B, KV, S, D), fp32 (bf16 ==
-// 0) or bf16 (bf16 == 1), each with its batch, head and sequence strides in
-// elements and a dense last axis; lse and delta dense fp32 (B, H, S); D in
+// 0, the FMA kernels) or bf16 (bf16 == 1, the tensor-core kernels), each
+// with its batch, head and sequence strides in elements and a dense last
+// axis (for bf16 every base 16-byte aligned and every stride of an axis
+// longer than 1 a multiple of 8); lse and delta dense fp32 (B, H, S); D in
 // {64, 128, 256}; H % KV == 0. Each launches on `stream` and returns a
-// cudaError_t (cudaErrorInvalidValue for a head dimension it has no
-// instance for).
-//
-// dK and dV per query head: dk, dv dense fp32 (B, H, S, D).
+// cudaError_t (cudaErrorInvalidValue for a head dimension or chunk count
+// it has no instance for).
+
+// the chunk count the dK/dV entry wants for these shapes
+extern "C" int flash_bwd_dkv_chunks(int bf16, int B, int H, int KV, int S,
+                                    int D) {
+  if (KV <= 0 || H % KV != 0) return 0;
+  return dkv_chunks(bf16, B, H, KV, S, D);
+}
+
+// dK and dV as fp32 partials dk, dv, dense (B, KV, chunks, S, D), chunk c
+// summing query heads c * H / (KV chunks) and on of each group; `chunks`
+// is flash_bwd_dkv_chunks' count.
 extern "C" int flash_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int bf16, int B,
-    int H, int KV, int S, int D, int causal, float scale, long long q_sb,
-    long long q_sh, long long q_ss, long long k_sb, long long k_sh,
-    long long k_ss, long long v_sb, long long v_sh, long long v_ss,
-    long long d_sb, long long d_sh, long long d_ss, void* stream) {
+    int H, int KV, int S, int D, int causal, int chunks, float scale,
+    long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+    long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+    long long v_ss, long long d_sb, long long d_sh, long long d_ss,
+    void* stream) {
   if (B <= 0 || H <= 0 || S <= 0) return (int)cudaSuccess;
-  if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  if (KV <= 0 || H % KV != 0 || chunks != dkv_chunks(bf16, B, H, KV, S, D))
+    return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss}, dos{d_sb, d_sh, d_ss};
   cudaStream_t st = (cudaStream_t)stream;
   const float* l = (const float*)lse;
   const float* dl = (const float*)delta;
-  if (bf16)
-    return dkv_d<__nv_bfloat16>(D, q, k, v, dout, l, dl, (float*)dk,
-                                (float*)dv, B, H, KV, S, causal, scale, qs,
-                                ks, vs, dos, st);
-  return dkv_d<float>(D, q, k, v, dout, l, dl, (float*)dk, (float*)dv, B, H,
-                      KV, S, causal, scale, qs, ks, vs, dos, st);
+  float* dkf = (float*)dk;
+  float* dvf = (float*)dv;
+#define DKV_LAUNCH(DIM)                                                      \
+  return bf16 ? launch_dkv_wgmma<DIM>(q, k, v, dout, l, dl, dkf, dvf, B, H,  \
+                                      KV, S, causal, chunks, scale, qs, ks,  \
+                                      vs, dos, st)                           \
+              : launch_dkv<float, DIM>(q, k, v, dout, l, dl, dkf, dvf, B, H, \
+                                       KV, S, causal, scale, qs, ks, vs, dos,\
+                                       st)
+  switch (D) {
+    case 64: DKV_LAUNCH(64);
+    case 128: DKV_LAUNCH(128);
+    case 256: DKV_LAUNCH(256);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DKV_LAUNCH
 }
 
 // dQ: dq (B, H, S, D) in the input type, with its own strides.
@@ -480,9 +1017,33 @@ extern "C" int flash_bwd_dq_launch(
   cudaStream_t st = (cudaStream_t)stream;
   const float* l = (const float*)lse;
   const float* dl = (const float*)delta;
-  if (bf16)
-    return dq_d<__nv_bfloat16>(D, q, k, v, dout, l, dl, dq, B, H, KV, S,
-                               causal, scale, qs, ks, vs, dos, dqs, st);
-  return dq_d<float>(D, q, k, v, dout, l, dl, dq, B, H, KV, S, causal, scale,
-                     qs, ks, vs, dos, dqs, st);
+#define DQ_LAUNCH(DIM)                                                       \
+  return bf16 ? launch_dq_wgmma<DIM>(q, k, v, dout, l, dl, dq, B, H, KV, S,  \
+                                     causal, scale, qs, ks, vs, dos, dqs, st)\
+              : launch_dq<float, DIM>(q, k, v, dout, l, dl, dq, B, H, KV, S, \
+                                      causal, scale, qs, ks, vs, dos, dqs,   \
+                                      st)
+  switch (D) {
+    case 64: DQ_LAUNCH(64);
+    case 128: DQ_LAUNCH(128);
+    case 256: DQ_LAUNCH(256);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DQ_LAUNCH
+}
+
+// dynamic shared memory of one block of the dK/dV (kernel == 0) or the dQ
+// (kernel == 1) kernel for (bf16, D), in bytes (0 for a head dimension it
+// has no instance for)
+extern "C" int flash_bwd_smem_bytes(int kernel, int bf16, int D) {
+#define BWD_SMEM(DIM)                                                        \
+  return !bf16 ? smem_bytes<DIM>()                                           \
+               : kernel == 0 ? Dkv<DIM>::kSmem : Dq<DIM>::kSmem
+  switch (D) {
+    case 64: BWD_SMEM(64);
+    case 128: BWD_SMEM(128);
+    case 256: BWD_SMEM(256);
+    default: return 0;
+  }
+#undef BWD_SMEM
 }

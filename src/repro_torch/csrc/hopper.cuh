@@ -7,12 +7,21 @@
 // TMA with CU_TENSOR_MAP_SWIZZLE_128B, as blocks of 64 columns (128 bytes
 // a row), rows 128 bytes apart, each block 1024-byte aligned, so that the
 // 16-byte chunk c of row r sits at chunk c ^ (r % 8) of its row.
+//
+// Host side: the (B, S, heads, D) tensor maps of those tiles and the
+// dynamic shared-memory opt-in, shared by the flash kernels.
 #pragma once
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cudaTypedefs.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
+
+struct Strides {                 // in elements; the last axis is dense
+  long long b, h, s;
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -351,6 +360,106 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2],
   if constexpr (N == 64) wgmma_rs_n64_tb(d, a, b);
   else if constexpr (N == 128) wgmma_rs_n128_tb(d, a, b);
   else wgmma_rs_n256_tb(d, a, b);
+}
+
+// starts acc (64 x N, fp32) = A B^T over K = D: A's 64 rows and B's N rows
+// are both K-major bf16 tiles (rows of D) in 128-byte-swizzled blocks of 64
+// columns, A's blocks LDA rows long and B's LDB
+template <int D, int N, int LDA, int LDB>
+__device__ __forceinline__ void ss_kmajor(float (&acc)[N / 2], uint32_t a,
+                                          uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // 16 columns: column block kk / 4, 32 bytes into its 128-byte rows
+    const uint32_t off = (kk % 4) * 32;
+    const uint64_t ad = sw128_desc(a + (kk / 4) * LDA * 128 + off, 16, 1024);
+    const uint64_t bd = sw128_desc(b + (kk / 4) * LDB * 128 + off, 16, 1024);
+    if (kk == 0)
+      wgmma_ss_first<N>(acc, ad, bd);
+    else
+      wgmma_ss<N>(acc, ad, bd);
+  }
+}
+
+// starts acc (64 x N, fp32) += A B over K: A (64 x K) bf16 pairs in
+// registers, in the accumulator layout of a 64 x K product; B (K x N) an
+// MN-major bf16 tile (rows of N) in 128-byte-swizzled blocks of 64
+// columns, each LDB rows long (the transpose-B bit)
+template <int N, int K, int LDB>
+__device__ __forceinline__ void rs_mnmajor(float (&acc)[N / 2],
+                                           const uint32_t (&a)[K / 4],
+                                           uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const uint32_t ak[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                            a[4 * kk + 3]};
+    wgmma_rs_tb<N>(acc, ak, sw128_desc(b + kk * 16 * 128, LDB * 128, 1024));
+  }
+}
+
+// x (fp32, the accumulator layout of a 64 x K product) as bf16 pairs in
+// the same layout: the A operand of a register-sourced product
+template <int K>
+__device__ __forceinline__ void pack_a(const float (&x)[K / 2],
+                                       uint32_t (&a)[K / 4]) {
+#pragma unroll
+  for (int i = 0; i < K / 4; ++i) a[i] = pack_bf16(x[2 * i], x[2 * i + 1]);
+}
+
+// ------------------------------------------------------------------ host
+// lets `Kernel` take `bytes` of dynamic shared memory: once per device (a
+// launch's host time is tens of microseconds, this call a good part of it)
+template <auto Kernel>
+cudaError_t allow_smem(int bytes) {
+  constexpr int kMaxDevices = 64;
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && done[dev])) return err;
+  err = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
+
+// cuTensorMapEncodeTiled from libcuda, found through the runtime (no -lcuda)
+inline PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault,
+                                         &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// a 4-d bf16 tensor map over (D, S, heads, B) with the tensor's strides,
+// boxes of 64 columns x `rows` rows, 128-byte swizzle, zeros past S. A
+// stride of an axis of extent 1 is never used; it is replaced by the
+// dense extent so that any value the caller had passes the encoder.
+inline int make_map(CUtensorMap* map, const void* base, int D, int S,
+                    int heads, int B, Strides st, int rows) {
+  auto encode = encode_fn();
+  if (!encode) return (int)cudaErrorNotSupported;
+  const long long dense = (long long)D * S * heads * B;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const long long el[3] = {st.s, st.h, st.b};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i)
+    strides[i] = 2 * (cuuint64_t)(dims[i + 1] == 1 ? dense : el[i]);
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace hopper

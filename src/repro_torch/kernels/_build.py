@@ -36,7 +36,8 @@ _I64 = ctypes.c_int64
 _F = ctypes.c_float
 # each source's C entry points and their argument types (pointers and the
 # stream as c_void_p, sizes as c_int / c_int64, scales as c_float); each
-# launch returns a cudaError_t (flash_attention_smem_bytes a byte count)
+# launch returns a cudaError_t (the *_smem_bytes entries a byte count,
+# flash_bwd_dkv_chunks a count)
 SIGNATURES = {
     "lif_step": {"lif_step_launch": [_P] * 9 + [_I, _I, _P]},
     "route_lif": {"route_lif_launch": [_P] * 13 + [_I64, _I, _I, _I, _P]},
@@ -46,10 +47,12 @@ SIGNATURES = {
                         [_P] * 5 + [_I] * 7 + [_F] + [_I64] * 12 + [_P],
                         "flash_attention_smem_bytes": [_I, _I]},
     "flash_attention_bwd": {
-        "flash_bwd_dkv_launch": [_P] * 8 + [_I] * 7 + [_F] + [_I64] * 12
+        "flash_bwd_dkv_launch": [_P] * 8 + [_I] * 8 + [_F] + [_I64] * 12
         + [_P],
         "flash_bwd_dq_launch": [_P] * 7 + [_I] * 7 + [_F] + [_I64] * 15
-        + [_P]},
+        + [_P],
+        "flash_bwd_dkv_chunks": [_I] * 6,
+        "flash_bwd_smem_bytes": [_I] * 3},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -33,11 +33,18 @@ an fp32 online softmax, K/V tiles staged by TMA in a 2-stage ring. P
 enters P V as P_hi + P_lo, two bf16 parts (~16 bits of p; the
 denominator sums the unrounded p): P rounded once moved outputs of a
 peaky softmax a bf16 ulp past the 2e-2 tolerance (`csrc` header).
-The bf16 kernel's TMA loads and 16-byte stores need 16-byte-aligned
-q, k, v (and o) with (B, heads, S) strides that are multiples of 8
-elements; a bf16 CUDA tensor that breaks this raises ValueError (it
-never falls back to the fp32 kernel). The backward's two kernels run
-in fp32 for both types.
+The backward's two kernels follow the same split: fp32 FMAs for fp32,
+Hopper's tensor cores for bf16 (every product a wgmma with fp32
+accumulators, P and dS rounded to bf16 once, the scale applied in
+fp32). dK/dV leave their kernel as fp32 partials (B, KV, chunks, S, D),
+one per chunk of each group's query heads (one per query head in fp32;
+for bf16 the kernel's chunk count, `flash_bwd_dkv_chunks`, which
+depends on the shape only), summed here in order: the same bits on
+every call, no float atomics.
+The bf16 kernels' TMA loads and 16-byte stores need 16-byte-aligned
+q, k, v, o (forward) and do, dq (backward) with (B, heads, S) strides
+that are multiples of 8 elements; a bf16 CUDA tensor that breaks this
+raises ValueError (it never falls back to the fp32 kernels).
 
 CPU tensors take the plain versions (`kernels.ref`); CUDA tensors launch
 the kernels or raise. Each kernel launch adds one to its wrapper's
@@ -160,17 +167,22 @@ def flash_fwd_lse(q, k, v, causal: bool = True):
 
 
 def _bwd_dkv(q, k, v, do, lse, delta, causal):
-    """dK and dV per query head, dense fp32 (B, H, S, D) each (the first
-    of the backward's two kernels); the caller sums the groups."""
+    """dK and dV as dense fp32 partials (B, KV, chunks, S, D), chunk c
+    summing its share of each group's query heads (the first of the
+    backward's two kernels); the caller sums the chunks."""
     B, H, S, D = q.shape
     KV = k.shape[1]
-    dk = torch.empty((B, H, S, D), dtype=torch.float32, device=q.device)
+    bf16 = int(q.dtype == torch.bfloat16)
+    chunks = _build.load("flash_attention_bwd", "flash_bwd_dkv_chunks")(
+        bf16, B, H, KV, S, D)
+    dk = torch.empty((B, KV, chunks, S, D), dtype=torch.float32,
+                     device=q.device)
     dv = torch.empty_like(dk)
     err = _build.load("flash_attention_bwd", "flash_bwd_dkv_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        int(q.dtype == torch.bfloat16), B, H, KV, S, D, int(causal),
-        D ** -0.5, *_strides(q, k, v, do), _stream(q))
+        bf16, B, H, KV, S, D, int(causal), chunks, D ** -0.5,
+        *_strides(q, k, v, do), _stream(q))
     _build.check(err, "flash_bwd_dkv")
     _bwd_dkv.launches += 1
     return dk, dv
@@ -184,6 +196,8 @@ def _bwd_dq(q, k, v, do, lse, delta, causal):
     if dq.stride(3) != 1:
         raise ValueError("flash_attention_bwd: the head dim must be dense "
                          "in q")
+    if q.dtype == torch.bfloat16:
+        _check_aligned("flash_attention_bwd", dq=dq)
     err = _build.load("flash_attention_bwd", "flash_bwd_dq_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
@@ -198,10 +212,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
     """The flash backward: (dq, dk, dv) in the dtypes of q, k and v, from
     the forward's o and lse and the output gradient do (B, H, S, D).
     delta = rowsum(do * o) in fp32 is a torch op, as JAX computes it
-    outside its kernels; dK/dV are the fp32 per-head partials of the
-    first kernel summed over each group in order (deterministic, no float
-    atomics). CPU tensors take the plain version; CUDA tensors launch
-    both kernels or raise."""
+    outside its kernels; dK/dV are the first kernel's fp32 partials
+    summed over the chunks in order (deterministic, no float atomics).
+    CPU tensors take the plain version; CUDA tensors launch both kernels
+    or raise."""
     if _on_cpu("flash_attention_bwd", q, k, v, o, lse, do):
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
     B, H, KV, S, D = _check("flash_attention_bwd", q, k, v)
@@ -217,15 +231,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
         raise ValueError(f"flash_attention_bwd: want a dense fp32 lse of "
                          f"shape {(B, H, S)}, got {tuple(lse.shape)} "
                          f"{lse.dtype}")
+    if q.dtype == torch.bfloat16:
+        _check_aligned("flash_attention_bwd", q=q, k=k, v=v, do=do)
     if S == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     delta = (do.float() * o.float()).sum(dim=-1).contiguous()
     dk, dv = _bwd_dkv(q, k, v, do, lse, delta, causal)
     dq = _bwd_dq(q, k, v, do, lse, delta, causal)
-
-    def group_sum(t, like):
-        return t.view(B, KV, H // KV, S, D).sum(dim=2).to(like.dtype)
-    return dq, group_sum(dk, k), group_sum(dv, v)
+    return dq, dk.sum(dim=2).to(k.dtype), dv.sum(dim=2).to(v.dtype)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -4,13 +4,16 @@ the forward through `repro.kernels.ops`, `_flash_fwd_lse`,
 `flash_attention_bwd` and the custom_vjp `flash_attention_trainable` —
 and the jnp oracle `ref.flash_attention_ref`, at the shapes of
 tests/test_kernels.py plus ragged lengths; the grouped (GQA) form against
-repeated heads and against `models.attention._sdpa`; causality. A torch
-emulation of the bf16 tensor-core kernel's arithmetic (P split into two
-bf16 parts before P V) is held against the same JAX kernels and oracles,
-since the kernel itself runs only on the card.
+repeated heads and against `models.attention._sdpa`; causality. Torch
+emulations of the bf16 tensor-core kernels' arithmetic (the forward's P
+split into two bf16 parts before P V; the backward's P and dS rounded to
+bf16 once, its tile and chunk order of summation) are held against the
+same JAX kernels and the fp32 plain versions, since the kernels
+themselves run only on the card.
 Tolerances are tests/test_kernels.py's: 2e-5 for fp32 outputs and lse,
 2e-2 for bf16 (inputs rounded to bf16 the same way in both packages),
-1e-4 for gradients."""
+1e-4 for gradients; the backward emulation is held to half the bf16
+gradient tolerance, 1e-2 of each gradient's largest magnitude."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -362,3 +365,161 @@ def test_tensor_core_numerics_ragged_and_full(S, causal):
     ro, rlse = flash_fwd_lse_ref(q, k, v, causal)
     assert err(to_np(got), to_np(ro)) < TOL["bfloat16"]
     assert err(lse.numpy(), rlse.numpy()) < TOL["bfloat16"]
+
+
+# ------------------------------- the bf16 tensor-core backward kernels' math
+def dkv_chunks(B, H, KV, S, D):
+    """The bf16 dK/dV kernel's chunk count (csrc/flash_attention_bwd.cu,
+    `dkv_chunks`): the fewest chunks of a group's H / KV query heads (a
+    divisor) that give at least 256 blocks of 128 keys (64 at D = 256)."""
+    rep, keys = H // KV, 64 if D == 256 else 128
+    base = B * KV * -(-S // keys)
+    return next((c for c in range(1, rep) if rep % c == 0
+                 and base * c >= 256), rep)
+
+
+def backward_tensor_core_emulation(q, k, v, o, lse, do, causal=True,
+                                   chunks=None):
+    """The arithmetic of the bf16 tensor-core backward kernels
+    (csrc/flash_attention_bwd.cu) written out in torch on the CPU: fp32
+    products of the bf16 inputs; p = exp2(s * scale * log2 e - lse *
+    log2 e) (the scale applied to the fp32 scores, 0 where masked); P and
+    dS rounded to bf16 once before the products that take them; dK/dV
+    summed per chunk of each group's query heads, head after head and q
+    tile (64 rows) after q tile, dK scaled at the end, the chunks summed
+    in order; dQ summed key tile (128 keys, 64 at D = 256) after key tile
+    and scaled at the end; delta = rowsum(do * o) in fp32; each gradient
+    rounded to bf16 once. Returns (dq, dk, dv) in bf16."""
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    rep = H // KV
+    chunks = chunks or dkv_chunks(B, H, KV, S, D)
+    scale = torch.tensor(D ** -0.5, dtype=torch.float32)
+    c = torch.tensor(D ** -0.5 * np.log2(np.e), dtype=torch.float32)
+    lse2 = lse.float() * torch.tensor(np.log2(np.e), dtype=torch.float32)
+    delta = (do.float() * o.float()).sum(-1)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    pos = torch.arange(S)
+    zero = torch.zeros(())
+
+    def bf(x):
+        return x.bfloat16().float()
+    dk = torch.zeros(B, KV, S, D)
+    dv = torch.zeros(B, KV, S, D)
+    per = rep // chunks
+    for ch in range(chunks):
+        ak, av = torch.zeros(B, KV, S, D), torch.zeros(B, KV, S, D)
+        for j in range(per):
+            hs = torch.arange(KV) * rep + ch * per + j
+            for q0 in range(0, S, 64):
+                qt, dot = qf[:, hs, q0:q0 + 64], dof[:, hs, q0:q0 + 64]
+                st = torch.einsum("bgkd,bgqd->bgkq", kf, qt)
+                pt = torch.exp2(st * c - lse2[:, hs, None, q0:q0 + 64])
+                if causal:
+                    pt = torch.where(pos[:, None] > pos[None, q0:q0 + 64],
+                                     zero, pt)
+                av += torch.einsum("bgkq,bgqd->bgkd", bf(pt), dot)
+                dpt = torch.einsum("bgkd,bgqd->bgkq", vf, dot)
+                dst = pt * (dpt - delta[:, hs, None, q0:q0 + 64])
+                ak += torch.einsum("bgkq,bgqd->bgkd", bf(dst), qt)
+        dk += ak * scale
+        dv += av
+    bk = 128 if D <= 128 else 64
+    kr, vr = kf.repeat_interleave(rep, 1), vf.repeat_interleave(rep, 1)
+    dq = torch.zeros(B, H, S, D)
+    for k0 in range(0, S, bk):
+        kt, vt = kr[:, :, k0:k0 + bk], vr[:, :, k0:k0 + bk]
+        p = torch.exp2(torch.einsum("bhqd,bhkd->bhqk", qf, kt) * c
+                       - lse2[..., None])
+        if causal:
+            p = torch.where(pos[None, k0:k0 + bk] > pos[:, None], zero, p)
+        ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vt)
+                  - delta[..., None])
+        dq += torch.einsum("bhqk,bhkd->bhqd", bf(ds), kt)
+    return (dq * scale).bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+def bwd_inputs(seed, B, H, KV, S, D, qmul=1.0, kmul=1.0, causal=True):
+    """bf16 q, k, v, do (q and k times qmul, kmul) with o and lse from the
+    plain forward on them, as phase 13 of chip_smoke.py feeds the
+    kernels."""
+    q, k, v = qkv(seed, B, H, KV, S, D)
+    do = np.random.default_rng(seed + 1).standard_normal(q.shape) \
+        .astype(np.float32)
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(torch.bfloat16)
+                       for a in (q * qmul, k * kmul, v, do))
+    o, lse = flash_fwd_lse_ref(tq, tk, tv, causal)
+    return tq, tk, tv, o, lse, tdo
+
+
+# half the bf16 gradient tolerance (2e-2 of each gradient's largest
+# magnitude): the design's margin before P or dS would be split hi + lo
+EMU_TOL = 0.5 * 2e-2
+
+
+def rel(got, want) -> float:
+    want = np.asarray(want, np.float32)
+    return err(got, want) / float(np.abs(want).max())
+
+
+# (B, H, KV, S, D), causal, (q, k) x, chunks (None: the kernel's rule)
+BWD_TC_CASES = [
+    ((1, 8, 1, 256, 128), True, (1.0, 1.0), 4),     # GQA 8, 4 chunks of 2
+    ((1, 2, 2, 200, 64), True, (1.0, 1.0), None),   # KV == H, ragged S
+    ((1, 4, 2, 130, 128), False, (1.0, 1.0), None),  # full, ragged S
+    ((1, 2, 1, 160, 256), True, (1.0, 1.0), None),  # D = 256, ragged S
+    ((1, 8, 1, 256, 128), True, (4.0, 4.0), 2),     # peaky softmax
+    ((1, 2, 1, 512, 128), True, (0.05, 1.0), None),  # flat softmax
+]
+
+
+@pytest.mark.parametrize("shape,causal,mul,chunks", BWD_TC_CASES)
+def test_backward_tensor_core_numerics_match_fp32_plain(shape, causal, mul,
+                                                       chunks):
+    """P and dS rounded to bf16 once stay within half the bf16 tolerance
+    (1e-2 of each gradient's largest magnitude) of the plain backward in
+    fp32 on the same bf16 inputs, o and lse."""
+    B, H, KV, S, D = shape
+    tq, tk, tv, o, lse, tdo = bwd_inputs(S + D, *shape, *mul, causal)
+    got = backward_tensor_core_emulation(tq, tk, tv, o, lse, tdo, causal,
+                                         chunks)
+    want = flash_attention_bwd_ref(*(t.float() for t in (tq, tk, tv, o)),
+                                   lse, tdo.float(), causal)
+    for g, w, n in zip(got, want, "qkv"):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert float(w.abs().max()) > 0, n
+        assert rel(to_np(g), to_np(w)) <= EMU_TOL, n
+
+
+@pytest.mark.parametrize("shape,causal,mul", [
+    ((1, 2, 2, 128, 64), True, (1.0, 1.0)),
+    ((1, 2, 2, 128, 128), False, (1.0, 1.0)),
+    ((1, 8, 1, 128, 64), True, (1.0, 1.0)),         # GQA against repeats
+    ((1, 1, 1, 128, 256), True, (1.0, 1.0)),
+    ((1, 2, 2, 128, 64), True, (4.0, 4.0)),         # peaky
+    ((1, 1, 1, 256, 64), True, (0.05, 1.0)),        # flat
+])
+def test_backward_tensor_core_numerics_match_pallas_kernels(shape, causal,
+                                                           mul):
+    """The same emulation against JAX's two Pallas backward kernels in
+    interpret mode (bq = bk = 64) on the same bf16 inputs, o and lse:
+    within 1e-2 of each gradient's largest magnitude. JAX's kernels take
+    KV == H, so a GQA case gives them the KV heads repeated and sums
+    their dK/dV over each group."""
+    B, H, KV, S, D = shape
+    tq, tk, tv, o, lse, tdo = bwd_inputs(S + D + 7, *shape, *mul, causal)
+    got = backward_tensor_core_emulation(tq, tk, tv, o, lse, tdo, causal)
+    rep = H // KV
+    jt = [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in
+          (tq, tk.repeat_interleave(rep, 1), tv.repeat_interleave(rep, 1),
+           o, tdo)]
+    jdq, jdk, jdv = jfa.flash_attention_bwd(
+        *jt[:4], jnp.asarray(lse.reshape(B * H, S).numpy()), jt[4],
+        causal=causal, bq=64, bk=64, interpret=True)
+
+    def group(a):
+        return np.asarray(a, np.float32).reshape(B, KV, rep, S, D).sum(2)
+    for g, w in zip(got, (np.asarray(jdq, np.float32), group(jdk),
+                          group(jdv))):
+        assert np.abs(w).max() > 0
+        assert rel(to_np(g), w) <= EMU_TOL
