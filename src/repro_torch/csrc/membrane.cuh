@@ -63,12 +63,13 @@ __device__ __forceinline__ int32_t membrane_step(
 // The membrane pass over B lanes x n neurons: one thread per (lane,
 // neuron), blockIdx.y the lane and a grid-stride loop over neurons in x,
 // so neighbouring threads touch neighbouring addresses and every load is
-// coalesced; n is taken as it is and the ragged edge masked here. V, syn,
-// u, V_out: (B, n); theta, nu, lam, is_lif: (n,), shared by the lanes.
-// syn and V_out may be the same buffer (the fused step updates its
-// accumulator in place): each element is read and then written by one
+// coalesced; n is taken as it is and the ragged edge masked here. V, u,
+// V_out: (B, n); theta, nu, lam, is_lif: (n,), shared by the lanes. syn
+// is (B, n) like V, or with kSynByNeuron (n, syn_ld), each neuron's
+// lanes side by side (the fused step's accumulator); syn and V_out may
+// be the same buffer: each element is read and then written by one
 // thread only. kSpikes: also store the spikes (B, n) as bytes.
-template <bool kSpikes>
+template <bool kSpikes, bool kSynByNeuron = false>
 __global__ void membrane_kernel(const int32_t* __restrict__ V,
                                 const int32_t* syn,
                                 const int32_t* __restrict__ u,
@@ -77,31 +78,35 @@ __global__ void membrane_kernel(const int32_t* __restrict__ V,
                                 const int32_t* __restrict__ lam,
                                 const uint8_t* __restrict__ is_lif,
                                 int32_t* V_out, uint8_t* __restrict__ spikes,
-                                int n) {
+                                int n, int syn_ld) {
   const int64_t lane = (int64_t)blockIdx.y * n;
   for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < n;
        j += gridDim.x * blockDim.x) {
     const int64_t i = lane + j;
+    const int32_t in = kSynByNeuron ? syn[(int64_t)j * syn_ld + blockIdx.y]
+                                    : syn[i];
     bool s;
     V_out[i] = membrane_step(V[i], u[i], theta[j], nu[j], lam[j],
-                             is_lif[j] != 0, syn[i], &s);
+                             is_lif[j] != 0, in, &s);
     if (kSpikes) spikes[i] = s;
   }
 }
 
-template <bool kSpikes>
+template <bool kSpikes, bool kSynByNeuron = false>
 inline cudaError_t membrane_launch(const void* V, const void* syn,
                                    const void* u, const void* theta,
                                    const void* nu, const void* lam,
                                    const void* is_lif, void* V_out,
                                    void* spikes, int B, int n,
-                                   cudaStream_t stream) {
+                                   cudaStream_t stream, int syn_ld = 0) {
   const int threads = 256;
   int blocks = (n + threads - 1) / threads;
   if (blocks > 4096) blocks = 4096;     // grid-stride beyond ~1M threads
-  membrane_kernel<kSpikes><<<dim3(blocks, B), threads, 0, stream>>>(
-      (const int32_t*)V, (const int32_t*)syn, (const int32_t*)u,
-      (const int32_t*)theta, (const int32_t*)nu, (const int32_t*)lam,
-      (const uint8_t*)is_lif, (int32_t*)V_out, (uint8_t*)spikes, n);
+  membrane_kernel<kSpikes, kSynByNeuron>
+      <<<dim3(blocks, B), threads, 0, stream>>>(
+          (const int32_t*)V, (const int32_t*)syn, (const int32_t*)u,
+          (const int32_t*)theta, (const int32_t*)nu, (const int32_t*)lam,
+          (const uint8_t*)is_lif, (int32_t*)V_out, (uint8_t*)spikes, n,
+          syn_ld);
   return cudaGetLastError();
 }

@@ -14,101 +14,183 @@
 // event in some lane, the counts, and write the result. No tensor cores:
 // Hopper's integer tensor cores take int8 operands only, and the operands
 // here are int16/int32 with an exact int32 sum, so the product runs on the
-// CUDA cores.
+// CUDA cores. At the simulator's step shape W (45.7 MB) fits in the 50 MB
+// L2, so on the main path it may stay resident from one step to the next.
 //
-// Design (simple first; staging through cp.async/TMA and wider loads are
-// later work):
-//   - one thread per output column j and up to kLanes lanes, the lanes'
-//     sums in registers; lane groups on blockIdx.y. Neighbouring threads
-//     read neighbouring weights of one row, so the loads are coalesced;
-//   - the rows are walked in blocks of 128 (the TPU kernel's BP): the block
-//     loads the counts of its lanes for those rows into shared memory, and
-//     a row that no lane has an event on is dropped from the block's list
-//     of live rows, so its weights are never read. A block of rows with no
-//     event at all is skipped whole: the TPU kernel's
-//     `@pl.when(counts_ref[ip] > 0)`;
-//   - the rows are split into blockIdx.z slices so that enough blocks are
-//     in flight when npost is small; each slice writes its partial sums,
-//     and a second kernel adds the slices in order. No atomics: the result
-//     and its order of summation are fixed;
+// Design: a stream of the live rows, staged and vectorised.
+//   - the grid is (column tile, lane group, row slice), planned on the host
+//     (`kernels/spike_matmul.py::plan`) so that about two blocks per SM are
+//     in flight at the step shape and at 16k x 16k; a tile is 508 int32 or
+//     1,016 int16 columns (2,032 B), a lane group up to 8 lanes, a slice up
+//     to 512 rows;
+//   - each block first compacts its slice's live rows (a row with an event
+//     in some lane of its group), in order, by warp ballots, into shared
+//     memory with the lanes' counts: a row that no lane has an event on is
+//     never read, the TPU kernel's `@pl.when(counts_ref[ip] > 0)` per row;
+//   - the live rows' segments then stream through a 12-stage cp.async ring
+//     in shared memory: each of the 128 threads copies one 16 B chunk of a
+//     row's window per stage, so ~22 KB per block and ~44 KB per SM are in
+//     flight. The row pitch need not be a multiple of 16 B (the
+//     simulator's W has 3,010 int32 columns, a 12,040 B pitch, so its rows
+//     alternate between 16 B and 8 B alignment): the copy takes the 2,048 B
+//     window that starts at the 16 B boundary at or below the segment, so
+//     every copy is an aligned 16 B `cp.async.cg`, and each thread reads
+//     its 4 int32 (8 int16) columns from the window at the row's byte
+//     shift. Chunks past the segment are not copied, and the last chunk of
+//     W is cut at W's end (zero-filled). W keeps its natural contiguous
+//     layout; no padding;
+//   - each thread keeps its columns' sums for the group's 8 lanes in
+//     registers (32 int32 or 64 for int16); the lanes' counts come from
+//     shared memory as broadcasts;
+//   - each slice writes its partial sums, and a second kernel adds the
+//     slices in order; no atomics, and a fixed result;
 //   - every add and multiply goes through uint32, where C++ defines
 //     wraparound, so the sum wraps exactly as XLA's int32 dot does.
+// Left open: one launch for the slice sum, the 16 idle bytes a row of the
+// window carries, and the last thread of a block, which copies but owns
+// no columns.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kRows = 128;    // rows per block of rows (and threads/block)
-constexpr int kLanes = 8;     // lanes per thread
+constexpr int kThreads = 128;            // one 16 B chunk each per stage
+constexpr int kWindow = kThreads * 16;   // bytes of a row's staged window
+constexpr int kTileBytes = kWindow - 16; // the tile's columns, any shift
+constexpr int kStages = 12;
+constexpr int kLanes = 8;                // lanes per block
+constexpr int kSliceRows = 512;          // rows per slice, at most
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
 
 template <typename WT>
-__global__ void spike_matmul_kernel(const int32_t* __restrict__ counts,
-                                    const WT* __restrict__ W,
-                                    uint32_t* __restrict__ part, int B,
-                                    int npre, int npost,
-                                    int row_blocks_per_slice) {
-  __shared__ int32_t cnt[kLanes][kRows];
-  __shared__ int16_t live[kRows];
-  __shared__ int warp_live[kRows / 32];
+__global__ void __launch_bounds__(kThreads) spike_matmul_kernel(
+    const int32_t* __restrict__ counts, const WT* __restrict__ W,
+    uint32_t* __restrict__ part, int B, int npre, int npost,
+    int rows_per_slice) {
+  constexpr int kCols = 16 / sizeof(WT);     // columns per thread
+  constexpr int kTileCols = kTileBytes / sizeof(WT);
+  __shared__ __align__(16) uint8_t ring[kStages][kWindow];
+  __shared__ __align__(16) int32_t cnt[kSliceRows][kLanes];
+  __shared__ int32_t live[kSliceRows];
+  __shared__ int warp_live[kThreads / 32];
 
   const int tid = threadIdx.x;
-  const int j = blockIdx.x * kRows + tid;
+  const int c0 = blockIdx.x * kTileCols;
+  const int ncols = min(kTileCols, npost - c0);
   const int lane0 = blockIdx.y * kLanes;
   const int nl = min(kLanes, B - lane0);
-  const int slice = blockIdx.z;
-  const int rb_begin = slice * row_blocks_per_slice;
-  const int rb_end = min(rb_begin + row_blocks_per_slice,
-                         (npre + kRows - 1) / kRows);
+  const int r_begin = blockIdx.z * rows_per_slice;
+  const int r_end = min(r_begin + rows_per_slice, npre);
 
-  uint32_t acc[kLanes];
-#pragma unroll
-  for (int b = 0; b < kLanes; ++b) acc[b] = 0u;
-
-  for (int rb = rb_begin; rb < rb_end; ++rb) {
-    const int r0 = rb * kRows;
-    const int nr = min(kRows, npre - r0);
-    // this thread's row of the block: its counts for the block's lanes
+  // 1. the slice's live rows, in order, and their lanes' counts
+  int n_live = 0;
+  for (int rb = r_begin; rb < r_end; rb += kThreads) {
+    const int r = rb + tid;
+    int32_t c[kLanes];
     int32_t any = 0;
 #pragma unroll
     for (int b = 0; b < kLanes; ++b) {
-      int32_t c = 0;
-      if (b < nl && tid < nr)
-        c = counts[(int64_t)(lane0 + b) * npre + r0 + tid];
-      cnt[b][tid] = c;
-      any |= c;
+      c[b] = (b < nl && r < r_end)
+                 ? counts[(int64_t)(lane0 + b) * npre + r] : 0;
+      any |= c[b];
     }
-    // compact the live rows, in order: ballot within each warp, then
-    // the warps' offsets
     const unsigned mask = __ballot_sync(0xffffffffu, any != 0);
     const int warp = tid >> 5, wl = tid & 31;
     if (wl == 0) warp_live[warp] = __popc(mask);
     __syncthreads();
-    int base = 0, n_live = 0;
+    int base = n_live, batch = 0;
 #pragma unroll
-    for (int w = 0; w < kRows / 32; ++w) {
+    for (int w = 0; w < kThreads / 32; ++w) {
       base += w < warp ? warp_live[w] : 0;
-      n_live += warp_live[w];
+      batch += warp_live[w];
     }
-    if (any != 0) live[base + __popc(mask & ((1u << wl) - 1u))] = tid;
-    __syncthreads();
-    if (n_live > 0 && j < npost) {
-      const WT* wcol = W + (int64_t)r0 * npost + j;
-#pragma unroll 4
-      for (int k = 0; k < n_live; ++k) {
-        const int r = live[k];
-        const uint32_t w = (uint32_t)(int32_t)wcol[(int64_t)r * npost];
+    if (any != 0) {
+      const int k = base + __popc(mask & ((1u << wl) - 1u));
+      live[k] = r;
 #pragma unroll
-        for (int b = 0; b < kLanes; ++b)
-          acc[b] += (uint32_t)cnt[b][r] * w;
-      }
+      for (int b = 0; b < kLanes; ++b) cnt[k][b] = c[b];
     }
-    __syncthreads();     // cnt and live are rewritten by the next block
+    n_live += batch;
+    __syncthreads();            // warp_live is rewritten by the next batch
   }
-  if (j < npost) {
+
+  // 2. the live rows' windows through the ring
+  const uintptr_t w_end = (uintptr_t)(W + (int64_t)npre * npost);
+  auto stage_row = [&](int k) {
+    const uintptr_t seg =
+        (uintptr_t)(W + (int64_t)live[k] * npost + c0);
+    const uintptr_t src = (seg & ~(uintptr_t)15) + 16 * tid;
+    if (src < seg + (uintptr_t)ncols * sizeof(WT)) {
+      const uintptr_t left = w_end - src;
+      cp_async16(ring[k % kStages] + 16 * tid, (const void*)src,
+                 left < 16 ? (int)left : 16);
+    }
+  };
+#pragma unroll
+  for (int k = 0; k < kStages - 1; ++k) {
+    if (k < n_live) stage_row(k);
+    cp_async_commit();
+  }
+
+  uint32_t acc[kLanes][kCols];
+#pragma unroll
+  for (int b = 0; b < kLanes; ++b)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[b][j] = 0u;
+
+  for (int k = 0; k < n_live; ++k) {
+    cp_async_wait<kStages - 2>();   // this thread's copy of row k landed
+    __syncthreads();                // everyone's did; row k - 1 is done
+    if (k + kStages - 1 < n_live) stage_row(k + kStages - 1);
+    cp_async_commit();
+    const int shift =
+        (int)((uintptr_t)(W + (int64_t)live[k] * npost + c0) & 15);
+    // the last thread owns no columns: it reads chunk 0, not past the slot
+    const WT* src = (const WT*)(ring[k % kStages] +
+                                (tid < kThreads - 1 ? shift + 16 * tid : 0));
+    uint32_t w[kCols];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) w[j] = (uint32_t)(int32_t)src[j];
+    const int4* cv = (const int4*)cnt[k];
+    const int4 lo = cv[0], hi = cv[1];
+    const uint32_t cb[kLanes] = {(uint32_t)lo.x, (uint32_t)lo.y,
+                                 (uint32_t)lo.z, (uint32_t)lo.w,
+                                 (uint32_t)hi.x, (uint32_t)hi.y,
+                                 (uint32_t)hi.z, (uint32_t)hi.w};
 #pragma unroll
     for (int b = 0; b < kLanes; ++b)
-      if (b < nl)
-        part[((int64_t)slice * B + lane0 + b) * npost + j] = acc[b];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) acc[b][j] += cb[b] * w[j];
+  }
+  cp_async_wait<0>();
+
+  // the last thread's window chunk holds no column of its own
+  const int j0 = tid * kCols;
+  if (tid < kThreads - 1) {
+#pragma unroll
+    for (int b = 0; b < kLanes; ++b) {
+      if (b >= nl) break;
+      uint32_t* row =
+          part + ((int64_t)blockIdx.z * B + lane0 + b) * npost + c0;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        if (j0 + j < ncols) row[j0 + j] = acc[b][j];
+    }
   }
 }
 
@@ -127,30 +209,35 @@ __global__ void spike_matmul_sum_slices(const uint32_t* __restrict__ part,
 }  // namespace
 
 // counts: (B, npre) int32; W: (npre, npost) int16 (w_bytes 2) or int32
-// (w_bytes 4); out: (B, npost) int32; scratch: (slices, B, npost) int32,
-// unused when slices == 1 (the one slice writes `out` directly). Launches
-// on `stream` and returns cudaGetLastError().
+// (w_bytes 4), contiguous; out: (B, npost) int32; scratch: (slices, B,
+// npost) int32, unused when slices == 1 (the one slice writes `out`
+// directly). The host's plan (`kernels/spike_matmul.py::plan`):
+// ceil(npost / tile_cols) column tiles x ceil(B / 8) lane groups x
+// `slices` slices of `rows_per_slice` rows (<= 512; the slices cover
+// npre); tile_cols must be this kernel's (2,032 B of columns), or nothing
+// is launched. Launches on `stream` and returns cudaGetLastError().
 extern "C" int spike_matmul_launch(const void* counts, const void* W,
                                    int w_bytes, void* out, void* scratch,
-                                   int B, int npre, int npost, int slices,
-                                   void* stream) {
+                                   int B, int npre, int npost,
+                                   int tile_cols, int slices,
+                                   int rows_per_slice, void* stream) {
   if (B <= 0 || npost <= 0) return (int)cudaSuccess;
+  if ((w_bytes != 2 && w_bytes != 4) || tile_cols != kTileBytes / w_bytes ||
+      slices < 1 || rows_per_slice < 1 || rows_per_slice > kSliceRows ||
+      (int64_t)slices * rows_per_slice < npre)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int row_blocks = (npre + kRows - 1) / kRows;
-  if (slices < 1) slices = 1;
-  if (slices > row_blocks) slices = row_blocks > 0 ? row_blocks : 1;
-  const int per_slice = row_blocks > 0
-      ? (row_blocks + slices - 1) / slices : 0;
   uint32_t* part = (uint32_t*)(slices == 1 ? out : scratch);
-  dim3 grid((npost + kRows - 1) / kRows, (B + kLanes - 1) / kLanes, slices);
+  dim3 grid((npost + tile_cols - 1) / tile_cols, (B + kLanes - 1) / kLanes,
+            slices);
   if (w_bytes == 2)
-    spike_matmul_kernel<int16_t><<<grid, kRows, 0, st>>>(
+    spike_matmul_kernel<int16_t><<<grid, kThreads, 0, st>>>(
         (const int32_t*)counts, (const int16_t*)W, part, B, npre, npost,
-        per_slice);
+        rows_per_slice);
   else
-    spike_matmul_kernel<int32_t><<<grid, kRows, 0, st>>>(
+    spike_matmul_kernel<int32_t><<<grid, kThreads, 0, st>>>(
         (const int32_t*)counts, (const int32_t*)W, part, B, npre, npost,
-        per_slice);
+        rows_per_slice);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || slices == 1) return (int)err;
   const int64_t n = (int64_t)B * npost;

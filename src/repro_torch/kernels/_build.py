@@ -40,9 +40,9 @@ _F = ctypes.c_float
 # flash_bwd_dkv_chunks a count)
 SIGNATURES = {
     "lif_step": {"lif_step_launch": [_P] * 9 + [_I, _I, _P]},
-    "route_lif": {"route_lif_launch": [_P] * 13 + [_I64, _I, _I, _I, _P]},
+    "route_lif": {"route_lif_launch": [_P] * 16 + [_I] * 5 + [_I64, _P]},
     "spike_matmul": {"spike_matmul_launch":
-                     [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P]},
+                     [_P, _P, _I, _P, _P] + [_I] * 6 + [_P]},
     "flash_attention": {"flash_attention_launch":
                         [_P] * 5 + [_I] * 7 + [_F] + [_I64] * 12 + [_P],
                         "flash_attention_smem_bytes": [_I, _I]},

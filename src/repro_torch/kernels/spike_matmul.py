@@ -15,22 +15,46 @@ ragged edges.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import spike_matmul_ref
 
-_ROWS = 128          # rows per block of rows in the kernel
-_LANES = 8           # lanes per thread in the kernel
+_TILE_BYTES = 2032   # a block's columns: 128 threads x 16 B, less 16 B
+_LANES = 8           # lanes per block
+_SLICE_ROWS = 512    # rows per slice, at most (the block's live-row list)
+_MIN_ROWS = 32       # rows per slice, at least, when slicing to fill SMs
+_BLOCKS_PER_SM = 2
 
 
-def _slices(dev, B: int, npre: int, npost: int) -> int:
-    """How many row slices to split the product into, so that about two
-    blocks per SM are in flight; each slice keeps >= 2 blocks of rows."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    tiles = -(-npost // _ROWS) * -(-B // _LANES)
-    row_blocks = -(-npre // _ROWS)
-    return max(1, min(-(-2 * sms // tiles), -(-row_blocks // 2)))
+class Plan(NamedTuple):
+    """The kernel's grid: `tiles` column tiles of `tile_cols` columns x
+    `groups` lane groups of 8 x `slices` row slices of `rows_per_slice`
+    rows. Block (x, y, z) sums rows [z * rows_per_slice, ...) of columns
+    [x * tile_cols, ...) for lanes [8 y, 8 y + 8), each range cut at its
+    edge; the slices' partial sums are then added in order."""
+    tile_cols: int
+    tiles: int
+    groups: int
+    slices: int
+    rows_per_slice: int
+
+
+def plan(sms: int, B: int, npre: int, npost: int, w_bytes: int) -> Plan:
+    """Column tiles x lane groups x row slices for `sms` SMs: enough
+    slices that about _BLOCKS_PER_SM blocks per SM are in flight (each
+    slice >= _MIN_ROWS rows), and never more than _SLICE_ROWS rows in a
+    slice. Fewer slices mean fewer partial sums to add."""
+    tile = _TILE_BYTES // w_bytes
+    tiles = -(-npost // tile)
+    groups = -(-B // _LANES)
+    want = -(-_BLOCKS_PER_SM * sms // max(1, tiles * groups))
+    slices = max(-(-npre // _SLICE_ROWS),
+                 min(want, -(-npre // _MIN_ROWS)), 1)
+    rows = max(1, -(-npre // slices))
+    return Plan(tile, tiles, groups, max(1, -(-npre // rows)), rows)
 
 
 def spike_matmul(spikes, weights):
@@ -61,17 +85,21 @@ def spike_matmul(spikes, weights):
                          f"spikes, got {spikes.dtype}")
     counts = spikes.reshape(-1, npre)
     B = counts.shape[0]
-    if not 0 < B <= 65535 * _LANES or npost >= 2 ** 31 - _ROWS:
-        raise ValueError(f"spike_matmul takes 1..{65535 * _LANES} lanes "
-                         f"and < 2**31 columns, got {B} x {npost}")
     dev = weights.device
+    p = plan(torch.cuda.get_device_properties(dev).multi_processor_count,
+             B, npre, npost, weights.element_size())
+    if not 0 < B <= 65535 * _LANES or npost >= 2 ** 31 - p.tile_cols \
+            or p.slices > 65535:
+        raise ValueError(f"spike_matmul takes 1..{65535 * _LANES} lanes, "
+                         f"< 2**31 columns and < {65535 * _SLICE_ROWS} "
+                         f"rows, got {B} x {npre} x {npost}")
     out = torch.empty((B, npost), dtype=torch.int32, device=dev)
-    slices = _slices(dev, B, npre, npost)
-    scratch = torch.empty((slices, B, npost) if slices > 1 else (0,),
+    scratch = torch.empty((p.slices, B, npost) if p.slices > 1 else (0,),
                           dtype=torch.int32, device=dev)
     fn = _build.load("spike_matmul")
     err = fn(counts.data_ptr(), weights.data_ptr(), weights.element_size(),
-             out.data_ptr(), scratch.data_ptr(), B, npre, npost, slices,
+             out.data_ptr(), scratch.data_ptr(), B, npre, npost,
+             p.tile_cols, p.slices, p.rows_per_slice,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "spike_matmul")
     spike_matmul.launches += 1
