@@ -11,7 +11,15 @@ raises and the script exits non-zero:
      csrc (one nvcc per source, all at once);
   2. the `lif_step` kernel against its plain PyTorch version on the card:
      B = 8 lanes x N = 125,000 neurons covering nu in [-32, 31], lambda
-     in [0, 63], both neuron kinds and V near +-2**31; exact equality;
+     in [0, 63], both neuron kinds and V near +-2**31; then rows that
+     are not 16 B aligned (N = 3,010 and 1,001), N = 1 and 5, B = 1 and
+     13, and V, syn and u starting 4 B past a 16 B boundary; exact
+     equality on V_next and the spikes;
+ 16. the `split_randint` kernel (one step's key split and noise draw)
+     against its plain version on the card, bit for bit on the new keys
+     and u: the noise span at (B, N) = (8, 125,000), (1, 1) and
+     (13, 3,010), the span [-7, 1,000,003) and the full int32 range at
+     (8, 3,010), then 8 chained steps at (8, 125,000);
   3. the fused route+LIF kernel against its plain version on the smoke
      network's own tables, with gates from real steps (B = 8); exact
      equality on V_next, spikes and the pointer/row reads; then, each
@@ -22,9 +30,11 @@ raises and the script exits non-zero:
      1,250 rows), also against the unfused plain step, and the MLP
      network's engine tables (rows of consecutive posts, accumulated lane
      by lane where the others keep each neuron's lanes side by side);
-     then the ptxas lines and `cuobjdump -sass` of both SNN libraries'
-     instances (the span walk's adds are RED/REDG reductions,
-     spike_matmul stages rows with 16 B LDGSTS, no instance spills);
+     then the ptxas lines and `cuobjdump -sass` of the four SNN
+     libraries' instances (no instance spills; lif_step and the draw keep
+     no stack frame, lif_step's aligned instance moves 16 B vectors, the
+     draw rotates with SHF, the span walk's adds are RED/REDG
+     reductions, spike_matmul stages rows with 16 B LDGSTS);
  10. the `flash_attention` kernel: first `cuobjdump -sass` of the built
      forward and backward libraries, where every bf16 instance (the
      tensor-core kernels: the forward's one per head dim and lse flag,
@@ -61,7 +71,8 @@ raises and the script exits non-zero:
   4. the main path at full width — NetworkSpec -> compile_spec ->
      deploy(device=None) -> run_lanes x 3 windows, run, run_batch —
      once with fused=False and once with fused=True; the two agree bit
-     for bit and both kernels' launch counters are > 0;
+     for bit, both kernels' launch counters are > 0 and split_randint
+     launched once a step (128);
   5. the card against the CPU port (the plain versions) on the first
      window (B = 2, T = 4), bit for bit;
   7. the `spike_matmul` kernel against its plain version on the card,
@@ -79,8 +90,9 @@ raises and the script exits non-zero:
      run_lanes windows (B = 8, T = 16: 6 resident lanes + 2 scratch), a
      write_synapses batch of 1,000 synapses and one more window; the
      three agree bit for bit, every layer's spike rate is strictly
-     inside (0, 1), and the launch counters of spike_matmul and
-     lif_step are > 0 on the simulator path;
+     inside (0, 1), the launch counters of spike_matmul and lif_step are
+     > 0 on the simulator path, and split_randint launched once a step
+     (128) on each;
   9. the card against the CPU port for the simulator, first window
      (B = 2, T = 4), bit for bit;
  11. the LM slice at Qwen2.5-3B's full widths cut to 2 layers, fp32, one
@@ -88,7 +100,10 @@ raises and the script exits non-zero:
      S = 512, last-token logits within 1e-3 and K/V caches within 1e-4;
      the slot `Server` answering 4 requests (prompt 16, max_new 16) with
      the same greedy tokens, but where the CPU's top-2 logit margin is
-     under 1e-3 (such near-ties are counted and reported);
+     under 1e-3 (such near-ties are counted and reported); if the
+     prefill check fails, both sides run once more first and the script
+     prints card vs card, CPU vs CPU, the CPU's thread count, the fp32
+     matmul precision and where the largest errors lie, then fails;
  12. the full 36-layer Qwen2.5-3B (3.09 B parameters) on the card: the
      `Server` in fp32, 4 slots, prompt 16, max_new 32, every request
      answered; then the same weights in bf16 through `prefill` at B = 1,
@@ -116,7 +131,10 @@ raises and the script exits non-zero:
      times and the prefill's forward none; step time, tokens/s and peak
      device memory;
   6. timing: each kernel's median time against its plain version and
-     its bound (route_lif with the step's live items, live (lane, row)
+     its bound (lif_step at the core's and the MLP's shapes;
+     split_randint against its int32 operations at 132 x 64 lanes a
+     clock at the maximum SM clock; route_lif with the step's live
+     items, live (lane, row)
      pairs and atomic adds; spike_matmul also without the L2 flush, and
      at 16,384 x 16,384 int32, past the L2 cache; flash_attention at the
      prefill shape in bf16 and fp32),
@@ -165,6 +183,9 @@ MLP_AXONS, MLP_LAYERS = 784, (2000, 1000, 10)  # Table 2 "MLP 2k->1k->10"
 MLP_SCALE = (20000, 4000, 5000)   # weight half-range per layer
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 SCALAR_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+INT32_LANES = 132 * 64        # H100 SXM: 132 SMs x 64 int32 lanes a clock
+THREEFRY_OPS = 75             # int32 operations a drawn element (threefry.cu)
+SNN_PATH_STEPS = 128          # steps each SNN main path drives
 BF16_TC_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 HEAD_START_CYCLES = 2_000_000  # ~1 ms of the card's clock before a timing
 LM_ARCH = "qwen2_5_3b"        # configs/qwen2_5_3b.py at its published widths
@@ -302,6 +323,42 @@ def drive(rng, B: int, T: int, A: int) -> np.ndarray:
 
 
 # ------------------------------------------------------------- the phases
+LIF_CASES = [(8, 125_000), (8, 3010), (8, 1001), (8, 1), (8, 5),
+             (1, 125_000), (13, 3010)]   # (B, N); the first is the core's
+
+
+def phase_lif_cases(dev, seed: int):
+    """lif_step against its plain version on every case of LIF_CASES,
+    then with every (B, N) tensor starting 4 B past its allocation (each
+    lane then takes 4 B accesses); exact. Returns each case's max |error|
+    and the inputs of the core's shape and the MLP's (8, 3010)."""
+    from repro_torch.kernels.lif_step import lif_step
+    from repro_torch.kernels.ref import lif_step_ref
+    errs, inputs = {}, {}
+    for i, (B, n) in enumerate(LIF_CASES):
+        args, lif, errs[f"B={B} N={n}"] = phase_lif_kernel(dev, B, n,
+                                                           seed + i)
+        if B == 8 and n in (NEURONS, 3010):
+            inputs[n] = (args, lif)
+    args, lif = inputs[3010]
+    shifted = []
+    for a in args[:3]:
+        buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=dev)
+        buf[1:] = a.reshape(-1)
+        shifted.append(buf[1:].view(a.shape))
+    Vk, sk = lif_step(*shifted, *args[3:], lif)
+    Vr, sr = lif_step_ref(*args, lif)
+    torch.cuda.synchronize()
+    e = max_abs_err(Vk, Vr)
+    need(e == 0 and torch.equal(sk, sr),
+         f"lif_step kernel != plain version at 4 B-shifted bases "
+         f"(max |dV| {e})")
+    errs["B=8 N=3010 bases 4 B off 16 B"] = e
+    log(f"[lif_step] kernel == plain on B=8 N=3010 with V, syn and u "
+        f"4 B past a 16 B boundary: max_abs_err 0")
+    return errs, inputs
+
+
 def phase_lif_kernel(dev, B: int, n: int, seed: int):
     from repro_torch.kernels.lif_step import lif_step
     from repro_torch.kernels.ref import lif_step_ref
@@ -331,10 +388,60 @@ def phase_lif_kernel(dev, B: int, n: int, seed: int):
     err = max_abs_err(Vk, Vr)
     need(err == 0 and torch.equal(sk, sr),
          f"lif_step kernel != plain version (max |dV| {err})")
-    need(0 < int(sk.sum()) < sk.numel(), "lif_step spikes are all equal")
+    need(sk.numel() < 64 or 0 < int(sk.sum()) < sk.numel(),
+         "lif_step spikes are all equal")
     log(f"[lif_step] kernel == plain on B={B} N={n}: {int(sk.sum())} "
         f"spikes, max_abs_err 0")
     return t, lif, err
+
+
+def phase_threefry_kernel(dev, seed: int):
+    """split_randint's kernel against its plain version on the card, bit
+    for bit on keys' and u: the noise span at (B, N) = (8, 125,000),
+    (1, 1) and (13, 3,010), a span that is not a power of two and the
+    full int32 range at (8, 3,010), then 8 chained steps at (8, 125,000)
+    feeding each step's keys' into the next; the input keys are left as
+    they were. Returns the max |error| and the core shape's keys."""
+    from repro_torch.core import neuron as nrn
+    from repro_torch.core import prng
+    from repro_torch.kernels.ref import split_randint_ref
+    from repro_torch.kernels.threefry import split_randint
+    noise = (nrn.NOISE_MIN, nrn.NOISE_MAX)
+    cases = [((8, NEURONS), noise), ((1, 1), noise), ((13, 3010), noise),
+             ((8, 3010), (-7, 1_000_003)),
+             ((8, 3010), (-(2 ** 31), 2 ** 31 - 1))]
+
+    def lane_keys(B, s):
+        return prng.fold_in(prng.PRNGKey(seed + s, device=dev),
+                            torch.arange(B, device=dev))
+
+    def check(keys, n, span, what):
+        before = keys.clone()
+        kk, uk = split_randint(keys, n, *span)
+        kr, ur = split_randint_ref(keys, n, *span)
+        torch.cuda.synchronize()
+        e = max_abs_err(uk, ur)
+        need(e == 0 and torch.equal(kk, kr) and uk.dtype == torch.int32
+             and uk.shape == ur.shape and torch.equal(keys, before),
+             f"split_randint kernel != plain version on {what} (max |du| "
+             f"{e}, keys equal {torch.equal(kk, kr)})")
+        need(not uk.numel() or span[0] <= int(uk.min())
+             <= int(uk.max()) < span[1], f"u outside {span} on {what}")
+        return kk, e
+
+    err = 0
+    for i, ((B, n), span) in enumerate(cases):
+        err = max(err, check(lane_keys(B, i), n, span,
+                             f"B={B} N={n} span {span}")[1])
+        log(f"[split_randint] kernel == plain on B={B} N={n} over "
+            f"[{span[0]}, {span[1]}): keys' and u equal bit for bit")
+    keys = core_keys = lane_keys(8, 99)
+    for step in range(8):
+        keys, e = check(keys, NEURONS, noise, f"chained step {step}")
+        err = max(err, e)
+    log("[split_randint] kernel == plain over 8 chained steps at B=8 "
+        f"N={NEURONS}")
+    return err, core_keys
 
 
 def real_step_inputs(dep, B: int, T: int, rng):
@@ -534,10 +641,18 @@ def snn_instance_name(mangled):
     if m:
         return ("spike_matmul_kernel<int32>" if m.group(1) == "i"
                 else "spike_matmul_kernel<int16>")
-    m = re.search(r"membrane_kernelILb([01])ELb([01])E", mangled)
+    m = re.search(r"membrane_kernelILb([01])E", mangled)
     if m:
-        return "membrane_kernel<%s, %s>" % tuple(
-            "true" if g == "1" else "false" for g in m.groups())
+        return "membrane_kernel<%s>" % ("true" if m.group(1) == "1"
+                                        else "false")
+    m = re.search(r"lif_step_kernelILb([01])E", mangled)
+    if m:
+        return ("lif_step_kernel<aligned>" if m.group(1) == "1"
+                else "lif_step_kernel<any>")
+    m = re.search(r"split_randint_kernelILb([01])E", mangled)
+    if m:
+        return ("split_randint_kernel<pow2>" if m.group(1) == "1"
+                else "split_randint_kernel<any span>")
     m = re.search(r"route_walk_kernelILb([01])E", mangled)
     if m:
         return ("route_walk_kernel<by lane>" if m.group(1) == "1"
@@ -546,23 +661,34 @@ def snn_instance_name(mangled):
     return m and m.group(1)
 
 
+SNN_LIBS = ("lif_step", "threefry", "route_lif", "spike_matmul")
+
+
 def phase_snn_instances(logs) -> dict:
-    """ptxas -v (this run's build) and cuobjdump -sass of the route_lif
-    and spike_matmul libraries: no instance spills, the span walk adds
-    with RED/REDG reductions, and each spike_matmul_kernel instance stages its
-    rows with 16 B cp.async (LDGSTS ... .128) and no other width. Logs
-    each instance's registers, spills, shared memory and those
-    instructions; returns them."""
+    """ptxas -v (this run's build) and cuobjdump -sass of the SNN
+    libraries: no instance spills, lif_step_kernel and
+    split_randint_kernel keep no stack frame (their per-lane arrays and
+    the rotation table stay in registers), lif_step_kernel<aligned> loads
+    and stores 16 B vectors, the draw rotates with funnel shifts (SHF),
+    the span walk adds with RED/REDG reductions, and each
+    spike_matmul_kernel instance stages its rows with 16 B cp.async
+    (LDGSTS ... .128) and no other width. Logs each instance's
+    registers, spills, stack, shared memory and those instructions;
+    returns them."""
     from repro_torch.kernels import _build
     rec = {}
-    for lib in ("route_lif", "spike_matmul"):
+    for lib in SNN_LIBS:
         inst = kernel_instances(_build.library_path(lib), logs.get(lib),
                                 snn_instance_name)
-        want = {"route_lif": {"route_compact_kernel",
+        want = {"lif_step": {"lif_step_kernel<aligned>",
+                             "lif_step_kernel<any>"},
+                "threefry": {"split_randint_kernel<pow2>",
+                             "split_randint_kernel<any span>"},
+                "route_lif": {"route_compact_kernel",
                               "route_walk_kernel<by lane>",
                               "route_walk_kernel<by neuron>",
-                              "membrane_kernel<false, false>",
-                              "membrane_kernel<false, true>"},
+                              "membrane_kernel<false>",
+                              "membrane_kernel<true>"},
                 "spike_matmul": {"spike_matmul_kernel<int32>",
                                  "spike_matmul_kernel<int16>",
                                  "spike_matmul_sum_slices"}}[lib]
@@ -572,6 +698,13 @@ def phase_snn_instances(logs) -> dict:
             need(d["spill"] == 0, f"{lib} instance {name} spills "
                                   f"{d['spill']} B (this run's ptxas -v)")
             ops = d["ops"]
+            if lib in ("lif_step", "threefry"):
+                need(d["stack"] == 0, f"{name}: {d['stack']} B stack frame")
+            if name == "lif_step_kernel<aligned>":
+                need(ops.get("LDG.128", 0) > 0 and ops.get("STG.128", 0) > 0,
+                     f"{name}: no 16 B loads or stores in its SASS: {ops}")
+            if lib == "threefry":
+                need(ops.get("SHF", 0) > 0, f"{name}: no SHF in its SASS")
             if name.startswith("route_walk_kernel"):
                 need(ops.get("RED", 0) + ops.get("REDG", 0) > 0,
                      f"{name}: no RED/REDG in its SASS: {ops}")
@@ -581,8 +714,8 @@ def phase_snn_instances(logs) -> dict:
                      f"{name}: want only 16 B LDGSTS, found {ops}")
             rec[f"{lib}:{name}"] = d
             log(f"[{lib}] {name}: {d['regs']} registers, {d['spill']} B "
-                f"spill stores, {d['smem']} B static shared memory; SASS "
-                f"{ops}")
+                f"spill stores, {d['stack']} B stack, {d['smem']} B static "
+                f"shared memory; SASS {ops}")
     return rec
 
 
@@ -863,15 +996,15 @@ def flash_instance_name(mangled):
                   f"<{m.group(3)}>")
 
 
-SASS_OPS = ("HGMMA", "LDGSTS", "RED", "REDG", "ATOMG", "BAR")
+SASS_OPS = ("HGMMA", "LDGSTS", "RED", "REDG", "ATOMG", "BAR", "SHF")
 
 
 def kernel_instances(lib_path, build_log, name_of):
     """Each kernel instance of a built library that `name_of` names:
-    {name: {"regs", "spill" (store bytes), "smem" (static bytes) from the
-    build's -Xptxas -v lines (None where the log lacks them), "ops": the
-    count of each of SASS_OPS in its SASS, and of 16 B LDGSTS as
-    "LDGSTS.128"}}."""
+    {name: {"regs", "spill" (store bytes), "stack" (bytes), "smem"
+    (static bytes) from the build's -Xptxas -v lines (None where the log
+    lacks them), "ops": the count of each of SASS_OPS in its SASS, and of
+    16 B LDGSTS, LDG and STG as "LDGSTS.128", "LDG.128", "STG.128"}}."""
     import re
     from torch.utils.cpp_extension import CUDA_HOME
     tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
@@ -884,6 +1017,7 @@ def kernel_instances(lib_path, build_log, name_of):
         if m:
             entry = name_of(m.group(1))
         for key, pat in (("spill", r"(\d+) bytes spill stores"),
+                         ("stack", r"(\d+) bytes stack frame"),
                          ("regs", r"Used (\d+) registers"),
                          ("smem", r"(\d+) bytes smem")):
             m = re.search(pat, line)
@@ -895,10 +1029,12 @@ def kernel_instances(lib_path, build_log, name_of):
         if name:
             ops = {op: len(re.findall(r"\b%s[.\s]" % op, part))
                    for op in SASS_OPS}
-            ops["LDGSTS.128"] = len(re.findall(r"\bLDGSTS\S*\.128\b", part))
+            for op in ("LDGSTS", "LDG", "STG"):
+                ops[op + ".128"] = len(re.findall(
+                    r"\b%s(?:\.\w+)*\.128\b" % op, part))
             u = usage.get(name, {})
             out[name] = {"regs": u.get("regs"), "spill": u.get("spill"),
-                         "smem": u.get("smem", 0),
+                         "stack": u.get("stack"), "smem": u.get("smem", 0),
                          "ops": {k: v for k, v in ops.items() if v}}
     return out
 
@@ -1222,6 +1358,41 @@ def greedy_agreement(card_calls, cpu_calls, prompts, slots, active):
     return compared, near_ties
 
 
+def explain_prefill_mismatch(first, again) -> None:
+    """Before phase 11 fails on its prefill check: each side against its
+    own second run (which side moves from run to run), the CPU's thread
+    count and both sides' fp32 matmul precision, and where the largest
+    card-vs-CPU errors lie (layer, position, KV head, dim for the
+    caches; the vocab entry for the logits)."""
+    (lg_h, kv_h), (lg_c, kv_c) = first
+
+    def gap(a, b):
+        return float((a.cpu() - b.cpu()).abs().max())
+
+    for side, (l1, k1), (l2, k2) in (("card", first[1], again[1]),
+                                     ("cpu", first[0], again[0])):
+        k, v = (gap(k1["blocks"][n], k2["blocks"][n]) for n in ("k", "v"))
+        log(f"[lm parity: why] {side} vs {side}, a second prefill: logits "
+            f"{gap(l1, l2):.3g}, k {k:.3g}, v {v:.3g}")
+    log(f"[lm parity: why] torch.get_num_threads() {torch.get_num_threads()}"
+        f", float32 matmul precision "
+        f"{torch.get_float32_matmul_precision()}, cuda matmul TF32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+    for n in ("k", "v"):
+        d = (kv_c["blocks"][n].cpu() - kv_h["blocks"][n]).abs()
+        at = np.unravel_index(int(d.argmax()), tuple(d.shape))
+        log(f"[lm parity: why] cache {n} {tuple(d.shape)} (layer, batch, "
+            f"position, KV head, dim): largest |d| {float(d.max()):.3g} at "
+            f"{tuple(int(i) for i in at)}, card "
+            f"{float(kv_c['blocks'][n].cpu()[at]):.6g}, cpu "
+            f"{float(kv_h['blocks'][n][at]):.6g}; per layer max "
+            f"{[round(float(x), 9) for x in d.flatten(1).amax(1)]}")
+    d = (lg_c.cpu() - lg_h).abs()
+    at = np.unravel_index(int(d.argmax()), tuple(d.shape))
+    log(f"[lm parity: why] logits {tuple(d.shape)}: largest |d| "
+        f"{float(d.max()):.3g} at {tuple(int(i) for i in at)}")
+
+
 def phase_lm_parity(dev, seed: int) -> dict:
     """Two layers of Qwen2.5-3B at its full widths, fp32, one seed's
     weights on the card and on the CPU: prefill (S = 512) last-token
@@ -1239,12 +1410,17 @@ def phase_lm_parity(dev, seed: int) -> dict:
     srvs[dev].params.load_state_dict(srvs["cpu"].params.state_dict())
     tokens = torch.as_tensor(np.random.default_rng(seed + 21).integers(
         0, cfg.vocab_size, (1, 512)))
-    (lg_h, kv_h), (lg_c, kv_c) = (
-        lm.prefill(srvs[w].params, cfg, {"tokens": tokens.to(w)})
-        for w in ("cpu", dev))
+
+    def prefill():
+        return [lm.prefill(srvs[w].params, cfg, {"tokens": tokens.to(w)})
+                for w in ("cpu", dev)]
+
+    (lg_h, kv_h), (lg_c, kv_c) = first = prefill()
     e_lg = float((lg_c.cpu() - lg_h).abs().max())
     e_kv = max(float((kv_c["blocks"][n].cpu() - kv_h["blocks"][n])
                      .abs().max()) for n in ("k", "v"))
+    if not (e_lg <= LM_TOL and e_kv <= 1e-4):
+        explain_prefill_mismatch(first, prefill())
     need(e_lg <= LM_TOL and e_kv <= 1e-4,
          f"prefill card vs CPU: logits {e_lg:.3g}, caches {e_kv:.3g}")
     log(f"[lm parity] 2-layer {LM_ARCH} full width fp32, prefill S=512: "
@@ -1476,6 +1652,15 @@ def same(a: dict, b: dict) -> bool:
     return eq(a, b)
 
 
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0]
+    return 1e6 * float(mhz)
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1488,8 +1673,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="numpy seed of the network and its inputs")
     ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after the kernel checks, phases 1-3, 10, "
-                         "13 and 7 (a quick first check)")
+                    help="stop after the kernel checks, phases 1-3, 16, "
+                         "10, 13 and 7 (a quick first check)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one run_lanes window per path "
                          "on both networks, one decode tick, one "
@@ -1514,6 +1699,9 @@ def main(argv=None) -> int:
                                          flash_fwd_lse_ref, lif_step_ref,
                                          route_lif_ref, spike_matmul_ref)
     from repro_torch.kernels.spike_matmul import spike_matmul
+    from repro_torch.core import neuron as nrn
+    from repro_torch.kernels.ref import split_randint_ref
+    from repro_torch.kernels.threefry import split_randint
 
     # ---- 1. setup
     card = card_line()
@@ -1525,8 +1713,8 @@ def main(argv=None) -> int:
     logs = _build.build_all()
     # phases 3 and 10 read this run's ptxas lines of the SNN and flash
     # libraries: rebuild one that an earlier run left
-    again = [n for n in ("route_lif", "spike_matmul", "flash_attention",
-                         "flash_attention_bwd") if n not in logs]
+    again = [n for n in SNN_LIBS + ("flash_attention", "flash_attention_bwd")
+             if n not in logs]
     for n in again:
         _build.library_path(n).unlink()
     logs.update(_build.build_all(again))
@@ -1540,7 +1728,12 @@ def main(argv=None) -> int:
     B, N = 8, NEURONS
 
     # ---- 2. lif_step against its plain version
-    lif_args, lif_is_lif, lif_err = phase_lif_kernel(dev, B, N, args.seed)
+    lif_errs, lif_inputs = phase_lif_cases(dev, args.seed)
+    lif_err = max(lif_errs.values())
+
+    # ---- 16. the per-step key split and noise draw against its plain
+    # version
+    tf_err, tf_keys = phase_threefry_kernel(dev, args.seed)
 
     # ---- the network, compiled on the host
     from repro_torch import compile_spec, deploy
@@ -1584,13 +1777,14 @@ def main(argv=None) -> int:
 
     if args.kernels_only:
         setup_mlp(dev, args.seed)
-        log("[kernels-only] phases 1-3, 10, 13 and 7 passed; no result is "
-            "reported")
+        log("[kernels-only] phases 1-3, 16, 10, 13 and 7 passed; no result "
+            "is reported")
         return 0
 
     # ---- 4. the main path, unfused and fused, counts from 0
     route_lif = route_k.route_lif
-    kernels_of = {"lif_step": lif_step, "route_lif": route_lif,
+    kernels_of = {"lif_step": lif_step, "split_randint": split_randint,
+                  "route_lif": route_lif,
                   "spike_matmul": spike_matmul,
                   "flash_attention": flash_attention,
                   "flash_fwd_lse": flash_fwd_lse,
@@ -1627,6 +1821,10 @@ def main(argv=None) -> int:
     need(by_path["engine fused=False"]["lif_step"] > 0
          and by_path["engine fused=True"]["route_lif"] > 0,
          f"a kernel of the engine path never launched: {by_path}")
+    for fused in (False, True):
+        need(by_path[f"engine fused={fused}"]["split_randint"]
+             == SNN_PATH_STEPS,
+             f"split_randint did not launch once a step: {by_path}")
     every = np.concatenate([runs[True]["run"].reshape(-1)]
                            + [w.reshape(-1) for w in runs[True]["windows"]]
                            + [runs[True]["run_batch"].reshape(-1)])
@@ -1682,6 +1880,10 @@ def main(argv=None) -> int:
     need(by_path["mlp engine fused=True"]["route_lif"] > 0
          and by_path["mlp engine"]["lif_step"] > 0,
          f"a kernel of an engine path never launched: {by_path}")
+    for name in mlp:
+        need(by_path[name]["split_randint"] == SNN_PATH_STEPS,
+             f"split_randint did not launch once a step on {name}: "
+             f"{by_path[name]}")
     rates = layer_rates(sim_out["windows"])
     need(all(0.0 < r < 1.0 for r in rates),
          f"a layer's spike rate is not strictly in (0, 1): {rates}")
@@ -1787,13 +1989,46 @@ def main(argv=None) -> int:
     def flush():
         flush_buf.zero_()
 
-    lif_ms = time_ms(lambda: lif_step(*lif_args, lif_is_lif), flush=flush)
-    lif_plain = time_ms(lambda: lif_step_ref(*lif_args, lif_is_lif),
-                        flush=flush)
-    # inputs once, V_next (int32) and spikes (1 byte) out; ~20 integer
-    # operations per (lane, neuron)
-    lif_bytes = nbytes(*lif_args, lif_is_lif) + 5 * lif_args[0].numel()
-    lif_bound, lif_by = bound(lif_bytes, 20 * lif_args[0].numel())
+    def time_lif(n):
+        a, lif = lif_inputs[n]
+        ms = time_ms(lambda: lif_step(*a, lif), flush=flush)
+        plain = time_ms(lambda: lif_step_ref(*a, lif), flush=flush)
+        # inputs once, V_next (int32) and spikes (1 byte) out; ~20
+        # integer operations per (lane, neuron)
+        n_bytes = nbytes(*a, lif) + 5 * a[0].numel()
+        bnd, by = bound(n_bytes, 20 * a[0].numel())
+        log(f"[time lif_step B=8 N={n}] {ms:.4f} ms (1 launch/step), "
+            f"plain {plain:.4f} ms, bound {1e3 * bnd:.2f} us ({by}: "
+            f"{n_bytes} B), {ms / bnd:.2f}x the bound on {card}")
+        return ms, plain, bnd, by
+
+    lif_ms, lif_plain, lif_bound, lif_by = time_lif(N)
+    lif_mlp = time_lif(3010)
+    # the floor of a timing: the same kernel on one (lane, neuron)
+    a, lif = lif_inputs[3010]
+    one = [x[:1, :1].contiguous() for x in a[:3]] \
+        + [x[:1].contiguous() for x in a[3:]] + [lif[:1].contiguous()]
+    floor_ms = time_ms(lambda: lif_step(*one), flush=flush)
+    log(f"[time floor] lif_step at B=1 N=1 (a launch with almost no work, "
+        f"timed as every kernel here is): {floor_ms:.4f} ms on {card}")
+
+    # split_randint at the core's step shape: THREEFRY_OPS int32
+    # operations an element at the int32 rate of the card's maximum SM
+    # clock; the keys in and out and u out
+    noise = (nrn.NOISE_MIN, nrn.NOISE_MAX)
+    tf_ms = time_ms(lambda: split_randint(tf_keys, N, *noise), flush=flush)
+    tf_plain = time_ms(lambda: split_randint_ref(tf_keys, N, *noise),
+                       flush=flush)
+    int32_ops_per_s = INT32_LANES * max_sm_clock_hz()
+    tf_ops = THREEFRY_OPS * B * N
+    tf_bytes = 2 * nbytes(tf_keys) + 4 * B * N
+    tf_bound, tf_by = bound(tf_bytes, tf_ops, int32_ops_per_s)
+    log(f"[time split_randint B=8 N={N}] {tf_ms:.4f} ms (1 launch/step), "
+        f"plain {tf_plain:.4f} ms, bound {1e3 * tf_bound:.2f} us ({tf_by}: "
+        f"{tf_ops} int32 operations at {int32_ops_per_s:.4g}/s = "
+        f"{INT32_LANES} lanes x the maximum SM clock; {tf_bytes} B, "
+        f"{1e6 * tf_bytes / HBM_BYTES_PER_S:.2f} us), {tf_ms / tf_bound:.2f}x "
+        f"the bound on {card}")
 
     (post, weight, own_a, own_n, ax_ct, nr_ct, V, u) = route_args[:8]
     tables = dep_probe.impl.tables
@@ -1824,9 +2059,6 @@ def main(argv=None) -> int:
     index_add_ms = time_ms(lambda: acc.index_add_(1, idx, gated),
                            flush=flush)
     del gate, gated, acc
-    log(f"[time lif_step] {lif_ms:.4f} ms (1 launch/step), plain "
-        f"{lif_plain:.4f} ms, bound {1e3 * lif_bound:.2f} us "
-        f"({lif_bytes} B) on {card}")
     log(f"[time route_lif] {route_ms:.4f} ms (1 launch/step), plain "
         f"{route_plain:.4f} ms, bound {1e3 * route_bound:.2f} us "
         f"({route_by}: {route_bytes} B), {route_ms / route_bound:.2f}x the "
@@ -2031,7 +2263,26 @@ def main(argv=None) -> int:
          "launches": total("lif_step"),
          "launches_by_path": paths("lif_step"), "max_abs_err": lif_err,
          "ms": lif_ms, "plain_ms": lif_plain, "bound_ms": lif_bound,
-         "bound_by": lif_by, "library_ms": None},
+         "bound_by": lif_by, "library_ms": None,
+         "max_abs_err_by_case": lif_errs,
+         "instances": {n: d for n, d in snn_inst.items()
+                       if n.startswith("lif_step:")},
+         "ms_mlp": lif_mlp[0], "plain_ms_mlp": lif_mlp[1],
+         "bound_ms_mlp": lif_mlp[2], "bound_by_mlp": lif_mlp[3],
+         "ms_b1_n1": floor_ms},
+        {"name": "split_randint", "route": "cuda",
+         "source": "src/repro_torch/csrc/threefry.cu",
+         "replaces": "src/repro/core/engine.py:125",
+         "replaces_note": "no Pallas kernel: XLA fuses jax.random.split "
+                          "(engine.py:125) and randint "
+                          "(src/repro/core/neuron.py:90)",
+         "launches": total("split_randint"),
+         "launches_by_path": paths("split_randint"), "max_abs_err": tf_err,
+         "ms": tf_ms, "plain_ms": tf_plain, "bound_ms": tf_bound,
+         "bound_by": tf_by, "library_ms": None,
+         "bound_int32_ops": tf_ops, "int32_ops_per_s": int32_ops_per_s,
+         "instances": {n: d for n, d in snn_inst.items()
+                       if n.startswith("threefry:")}},
         {"name": "fused_route_lif_step", "route": "cuda",
          "source": "src/repro_torch/csrc/route_lif.cu",
          "replaces": "src/repro/kernels/route.py:434",

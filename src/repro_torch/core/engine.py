@@ -13,7 +13,8 @@ Every path carries a lane axis B (the JAX engine vmaps): `step` and
 timesteps into a Python loop that never syncs with the host: spikes and
 the per-step access tallies stay on the device and are read once per
 call. The noise stream is `repro_torch.core.prng`, bit-identical to the
-JAX engine's `jax.random` stream.
+JAX engine's `jax.random` stream; each step's key split and draw is the
+`split_randint` CUDA kernel (`kernels.threefry`).
 
 Two step paths, bit-exact against each other and against the JAX
 engine:
@@ -42,6 +43,7 @@ from repro_torch.core.hbm import FlatImage, HBMImage
 from repro_torch.device import resolve
 from repro_torch.kernels import route as route_k
 from repro_torch.kernels.lif_step import lif_step
+from repro_torch.kernels.threefry import split_randint
 
 
 class EventEngine:
@@ -115,8 +117,7 @@ class EventEngine:
         """One timestep over B lanes: V (B, n) int32, keys (B, 2),
         counts (B, A) int32 -> (V', keys', spikes, ptr_reads,
         row_reads)."""
-        keys, sub = prng.split(keys)
-        u = nrn.noise_draw(sub, self.n)
+        keys, u = split_randint(keys, self.n, nrn.NOISE_MIN, nrn.NOISE_MAX)
         if self.fused:
             V, spikes, pr, rr = route_k.fused_route_lif_step(
                 self.tables, counts, V, u, self.theta, self.nu, self.lam,

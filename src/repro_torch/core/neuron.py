@@ -26,6 +26,7 @@ import torch
 from repro_torch.core import prng
 
 NOISE_BITS = 17
+NOISE_MIN, NOISE_MAX = -(2 ** (NOISE_BITS - 1)), 2 ** (NOISE_BITS - 1)
 MAX_LAMBDA = 63
 _NU_MIN, _NU_MAX = -32, 31      # 6-bit signed
 
@@ -80,8 +81,7 @@ def noise_draw(key, n: int):
     """The raw 17-bit signed uniform draw feeding `noise_from_u`:
     `jax.random.randint(key, (n,), -2**16, 2**16, int32)`, bit for bit.
     Keys ``(..., 2)`` -> ``(..., n)``."""
-    return prng.randint(key, n, -(2 ** (NOISE_BITS - 1)),
-                        2 ** (NOISE_BITS - 1))
+    return prng.randint(key, n, NOISE_MIN, NOISE_MAX)
 
 
 def noise_sample(key, n: int, nu):

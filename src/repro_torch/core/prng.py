@@ -91,29 +91,33 @@ def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:
     return b1 ^ b2
 
 
-def randint(key: torch.Tensor, n: int, minval: int, maxval: int
-            ) -> torch.Tensor:
-    """`jax.random.randint(key, (n,), minval, maxval, jnp.int32)` for
-    keys ``(..., 2)`` -> int32 ``(..., n)``. The bounds are Python ints
-    in int32 range (JAX raises OverflowError outside it, and so does
-    this)."""
+def randint_fold(minval: int, maxval: int):
+    """`randint`'s constants for int32 bounds: (minval, span, mult), the
+    span taken mod 2**32 (1 when maxval <= minval) and mult the factor
+    of the high draw (0 when 2**32 % span == 0 skips it). The bounds are
+    Python ints in int32 range (JAX raises OverflowError outside it, and
+    so does this)."""
     lo_v, hi_v = int(minval), int(maxval)
     for b in (lo_v, hi_v):
         if not -(2 ** 31) <= b < 2 ** 31:
             raise OverflowError(f"randint bound {b} does not fit int32")
     span = 1 if hi_v <= lo_v else (hi_v - lo_v) & MASK
+    mult = (2 ** 16) % span
+    return lo_v, span, ((mult * mult) & MASK) % span
+
+
+def randint(key: torch.Tensor, n: int, minval: int, maxval: int
+            ) -> torch.Tensor:
+    """`jax.random.randint(key, (n,), minval, maxval, jnp.int32)` for
+    keys ``(..., 2)`` -> int32 ``(..., n)``."""
+    lo_v, span, mult = randint_fold(minval, maxval)
     keys = split(key)
     lower = random_bits(keys[1], n)
-    if span == 0:                       # the full 2**32 range: no fold
-        off = lower
-    else:
-        mult = (2 ** 16) % span
-        mult = ((mult * mult) & MASK) % span
-        off = lower % span
-        if mult:                        # 2**32 % span == 0 skips the draw
-            higher = random_bits(keys[0], n)
-            off = (((higher % span) * mult) & MASK) + off
-            off = (off & MASK) % span
+    off = lower % span
+    if mult:                            # 2**32 % span == 0 skips the draw
+        higher = random_bits(keys[0], n)
+        off = (((higher % span) * mult) & MASK) + off
+        off = (off & MASK) % span
     v = (off + lo_v) & MASK
     return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32)
 

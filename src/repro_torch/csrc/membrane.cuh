@@ -1,6 +1,7 @@
-// The fixed-point membrane update of one (lane, neuron), and the one
-// membrane-pass kernel that both entry points (lif_step.cu, route_lif.cu)
-// launch, so the unfused and fused engine paths cannot drift apart.
+// The fixed-point membrane update of one (lane, neuron), the one
+// definition that both entry points (lif_step.cu, route_lif.cu) compute,
+// so the unfused and fused engine paths cannot drift apart; and the fused
+// step's membrane pass (route_lif.cu).
 //
 // Semantics (Table 1 of the paper; repro.core.neuron is the reference):
 //   xi    = (u|1) << nu            for nu >= 0   (shift clamped to 31)
@@ -27,18 +28,19 @@ __device__ __forceinline__ int32_t wrap_mul(int32_t a, int32_t b) {
   return (int32_t)((uint32_t)a * (uint32_t)b);
 }
 
+// both shifts are computed and one selected: nu differs from neuron to
+// neuron, and a branch on it diverges within a warp
 __device__ __forceinline__ int32_t noise_from_u(int32_t u, int32_t nu) {
   u |= 1;
-  if (nu >= 0) {
-    // a left shift of a negative int is undefined in C++: shift the bits
-    int pos = nu < 31 ? nu : 31;
-    return (int32_t)((uint32_t)u << pos);
-  }
-  int neg = nu > -31 ? -nu : 31;
+  // a left shift of a negative int is undefined in C++: shift the bits
+  const int pos = min(max(nu, 0), 31);
+  const int32_t left = (int32_t)((uint32_t)u << pos);
+  const int neg = min(max(-nu, 0), 31);
   // jnp.abs wraps at INT32_MIN; so does the negation through uint32
-  int32_t mag = (int32_t)(u < 0 ? 0u - (uint32_t)u : (uint32_t)u) >> neg;
-  int32_t sign = (u > 0) - (u < 0);
-  return wrap_mul(sign, mag);
+  const int32_t mag =
+      (int32_t)(u < 0 ? 0u - (uint32_t)u : (uint32_t)u) >> neg;
+  const int32_t sign = (u > 0) - (u < 0);
+  return nu >= 0 ? left : wrap_mul(sign, mag);
 }
 
 // V - floor(V / 2^lam): the arithmetic shift is the exact floor (C's `/`
@@ -68,8 +70,8 @@ __device__ __forceinline__ int32_t membrane_step(
 // is (B, n) like V, or with kSynByNeuron (n, syn_ld), each neuron's
 // lanes side by side (the fused step's accumulator); syn and V_out may
 // be the same buffer: each element is read and then written by one
-// thread only. kSpikes: also store the spikes (B, n) as bytes.
-template <bool kSpikes, bool kSynByNeuron = false>
+// thread only.
+template <bool kSynByNeuron>
 __global__ void membrane_kernel(const int32_t* __restrict__ V,
                                 const int32_t* syn,
                                 const int32_t* __restrict__ u,
@@ -77,8 +79,7 @@ __global__ void membrane_kernel(const int32_t* __restrict__ V,
                                 const int32_t* __restrict__ nu,
                                 const int32_t* __restrict__ lam,
                                 const uint8_t* __restrict__ is_lif,
-                                int32_t* V_out, uint8_t* __restrict__ spikes,
-                                int n, int syn_ld) {
+                                int32_t* V_out, int n, int syn_ld) {
   const int64_t lane = (int64_t)blockIdx.y * n;
   for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < n;
        j += gridDim.x * blockDim.x) {
@@ -88,25 +89,22 @@ __global__ void membrane_kernel(const int32_t* __restrict__ V,
     bool s;
     V_out[i] = membrane_step(V[i], u[i], theta[j], nu[j], lam[j],
                              is_lif[j] != 0, in, &s);
-    if (kSpikes) spikes[i] = s;
   }
 }
 
-template <bool kSpikes, bool kSynByNeuron = false>
+template <bool kSynByNeuron>
 inline cudaError_t membrane_launch(const void* V, const void* syn,
                                    const void* u, const void* theta,
                                    const void* nu, const void* lam,
-                                   const void* is_lif, void* V_out,
-                                   void* spikes, int B, int n,
-                                   cudaStream_t stream, int syn_ld = 0) {
+                                   const void* is_lif, void* V_out, int B,
+                                   int n, cudaStream_t stream,
+                                   int syn_ld = 0) {
   const int threads = 256;
   int blocks = (n + threads - 1) / threads;
   if (blocks > 4096) blocks = 4096;     // grid-stride beyond ~1M threads
-  membrane_kernel<kSpikes, kSynByNeuron>
-      <<<dim3(blocks, B), threads, 0, stream>>>(
-          (const int32_t*)V, (const int32_t*)syn, (const int32_t*)u,
-          (const int32_t*)theta, (const int32_t*)nu, (const int32_t*)lam,
-          (const uint8_t*)is_lif, (int32_t*)V_out, (uint8_t*)spikes, n,
-          syn_ld);
+  membrane_kernel<kSynByNeuron><<<dim3(blocks, B), threads, 0, stream>>>(
+      (const int32_t*)V, (const int32_t*)syn, (const int32_t*)u,
+      (const int32_t*)theta, (const int32_t*)nu, (const int32_t*)lam,
+      (const uint8_t*)is_lif, (int32_t*)V_out, n, syn_ld);
   return cudaGetLastError();
 }

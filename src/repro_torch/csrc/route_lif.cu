@@ -59,7 +59,7 @@
 //    int32 adds wrap and commute, so the sum is bit-exact in any order.
 //    Empty slots, zero weights and A.3 filler posts at or past N add
 //    nothing;
-//  * pass 3: membrane.cuh's membrane pass (the one lif_step.cu launches),
+//  * pass 3: membrane.cuh's membrane pass (lif_step.cu's arithmetic),
 //    reading its synaptic input from the accumulator in either layout, so
 //    V is read once and V_next written once.
 // All passes go on one stream from one entry point, which counts as one
@@ -296,11 +296,9 @@ extern "C" int route_lif_launch(
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (by_lane)
-    return (int)membrane_launch<false, false>(V, acc, u, theta, nu, lam,
-                                              is_lif, V_out, nullptr, B, n,
-                                              s);
-  return (int)membrane_launch<false, true>(V, acc, u, theta, nu, lam,
-                                           is_lif, V_out, nullptr, B, n, s,
-                                           Bp);
+    return (int)membrane_launch<false>(V, acc, u, theta, nu, lam, is_lif,
+                                       V_out, B, n, s);
+  return (int)membrane_launch<true>(V, acc, u, theta, nu, lam, is_lif,
+                                    V_out, B, n, s, Bp);
 }
 

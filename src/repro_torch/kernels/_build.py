@@ -33,13 +33,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_U = ctypes.c_uint
 _F = ctypes.c_float
 # each source's C entry points and their argument types (pointers and the
-# stream as c_void_p, sizes as c_int / c_int64, scales as c_float); each
-# launch returns a cudaError_t (the *_smem_bytes entries a byte count,
-# flash_bwd_dkv_chunks a count)
+# stream as c_void_p, sizes as c_int / c_int64, uint32 words as c_uint,
+# scales as c_float); each launch returns a cudaError_t (the *_smem_bytes
+# entries a byte count, flash_bwd_dkv_chunks a count)
 SIGNATURES = {
     "lif_step": {"lif_step_launch": [_P] * 9 + [_I, _I, _P]},
+    "threefry": {"split_randint_launch": [_P] * 3 + [_I, _I]
+                 + [_U] * 3 + [_P]},
     "route_lif": {"route_lif_launch": [_P] * 16 + [_I] * 5 + [_I64, _P]},
     "spike_matmul": {"spike_matmul_launch":
                      [_P, _P, _I, _P, _P] + [_I] * 6 + [_P]},
