@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA card.
 
-    python3 chip_smoke.py            # one card, full width, ~7 minutes
+    python3 chip_smoke.py            # one card, full width, ~6 minutes
 
 Phases, in the order they run (the timing phase 6 runs last, so that it
 can time the shapes the other phases give the kernels); any failure
@@ -130,6 +130,28 @@ raises and the script exits non-zero:
      kernel 72 times (the remat recomputes it), each backward kernel 36
      times and the prefill's forward none; step time, tokens/s and peak
      device memory;
+ 17. the serving tier at full width: one `SpikeServer` (max_batch 8,
+     max_wait 2 ms, window 16) holding the core on the fused engine (8
+     session lanes) and the MLP on the simulator (4), both deployed by
+     `add_model` on the card; 16 client threads (core: 8 session and 4
+     scratch clients, MLP: 2 and 2) send 4 windows each (5 % of the
+     axons driven), the first of every client as one burst before the
+     server starts; every batch shape a power of two <= 8, some batch
+     holding >= 2 requests, every response bit-exact (result_digest)
+     against the same request run alone on a second card deployment,
+     and lif_step, route_lif, spike_matmul and split_randint launched
+     once a step of every served batch; then the same stream under
+     "dispatch_crash@2;batch_exception@4" with resubmission (survivors
+     == the fault-free digests, every future settled, every lane back,
+     exactly one supervised restart, no rejection the plan did not
+     cause); checkpoint after 2 windows a session, restore onto a fresh
+     server and one more window == an uninterrupted server (digests, V
+     and the uint32 keys); the MLP stream's first 4 requests on a
+     CPU-port server, same digests; req/s, p50/p99 ms, mean batch, and
+     each model's dispatch ms a batch beside a bare run_lanes at the
+     same B and window (with --profile, one served batch's device
+     events and busy share). No thread of the script is alive before
+     phase 11 or after this phase;
   6. timing: each kernel's median time against its plain version and
      its bound (lif_step at the core's and the MLP's shapes;
      split_randint against its int32 operations at 132 x 64 lanes a
@@ -171,6 +193,8 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -1640,6 +1664,332 @@ def run_lm_train(seed: int, zero_counts, read_counts, profile=False):
     return out
 
 
+# ------------------------------------------------------- the serving tier
+SERVE = (8, 2.0, 16)          # SpikeServer max_batch, max_wait_ms; window
+# model, session clients, scratch clients, session lanes
+SERVE_CLIENTS = (("core", 8, 4, 8), ("mlp", 2, 2, 4))
+SERVE_WINDOWS = 4             # windows each client sends
+SERVE_CHAOS = "dispatch_crash@2;batch_exception@4"
+
+
+def serve_stream(seed: int, axons: dict) -> list:
+    """The phase's clients in a fixed order: (model, client, holds a
+    session, its windows drawn with `drive` at 5 % of the axons)."""
+    rng = np.random.default_rng(seed + 17)
+    return [(m, cl, cl < n_sess,
+             list(drive(rng, SERVE_WINDOWS, SERVE[2], axons[m])))
+            for m, n_sess, n_scratch, _ in SERVE_CLIENTS
+            for cl in range(n_sess + n_scratch)]
+
+
+def scratch_seed(cl: int, r: int) -> int:
+    return 1000 * cl + r
+
+
+def serve_server(deps: dict):
+    """A fresh SpikeServer over existing deployments, each reset to V = 0
+    and its construction-seed lanes."""
+    from repro_torch.serve import SpikeServer
+    srv = SpikeServer(max_batch=SERVE[0], max_wait_ms=SERVE[1])
+    for m, _, _, n_lanes in SERVE_CLIENTS:
+        deps[m].reset()
+        srv.add_model(m, deployment=deps[m], window=SERVE[2],
+                      n_sessions=n_lanes)
+    return srv
+
+
+def serve_clients(srv, stream, retry_on=()):
+    """Open every session (in stream order, so each client gets the same
+    lane on every server), submit each client's first window as one
+    burst before `start()`, then one thread per client sends the rest,
+    each after its previous answer. A rejection of a type in `retry_on`
+    (an armed fault plan's) resubmits the window; any other fails the
+    phase. Every thread is joined and the server shut down before this
+    returns ({(model, client, window): ServeResult}, {(model, client):
+    lane}, every future, seconds from start to the last answer)."""
+    lanes = {(m, cl): srv.open_session(m) for m, cl, sess, _ in stream
+             if sess}
+    futs, results, errors = [], {}, []
+
+    def submit(m, cl, r, w):
+        f = srv.submit(m, w, session=lanes.get((m, cl)),
+                       seed=scratch_seed(cl, r))
+        futs.append(f)
+        return f
+
+    def answer(m, cl, r, w, fut):
+        for attempt in range(8):
+            try:
+                return fut.result(timeout=600)
+            except retry_on:
+                if attempt == 7:
+                    raise
+                fut = submit(m, cl, r, w)
+
+    first = {(m, cl): submit(m, cl, 0, ws[0]) for m, cl, _, ws in stream}
+
+    def client(m, cl, ws):
+        try:
+            fut = first[(m, cl)]
+            for r, w in enumerate(ws):
+                if r:
+                    fut = submit(m, cl, r, w)
+                results[(m, cl, r)] = answer(m, cl, r, w, fut)
+            if (m, cl) in lanes:
+                srv.close_session(m, lanes[(m, cl)])
+        except BaseException as e:      # noqa: BLE001 — raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(m, cl, ws))
+               for m, cl, _, ws in stream]
+    t0 = time.perf_counter()
+    try:
+        srv.start()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+    finally:
+        srv.shutdown()
+    need(not any(t.is_alive() for t in threads), "a client never returned")
+    if errors:
+        raise errors[0]
+    return results, lanes, futs, wall
+
+
+def session_rounds(srv, sids: dict, stream, rounds) -> dict:
+    """Windows `rounds` of every session client, each round one burst;
+    {(model, client, window): digest}."""
+    from repro_torch.portal.gateway import result_digest
+    out = {}
+    for r in rounds:
+        futs = {(m, cl): srv.submit(m, ws[r], session=sids[(m, cl)])
+                for m, cl, sess, ws in stream if sess}
+        for (m, cl), f in futs.items():
+            res = f.result(timeout=600)
+            out[(m, cl, r)] = result_digest(res.spikes, res.membrane)
+    return out
+
+
+def batch_ms(dep, lanes, windows) -> float:
+    """Host ms of one run_lanes over `lanes` (-1: scratch) with
+    `windows` (it ends in its host reads)."""
+    sched = np.stack([windows[i % len(windows)] for i in range(len(lanes))])
+    t0 = time.perf_counter()
+    dep.run_lanes(lanes, sched, seeds=list(range(len(lanes))))
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def phase_serve(compiled, sim_compiled, seed: int, zero_counts, read_counts,
+                card: str, profile: bool) -> dict:
+    """Phase 17, the serving tier at full width; returns the launch
+    counts of the served run."""
+    from repro_torch import deploy, faults
+    from repro_torch.portal.gateway import result_digest
+    from repro_torch.serve import DispatchRestart, SpikeServer
+
+    def digests(results):
+        return {k: result_digest(r.spikes, r.membrane)
+                for k, r in results.items()}
+
+    t_phase = time.perf_counter()
+    artifacts = {"core": (compiled, {"fused": True}),
+                 "mlp": (sim_compiled, {})}
+    n_lanes = {m: n for m, _, _, n in SERVE_CLIENTS}
+    stream = serve_stream(seed, {m: c.n_axons
+                                 for m, (c, _) in artifacts.items()})
+    n_req = sum(len(ws) for *_, ws in stream)
+
+    # 1-2. two resident models deployed by add_model (on the card: no
+    # device is given), then the client load, counts from 0
+    srv = SpikeServer(max_batch=SERVE[0], max_wait_ms=SERVE[1])
+    for m, (c, kw) in artifacts.items():
+        srv.add_model(m, c, window=SERVE[2], n_sessions=n_lanes[m],
+                      seed=seed, **kw)
+    deps = {m: mm.dep for m, mm in srv.models.items()}
+    need(all(d.device.type == "cuda" for d in deps.values()),
+         "add_model did not deploy on the card")
+    windows_of = {m: [ws[0] for mm, _, _, ws in stream if mm == m]
+                  for m in deps}
+    for m, d in deps.items():   # one untimed window at the largest bucket
+        batch_ms(d, [-1] * SERVE[0], windows_of[m])
+    torch.cuda.synchronize()
+    zero_counts()
+    results, lanes, futs, wall = serve_clients(srv, stream)
+    counts = read_counts()
+    stats = srv.stats()
+    got = digests(results)
+    need(len(got) == n_req and all(f.exception() is None for f in futs),
+         "a request of the fault-free run was not answered")
+    batches = {m: stats["models"][m]["batches"] for m in deps}
+    shapes = {m: stats["models"][m]["batch_shapes"] for m in deps}
+    need(all(B & (B - 1) == 0 and B <= SERVE[0] and T == SERVE[2]
+             for s in shapes.values() for B, T in s),
+         f"a batch shape is not a power of two <= {SERVE[0]}: {shapes}")
+    need(max(srv.batch_sizes) >= 2, "no batch held two requests")
+
+    # 3. every response against the same request run alone on a second
+    # card deployment per model
+    refs = {}
+    for m, (c, kw) in artifacts.items():
+        refs[m] = deploy(c, seed=seed, **kw)
+        refs[m].alloc_lanes(n_lanes[m])
+    want = {}
+    for m, cl, sess, ws in stream:
+        for r, w in enumerate(ws):
+            spk, V = refs[m].run_lanes(
+                [lanes.get((m, cl), -1)], w[None],
+                seeds=None if sess else [scratch_seed(cl, r)])
+            want[(m, cl, r)] = result_digest(spk[0], V[0])
+    need(got == want, "a served response differs from the same request "
+                      "run alone")
+    log(f"[serve] {n_req} requests from {len(stream)} clients: every "
+        f"response == the request run alone on the card (sessions on "
+        f"their lane, scratch by seed); batches {batches}, shapes "
+        f"{shapes}, sizes {sorted(set(srv.batch_sizes))}")
+
+    # 4. chaos: the same stream on a fresh server with the plan armed
+    srv2 = serve_server(deps)
+    plan = faults.install(faults.FaultPlan.from_spec(SERVE_CHAOS, seed=seed))
+    try:
+        res2, lanes2, futs2, _ = serve_clients(
+            srv2, stream, retry_on=(DispatchRestart, faults.InjectedFault))
+    finally:
+        faults.uninstall()
+    fired = plan.stats()
+    rejected = [f.exception() for f in futs2 if f.exception() is not None]
+    need(all(isinstance(e, faults.InjectedFault)
+             or (isinstance(e, DispatchRestart)
+                 and isinstance(e.cause, faults.InjectedFault))
+             for e in rejected),
+         f"a future was rejected by something else than the plan: "
+         f"{rejected}")
+    need(lanes2 == lanes and digests(res2) == got,
+         "a chaos survivor differs from the fault-free run")
+    need(all(f.done() for f in futs2), "a chaos future never settled")
+    need(all(mm.sessions.n_open == 0 and mm.sessions.pool.n_active == 0
+             for mm in srv2.models.values()), "a session lane leaked")
+    need(srv2.health()["restarts"] == 1
+         and all(st["fired"] == 1 for st in fired.values()),
+         f"not one restart and one poisoned batch: "
+         f"{srv2.health()['restarts']} restarts, plan {fired}")
+    log(f"[serve chaos] {SERVE_CHAOS!r}: {len(rejected)} rejections "
+        f"({sorted({type(e).__name__ for e in rejected})}), resubmitted; "
+        f"every survivor == the fault-free digest, every future settled, "
+        f"every lane back, 1 supervised restart")
+
+    # 5. checkpoint after 2 windows on each session, restore onto a fresh
+    # server, 1 more window == an uninterrupted server's 3rd
+    srv_u = serve_server(deps)
+    with srv_u:
+        sids = {(m, cl): srv_u.open_session(m) for m, cl, s, _ in stream
+                if s}
+        uninterrupted = session_rounds(srv_u, sids, stream, range(3))
+    state_u = {m: d.lane_state() for m, d in deps.items()}
+    srv_a = serve_server(refs)
+    with tempfile.TemporaryDirectory() as tmp:
+        with srv_a:
+            sids_a = {(m, cl): srv_a.open_session(m)
+                      for m, cl, s, _ in stream if s}
+            first = session_rounds(srv_a, sids_a, stream, range(2))
+        srv_a.checkpoint(Path(tmp) / "serve")
+        saved = {m: d.lane_state() for m, d in refs.items()}
+        srv_b = serve_server(deps)
+        srv_b.restore(Path(tmp) / "serve")
+    restored = {m: d.lane_state() for m, d in deps.items()}
+    need(all(restored[m]["keys"].dtype == np.uint32
+             and np.array_equal(restored[m]["keys"], saved[m]["keys"])
+             and np.array_equal(restored[m]["V"], saved[m]["V"])
+             for m in deps), "restore did not bring back the lane state")
+    with srv_b:
+        last = session_rounds(srv_b, sids, stream, [2])
+    need(sids_a == sids
+         and first == {k: v for k, v in uninterrupted.items() if k[2] < 2}
+         and last == {k: v for k, v in uninterrupted.items() if k[2] == 2}
+         and all(np.array_equal(d.lane_state()[f], state_u[m][f])
+                 for m, d in deps.items() for f in ("V", "keys")),
+         "the restored sessions did not resume bit-exact")
+    log(f"[serve checkpoint] {len(sids)} sessions: 2 windows, checkpoint, "
+        f"restore onto a fresh server, 1 window == 3 uninterrupted windows "
+        f"(digests, V and uint32 keys)")
+
+    # 6. the mlp stream's first 4 requests on a CPU-port server
+    cpu = SpikeServer(max_batch=SERVE[0], max_wait_ms=SERVE[1])
+    cpu.add_model("mlp", sim_compiled, window=SERVE[2],
+                  n_sessions=n_lanes["mlp"], seed=seed, device="cpu")
+    mlp_first = [(cl, sess, ws[0]) for m, cl, sess, ws in stream
+                 if m == "mlp"][:4]
+    with cpu:
+        csids = {cl: cpu.open_session("mlp") for cl, s, _ in mlp_first if s}
+        fs = {cl: cpu.submit("mlp", w, session=csids.get(cl),
+                             seed=scratch_seed(cl, 0))
+              for cl, _, w in mlp_first}
+        on_cpu = {}
+        for cl, f in fs.items():
+            res = f.result(timeout=600)
+            on_cpu[("mlp", cl, 0)] = result_digest(res.spikes, res.membrane)
+    need(on_cpu == {k: got[k] for k in on_cpu},
+         "the CPU-port server's digests differ from the card's")
+    log(f"[serve cpu] the mlp stream's first {len(on_cpu)} requests: "
+        f"card == CPU port (digests)")
+
+    # 7. the numbers
+    log(f"[serve] {n_req} requests in {wall:.3f} s = {n_req / wall:.1f} "
+        f"req/s; p50 {stats['p50_ms']:.3f} ms, p99 {stats['p99_ms']:.3f} "
+        f"ms, mean batch {stats['mean_batch_size']:.2f} (window "
+        f"{SERVE[2]}, max_batch {SERVE[0]}, max_wait {SERVE[1]} ms) on "
+        f"{card}")
+    for m in deps:
+        # one entry a batch: its dispatch_ms and its assembly-to-answer ms
+        by_bucket = {}
+        for r in results.values():
+            if r.model == m:
+                by_bucket.setdefault(r.bucket, {})[r.dispatch_ms] = \
+                    r.latency_ms - r.queue_wait_ms
+        B = max(by_bucket, key=lambda b: (len(by_bucket[b]), b))
+        disp = float(np.median(list(by_bucket[B])))
+        service = float(np.median(list(by_bucket[B].values())))
+        # bare: from V = 0 (scratch lanes), and on the reference's
+        # session lanes, charged by the windows they already ran as the
+        # served sessions' were (median of 5 after one each)
+        own = list(range(min(B, n_lanes[m]))) + [-1] * (B - n_lanes[m])
+        bare0, bare = (float(np.median([batch_ms(refs[m], ln,
+                                                 windows_of[m])
+                                        for _ in range(6)][1:]))
+                       for ln in ([-1] * B, own))
+        log(f"[serve dispatch {m}] B={B}: {len(by_bucket[B])} batches, "
+            f"dispatch_ms {sorted(round(x, 3) for x in by_bucket[B])} "
+            f"(median {disp:.3f}), batch assembly to answer median "
+            f"{service:.3f} ms; bare run_lanes at B={B}, T={SERVE[2]} "
+            f"(host clock) {bare0:.3f} ms from V = 0, {bare:.3f} ms on "
+            f"charged session lanes: dispatch - bare {disp - bare:.3f} ms, "
+            f"the server's own cost {service - bare:.3f} ms a batch on "
+            f"{card}")
+    if profile:
+        srv_p = serve_server(deps)
+        with srv_p:
+            def one_batch():
+                fs = [srv_p.submit("core", w, seed=i)
+                      for i, w in enumerate(windows_of["core"][:SERVE[0]])]
+                for f in fs:
+                    f.result(timeout=600)
+            one_batch()
+            profile_window(f"[profile serve core B={SERVE[0]}] one served "
+                           f"batch", one_batch, SERVE[2])
+    log(f"[serve launches] lif_step {counts['lif_step']}, route_lif "
+        f"{counts['route_lif']}, spike_matmul {counts['spike_matmul']}, "
+        f"split_randint {counts['split_randint']} over {batches} batches of "
+        f"{SERVE[2]} steps; phase {time.perf_counter() - t_phase:.1f} s")
+    steps = {m: SERVE[2] * n for m, n in batches.items()}
+    need(counts["split_randint"] == steps["core"] + steps["mlp"]
+         and counts["route_lif"] == steps["core"]
+         and counts["spike_matmul"] == counts["lif_step"] == steps["mlp"],
+         f"the served path's launches are not one a step: {counts}, "
+         f"steps {steps}")
+    return counts
+
+
 def same(a: dict, b: dict) -> bool:
     def eq(x, y):
         if isinstance(x, dict):
@@ -1905,7 +2255,10 @@ def main(argv=None) -> int:
     log(f"[cpu] card == CPU port on the simulator's first window "
         f"({int(got[0]['spikes'].sum())} spikes)")
 
-    # ---- 11. the LM slice: 2 layers at full width, card vs CPU
+    # ---- 11. the LM slice: 2 layers at full width, card vs CPU (no
+    # other thread of this script may run beside its CPU reference)
+    need(threading.active_count() == 1,
+         f"threads alive before phase 11: {threading.enumerate()}")
     lm_par = phase_lm_parity(dev, args.seed)
 
     # ---- 14. training, 2 layers at full width, card vs CPU
@@ -1975,6 +2328,15 @@ def main(argv=None) -> int:
     train_ms = float(np.median(tr["ms"][1:]))
     train_tok = LM_TRAIN[0] * LM_TRAIN[1] / (train_ms / 1e3)
     torch.cuda.empty_cache()
+
+    # ---- 17. the serving tier at full width: the core (fused engine) and
+    # the MLP (simulator) resident in one SpikeServer; every server shut
+    # down and every thread joined when it returns
+    by_path["serve core fused + mlp simulator"] = phase_serve(
+        compiled, sim_compiled, args.seed, zero_counts, read_counts, card,
+        args.profile)
+    need(threading.active_count() == 1,
+         f"threads alive after phase 17: {threading.enumerate()}")
 
     if args.profile:
         for fused in (False, True):

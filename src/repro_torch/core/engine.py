@@ -71,6 +71,8 @@ class EventEngine:
         self.V = torch.zeros((n_neurons,), dtype=torch.int32, device=dev)
         self.key = prng.PRNGKey(seed, device=dev)
         self.counter = AccessCounter()
+        # distinct (B, T) shapes run_lanes has run (analysis.retrace)
+        self.lane_shapes = set()
         self.vectorized = vectorized
         self.fused = fused
         self._spikes = np.zeros((n_neurons,), bool)
@@ -274,6 +276,7 @@ class EventEngine:
         numpy); the engine's own sequential state is untouched. Lane b is
         bit-identical to running it alone — every op is elementwise in
         the lane axis."""
+        self.lane_shapes.add(tuple(counts.shape[:2]))
         V0 = torch.as_tensor(np.asarray(V0, np.int32), device=self.device)
         keys = prng.from_host(keys, self.device)
         V, keys, spikes = self._dispatch(V0, keys, counts)
