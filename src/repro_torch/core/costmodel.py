@@ -46,6 +46,11 @@ class AccessCounter:
     def total_accesses(self) -> int:
         return self.pointer_reads + self.row_reads
 
+    @property
+    def cross_level_events(self) -> int:
+        """Events that left their source core (NoC + FireFly + Ethernet)."""
+        return sum(self.level_events[1:])
+
     def add_level_events(self, per_level) -> None:
         for i, v in enumerate(per_level):
             self.level_events[i] += int(v)

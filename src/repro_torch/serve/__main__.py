@@ -77,8 +77,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.serve")
     ap.add_argument("--backend", default="engine",
                     choices=["simulator", "engine", "hiaer", "mesh"],
-                    help="hiaer and mesh raise NotImplementedError "
-                         "(ROADMAP items 6 and 7)")
+                    help="mesh raises NotImplementedError (ROADMAP "
+                         "item 7)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the model runs (cpu: the kernels' plain "
                          "versions)")

@@ -18,8 +18,10 @@ from _torch_pair import noisy_spec
 from repro.analysis.__main__ import main as j_analysis
 from repro.core.api import CRI_network as JNet
 from repro.core.compile import compile_spec as j_compile
+from repro.core.partition import Hierarchy as JHier
 from repro.core.spec import NetworkSpec as JSpec
 from repro_torch import CRI_network as TNet
+from repro_torch import Hierarchy as THier
 from repro_torch.analysis.__main__ import main as t_analysis
 from repro_torch.core.compile import CompiledNetwork as TCompiled
 from repro_torch.core.compile import compile_spec as t_compile
@@ -254,9 +256,18 @@ def test_from_compiled_jax_artifact(tmp_path):
 
 
 def test_unported_backends_name_their_roadmap_items():
-    for backend, item in (("hiaer", "item 6"), ("mesh", "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            TNet(*example_dicts(tn), backend=backend, device="cpu")
+    """mesh still names its ROADMAP item; hiaer (item 6) is ported and
+    answers the A.1 example like the JAX hiaer backend."""
+    with pytest.raises(NotImplementedError, match="item 7"):
+        TNet(*example_dicts(tn), backend="mesh", device="cpu")
+    hier = dict(hierarchy=THier(1, 1, 2, 3))
+    net = TNet(*example_dicts(tn), backend="hiaer", device="cpu", **hier)
+    ref = JNet(*example_dicts(jn), backend="hiaer",
+               hierarchy=JHier(1, 1, 2, 3))
+    for inputs in (["alpha", "beta"], ["alpha"], []):
+        assert net.step(inputs, membranePotential=True) == \
+            ref.step(inputs, membranePotential=True)
+    assert net.counter.as_dict() == ref.counter.as_dict()
 
 
 @pytest.mark.parametrize("target", ["simulator", "engine"])

@@ -40,6 +40,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert len(names) >= 30
+    assert {"repro_torch.core.hiaer", "repro_torch.kernels.exchange"} \
+        <= set(names)
 
 
 def test_no_source_imports_jax_or_repro():
@@ -72,6 +74,18 @@ def test_deploy_defaults_to_the_card():
         with pytest.raises(RuntimeError, match='device="cpu"'):
             deploy(c)
     dep = deploy(c, device="cpu")
+    dep.step([0, 0])
+    assert dep.read_membrane([0]) == [14]
+    # the hiaer target's deployment, and its tables, follow the same rule
+    from repro_torch import Hierarchy
+    h = compile_spec(spec, target="hiaer", hierarchy=Hierarchy(1, 1, 2, 1))
+    if torch.cuda.is_available():
+        assert deploy(h).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            deploy(h)
+    dep = deploy(h, device="cpu")
+    assert dep.impl.tables.entry_w.device.type == "cpu"
     dep.step([0, 0])
     assert dep.read_membrane([0]) == [14]
 
