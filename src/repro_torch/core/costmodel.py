@@ -75,6 +75,12 @@ class AccessCounter:
         return (self.total_accesses * NS_PER_ACCESS
                 + self.timesteps * FIXED_NS) * 1e-3
 
+    def merge(self, other: "AccessCounter"):
+        self.pointer_reads += other.pointer_reads
+        self.row_reads += other.row_reads
+        self.timesteps += other.timesteps
+        self.add_level_events(other.level_events)
+
     def reset(self):
         self.pointer_reads = self.row_reads = self.timesteps = 0
         self.level_events = [0] * len(LEVEL_NAMES)

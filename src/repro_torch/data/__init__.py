@@ -1,1 +1,2 @@
-"""Data for the LM stack: the synthetic token pipeline."""
+"""Synthetic data: the Table 2 stand-ins (`digits`, `event_frames`) and
+the LM training loop's token pipeline."""

@@ -291,3 +291,46 @@ def test_analysis_cli_prints_the_same_report(tmp_path, capsys, target):
              "--max-events-per-source", "40000"], env=env,
             capture_output=True, text=True, timeout=300)
         assert (run.returncode, run.stdout) == outs[0], run.stderr
+
+
+def test_access_counter_merge_matches_jax():
+    """`AccessCounter.merge` (ROADMAP §3 gap 1) folds another counter's
+    reads, timesteps and per-level events in, as JAX's does."""
+    from repro.core.costmodel import AccessCounter as JCounter
+    from repro_torch.core.costmodel import AccessCounter as TCounter
+    sums = []
+    for Counter in (JCounter, TCounter):
+        a, b = Counter(), Counter()
+        a.tally(7, 30, [[1, 2, 3, 4]])
+        a.timesteps = 3
+        b.tally([5, 6], [[40]], [[0, 1, 0, 2], [9, 0, 0, 0]])
+        b.timesteps = 2
+        a.merge(b)
+        a.merge(Counter())
+        sums.append(a.as_dict())
+    assert sums[0] == sums[1]
+    assert sums[1]["total_accesses"] == 7 + 30 + 11 + 40
+
+
+def test_analysis_exports_the_retrace_detector_like_jax():
+    """`repro_torch.analysis` re-exports the retrace names (ROADMAP §3
+    gap 2) that `repro.analysis` exports, bound to the port's module."""
+    import repro.analysis as ja
+    import repro_torch.analysis as ta
+    from repro_torch.analysis import retrace
+    for name in ("RetraceDetector", "RetraceError", "compile_counts"):
+        assert name in ja.__all__ and name in ta.__all__
+        assert getattr(ta, name) is getattr(retrace, name)
+    assert issubclass(ta.RetraceError, RuntimeError) \
+        and issubclass(ja.RetraceError, RuntimeError)
+    dep = t_net("engine")._dep
+    dep.alloc_lanes(2)
+    det = ta.RetraceDetector.of(dep.impl)
+    window = np.ones((2, 3, 2), np.int32)
+    dep.run_lanes([0, 1], window)
+    assert ta.compile_counts(dep.impl) == {("EventEngine", "run_lanes"): 1}
+    with pytest.raises(ta.RetraceError):
+        det.assert_no_retrace()
+    det.snapshot()
+    dep.run_lanes([1, 0], window)
+    det.assert_no_retrace()

@@ -40,8 +40,10 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert len(names) >= 30
-    assert {"repro_torch.core.hiaer", "repro_torch.kernels.exchange"} \
-        <= set(names)
+    assert {"repro_torch.core.hiaer", "repro_torch.kernels.exchange",
+            "repro_torch.data.synthetic", "repro_torch.core.convert",
+            "repro_torch.core.spiking", "repro_torch.core.rl",
+            "repro_torch.core.learning"} <= set(names)
 
 
 def test_no_source_imports_jax_or_repro():
@@ -153,6 +155,42 @@ def test_training_entry_points_default_to_the_card():
             with pytest.raises(RuntimeError, match='device="cpu"'):
                 run()
     assert train.main(argv + ["--device", "cpu"]) > 0
+
+
+def test_table2_entry_points_default_to_the_card():
+    """Training and conversion (`train_qat`, `train_spiking`,
+    `train_dqn`, `to_network`, `spiking_to_network`, `params_from_jax`)
+    build on the card unless asked for the CPU."""
+    import numpy as np
+    from repro_torch.core import convert, rl, spiking
+    model = convert.QATModel((1, 4, 4), [convert.LayerSpec(
+        "dense", out_features=3)], n_classes=2)
+    smodel = spiking.SpikingModel((1, 4, 4), [convert.LayerSpec(
+        "dense", out_features=3)], n_classes=2)
+    X = np.ones((4, 1, 4, 4), np.float32)
+    y = np.zeros((4,), np.int64)
+    qp, _ = convert.quantize(model.init(torch.Generator().manual_seed(0),
+                                        device="cpu"))
+    calls = [
+        lambda: convert.train_qat(model, X, y, epochs=1, batch=4),
+        lambda: spiking.train_spiking(smodel, X[:, None], y, epochs=1,
+                                      batch=4),
+        lambda: rl.train_dqn(rl.CatchEnv(W=3, H=3), episodes=1),
+        lambda: convert.to_network(model, qp),
+        lambda: spiking.spiking_to_network(smodel, qp),
+        lambda: convert.params_from_jax([{"w": np.ones((2, 2)),
+                                          "b": np.ones(2)}])]
+    if torch.cuda.is_available():
+        net, _ = convert.to_network(model, qp)
+        assert net._dep.device.type == "cuda"
+    else:
+        for make in calls:
+            with pytest.raises(RuntimeError, match='device="cpu"'):
+                make()
+    net, keys = convert.to_network(model, qp, device="cpu")
+    assert net._dep.device.type == "cpu"
+    pred, pots = convert.infer_image(net, X[0], model, keys)
+    assert pots == convert.apply_quantized(model, qp, X[:1])[0].tolist()
 
 
 def run_smoke(cwd):
