@@ -4,9 +4,10 @@ for the serving half of the lane path.
 The port has no jit cache: `run_lanes` is a Python loop over torch ops
 and kernel launches, whatever the shape. What the JAX package counts as
 compile-cache entries is counted here as the distinct (B, T) shapes a
-backend's lane path has run (`EventEngine.lane_shapes`,
-`DenseSimulator.lane_shapes`): the number of captures a CUDA graph per
-window would need (ROADMAP queue 2, item F). The serving tier buckets
+backend's lane path has run (`lane_shapes` of `EventEngine`,
+`HiAERNetwork`, `MeshNetwork` and `DenseSimulator`): the number of
+captures a CUDA graph per window would need (ROADMAP queue 2, item F).
+The serving tier buckets
 batch shapes to powers of two, so a session stays within
 log2(max_batch) + 1 of them however client concurrency fluctuates.
 

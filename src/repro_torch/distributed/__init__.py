@@ -1,1 +1,2 @@
-"""Training-loop supervision: the step watchdog."""
+"""Training-loop supervision (the step watchdog, `elastic`) and the mesh
+tier's process groups (`mesh`)."""

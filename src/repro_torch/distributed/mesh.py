@@ -1,0 +1,175 @@
+"""The process-group side of the mesh tier: what `repro.compat.make_mesh`
+and `jax.devices()` give the JAX package.
+
+One rank per device. With no process group initialised the world is one
+rank, rank 0 of 1: the twin of JAX on a one-device host. A multi-rank
+world is started by the caller, either by `torchrun` and
+`init_process_group` (NCCL when each rank has a card of its own), or by
+`init_for_tests` / `spawn` (gloo from a `FileStore`: CPU ranks, or ranks
+that share one card, which NCCL refuses).
+
+    rank, world = mesh.world()
+    dev = mesh.rank_device(None)          # cuda:local_rank, or cuda:0
+    groups = mesh.stage_groups(stages)    # this rank's group per stage
+    y = mesh.all_gather(x, group)         # (m * x.shape[0], ...)
+
+The wire. Collectives take the tensors where they lie, on either
+backend: NCCL gathers CUDA tensors on the card, and gloo gathers and
+broadcasts CUDA tensors as well as host ones in the card machine's torch
+2.11 (PyTorch's backend table lists gloo GPU support for broadcast and
+all_reduce only; gloo's CUDA work copies through pinned host memory
+itself). A collective that fails raises; nothing is retried another
+way.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.device import resolve
+
+__all__ = ["world", "rank_device", "init_for_tests", "spawn",
+           "stage_groups", "all_gather", "broadcast"]
+
+# the groups every rank has built, keyed by their ranks: new_group is a
+# collective of the whole world, so each group is built once, by every
+# rank, in the same order
+_GROUPS: Dict[Tuple[int, ...], object] = {}
+
+
+def world() -> Tuple[int, int]:
+    """(rank, world size): (0, 1) when torch.distributed is not
+    initialised."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _local() -> Tuple[int, int]:
+    """(local rank, ranks on this host): torchrun's LOCAL_RANK and
+    LOCAL_WORLD_SIZE, else the global pair (one host)."""
+    rank, size = world()
+    return (int(os.environ.get("LOCAL_RANK", rank)),
+            int(os.environ.get("LOCAL_WORLD_SIZE", size)))
+
+
+def rank_device(device=None) -> torch.device:
+    """The rank's torch device: `device` as `device.resolve` reads it
+    (None is the card), and for a CUDA device without an index,
+    cuda:local_rank when each rank on the host has a card of its own and
+    cuda:0 when the ranks share one."""
+    dev = resolve(device)
+    if dev.type != "cuda" or dev.index is not None:
+        return dev
+    local_rank, local_size = _local()
+    own = torch.cuda.device_count() >= local_size
+    return torch.device("cuda", local_rank if own else 0)
+
+
+def init_for_tests(store_path, rank: int, world_size: int) -> None:
+    """Start a gloo world from a `FileStore` at `store_path` (never a TCP
+    port: test workers run side by side). Every rank passes the same
+    path; the file must not hold an earlier world's store. A collective
+    that waits 300 s for a peer raises."""
+    store = dist.FileStore(str(store_path), world_size)
+    dist.init_process_group(
+        "gloo", store=store, rank=rank, world_size=world_size,
+        timeout=datetime.timedelta(seconds=300))
+
+
+def _rank_entry(rank: int, fn, world_size: int, store_path, args) -> None:
+    init_for_tests(store_path, rank, world_size)
+    try:
+        fn(rank, world_size, *args)
+    finally:
+        _GROUPS.clear()
+        dist.destroy_process_group()
+
+
+def spawn(fn, world_size: int, store_path, args: Sequence = (),
+          timeout_s: float = 600.0) -> None:
+    """Run `fn(rank, world_size, *args)` in `world_size` spawned
+    processes over one gloo world (`init_for_tests` at `store_path`).
+    `fn` must be importable by the children (a module-level function).
+    Returns when every rank has returned; raises when one raised (the
+    others are terminated) or when `timeout_s` passes first."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(_rank_entry, nprocs=world_size, join=False,
+                             args=(fn, world_size, str(store_path),
+                                   tuple(args)),
+                             start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+            for p in ctx.processes:
+                p.join()
+            raise TimeoutError(f"{world_size} ranks did not finish in "
+                               f"{timeout_s:.0f} s")
+
+
+def stage_groups(stages: List[List[List[int]]]) -> List[Optional[object]]:
+    """One process group for every group of every stage of an
+    `exchange.collective_stages` plan, built by every rank in plan order
+    (members or not) and cached; returns this rank's group at each stage
+    (None where the rank is in none, as ranks past the plan's devices
+    are). The gather concatenates in the group's rank order, which
+    new_group sorts: the plan's groups must be ascending."""
+    rank, _ = world()
+    mine: List[Optional[object]] = []
+    for groups in stages:
+        own = None
+        for g in groups:
+            if list(g) != sorted(g):
+                raise ValueError(f"stage group {g} is not ascending: the "
+                                 f"gather would reorder its blocks")
+            key = tuple(int(r) for r in g)
+            if key not in _GROUPS:
+                _GROUPS[key] = dist.new_group(list(key))
+            if rank in key:
+                own = _GROUPS[key]
+                got = dist.get_process_group_ranks(own)
+                if list(got) != list(key):
+                    raise RuntimeError(f"group {key} gathers in rank order "
+                                       f"{got}")
+        mine.append(own)
+    return mine
+
+
+def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every member's `x` concatenated along dim 0 in the group's rank
+    order: (m * x.shape[0],) + x.shape[1:], on x's device."""
+    m = dist.get_world_size(group)
+    x = x.contiguous()
+    out = torch.empty((m * x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out
+
+
+def broadcast(tensors: Sequence[torch.Tensor], src: int = 0,
+              group=None) -> List[torch.Tensor]:
+    """`src`'s tensors on every rank, as ONE broadcast of their bytes;
+    the other ranks pass tensors of the same shapes and dtypes to be
+    filled. Returns new tensors on each input's device. Each tensor's
+    bytes start on an 8-byte boundary, so every slice views back as its
+    dtype."""
+    flat = []
+    for t in tensors:
+        b = t.contiguous().view(-1).view(torch.uint8)
+        flat += [b, b.new_zeros(-b.numel() % 8)]
+    buf = torch.cat(flat)
+    dist.broadcast(buf, src, group=group)
+    out, o = [], 0
+    for t in tensors:
+        n = t.numel() * t.element_size()
+        out.append(buf[o:o + n].view(t.dtype).view(t.shape))
+        o += n + (-n % 8)
+    return out

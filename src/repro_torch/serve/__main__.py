@@ -77,8 +77,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.serve")
     ap.add_argument("--backend", default="engine",
                     choices=["simulator", "engine", "hiaer", "mesh"],
-                    help="mesh raises NotImplementedError (ROADMAP "
-                         "item 7)")
+                    help="mesh runs at world size 1: one rank holds "
+                         "the network's one core")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the model runs (cpu: the kernels' plain "
                          "versions)")

@@ -296,6 +296,14 @@ class SpikeServer:
                 raise TypeError("add_model needs compiled= or "
                                 "deployment=")
             deployment = deploy(compiled, seed=seed, **deploy_kw)
+        ranks = getattr(deployment.impl, "world_size", 1)
+        if ranks > 1:
+            # micro-batches form on each rank's clock, so the ranks would
+            # batch differently: serving needs one leader's dispatches
+            raise NotImplementedError(
+                f"serving a mesh deployment that spans {ranks} ranks needs "
+                f"a rank-0 leader that broadcasts each dispatch: ROADMAP "
+                f"item 7b; serve it at world size 1")
         deployment.alloc_lanes(n_sessions)
         m = ResidentModel(name=name, dep=deployment, window=int(window),
                           sessions=SessionStore(n_sessions))

@@ -256,18 +256,18 @@ def test_from_compiled_jax_artifact(tmp_path):
 
 
 def test_unported_backends_name_their_roadmap_items():
-    """mesh still names its ROADMAP item; hiaer (item 6) is ported and
-    answers the A.1 example like the JAX hiaer backend."""
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TNet(*example_dicts(tn), backend="mesh", device="cpu")
+    """The hiaer (item 6) and mesh (item 7) backends are ported: each
+    answers the A.1 example like the JAX backend of the same name."""
     hier = dict(hierarchy=THier(1, 1, 2, 3))
-    net = TNet(*example_dicts(tn), backend="hiaer", device="cpu", **hier)
-    ref = JNet(*example_dicts(jn), backend="hiaer",
-               hierarchy=JHier(1, 1, 2, 3))
-    for inputs in (["alpha", "beta"], ["alpha"], []):
-        assert net.step(inputs, membranePotential=True) == \
-            ref.step(inputs, membranePotential=True)
-    assert net.counter.as_dict() == ref.counter.as_dict()
+    for backend in ("hiaer", "mesh"):
+        net = TNet(*example_dicts(tn), backend=backend, device="cpu",
+                   **hier)
+        ref = JNet(*example_dicts(jn), backend=backend,
+                   hierarchy=JHier(1, 1, 2, 3))
+        for inputs in (["alpha", "beta"], ["alpha"], []):
+            assert net.step(inputs, membranePotential=True) == \
+                ref.step(inputs, membranePotential=True)
+        assert net.counter.as_dict() == ref.counter.as_dict()
 
 
 @pytest.mark.parametrize("target", ["simulator", "engine"])

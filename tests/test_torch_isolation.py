@@ -43,7 +43,9 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert {"repro_torch.core.hiaer", "repro_torch.kernels.exchange",
             "repro_torch.data.synthetic", "repro_torch.core.convert",
             "repro_torch.core.spiking", "repro_torch.core.rl",
-            "repro_torch.core.learning"} <= set(names)
+            "repro_torch.core.learning", "repro_torch.core.mesh_runtime",
+            "repro_torch.core.distributed_engine",
+            "repro_torch.distributed.mesh"} <= set(names)
 
 
 def test_no_source_imports_jax_or_repro():
@@ -191,6 +193,35 @@ def test_table2_entry_points_default_to_the_card():
     assert net._dep.device.type == "cpu"
     pred, pots = convert.infer_image(net, X[0], model, keys)
     assert pots == convert.apply_quantized(model, qp, X[:1])[0].tolist()
+
+
+def test_mesh_entry_points_default_to_the_card():
+    """The mesh target's deployment, the facade's mesh backend and the
+    rank's device resolve to the card unless asked for the CPU."""
+    from repro_torch import CRI_network, Hierarchy, LIF_neuron, NetworkSpec
+    from repro_torch import compile_spec, deploy
+    from repro_torch.distributed import mesh
+    spec = NetworkSpec()
+    ax = spec.add_axons(1)
+    spec.add_neurons(2, LIF_neuron(threshold=5))
+    spec.connect(ax, [0], [7])
+    spec.set_outputs([0])
+    kw = dict(hierarchy=Hierarchy(1, 1, 2, 1))
+    c = compile_spec(spec, target="mesh", **kw)
+    calls = [lambda: deploy(c),
+             lambda: CRI_network.from_spec(spec, backend="mesh", **kw)]
+    if torch.cuda.is_available():
+        assert mesh.rank_device(None).type == "cuda"
+        assert deploy(c).device.type == "cuda"
+    else:
+        for make in calls + [lambda: mesh.rank_device(None)]:
+            with pytest.raises(RuntimeError, match='device="cpu"'):
+                make()
+    assert mesh.rank_device("cpu").type == "cpu"
+    dep = deploy(c, device="cpu")
+    assert dep.impl.tables.entry_w.device.type == "cpu"
+    dep.step([0, 0])
+    assert dep.read_membrane([0, 1]) == [14, 0]
 
 
 def run_smoke(cwd):

@@ -281,7 +281,7 @@ def test_add_model_deploys_on_the_card_by_default():
 def test_retrace_detector_finds_lane_paths():
     with pytest.raises(ValueError, match="no lane-path"):
         RetraceDetector.of(object())
-    for backend in ("engine", "simulator"):
+    for backend in ("engine", "simulator", "hiaer", "mesh"):
         dep = deploy(small_pair(backend)[1], device="cpu")
         assert compile_counts(dep.impl) == {
             (type(dep.impl).__name__, "run_lanes"): 0}
