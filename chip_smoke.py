@@ -211,9 +211,37 @@ raises and the script exits non-zero:
      (160 M / 256, the dense bool wire) and 625,024 (the packed wire):
      10 steps with every rank's V and spikes equal to its plain step over
      the gathered spikes, spike_matmul and lif_step once a step, then 10
-     timed steps. A rank that fails fails the phase. Times of ranks that
+     timed steps. Then (phase 21(c)) the same ranks serve the artifact
+     at n_devices 8: rank 0 leads a `SpikeServer` behind an in-process
+     `Portal`, every other rank deploys it and replays rank 0's calls
+     (`serve.replica.serve_follower`); 4 sessions x 4 windows and 2
+     scratch requests a round over HTTP, phase 18's 1,000 writes as one
+     /reconfigure after round 2; every answer == a world-size-1 mesh
+     server given the same stream in this process before the spawn,
+     every rank's lane state and weights == rank 0's after shutdown,
+     split_randint and lif_step once a step of every served batch on
+     every rank. A rank that fails fails the phase. Times of ranks that
      share one card over gloo are the wire's correctness numbers, not
      multi-GPU numbers;
+ 21. the web portal on the card: one `SpikeServer` with phase 17's two
+     models (the core on the fused engine, the MLP on the simulator)
+     serves phase 17's stream three times on one server: in-process
+     submits, then behind `Portal(workers=0)` and `Portal(workers=2)`
+     (bridged front-end processes): 8 HTTP client threads (core: 2
+     session and 2 scratch clients, MLP: 2 and 2) x 4 windows, 2
+     websocket sessions on the core x 4 pipelined windows, one
+     /reconfigure barrier (64 core synapses) after window 1; every
+     answer of the two portals == in-process submit's on the same
+     server, /healthz 200 and /metrics counting the POSTs, no lane shape
+     past the warmed pow2 buckets, the MLP's first 4 requests == a
+     CPU-port server, the kernels once a step of every served batch;
+     HTTP req/s, p50/p99 ms and their ratio to in-process submit
+     printed, not gated. Then at once, as subprocesses on the card:
+     `python -m repro_torch.faults portal-smoke --device cuda --workers
+     2` with worker_exit@3 (exit 0), `python -m repro_torch.portal
+     --workers 2` (one answer == the CPU port's, then SIGINT: drained,
+     exit 0) and `examples/torch_serve_snn.py --portal --portal-workers
+     2` (== its CPU in-process run). No thread is alive after it;
   6. timing: each kernel's median time against its plain version and
      its bound (lif_step at the core's and the MLP's shapes;
      split_randint against its int32 operations at 132 x 64 lanes a
@@ -2729,6 +2757,181 @@ POD_STEPS = 10
 POD_WINDOW_BLOCKS = 4         # x 128 = the 512-wide presynaptic window
 
 
+MESH_SERVE = (4, 2, 4)        # phase 21(c): sessions, scratch requests a
+#                               round, rounds (phase 18's writes after 2)
+
+
+def mesh_serve_rounds(srv, port, windows, edit) -> tuple:
+    """Phase 21(c)'s stream on the "core" model of `srv`: MESH_SERVE[0]
+    sessions and MESH_SERVE[1] scratch requests (seed 100 r + k) a
+    round, at once, for MESH_SERVE[2] rounds on `windows[r][k]`; `edit`
+    (phase 18's writes) as one reconfigure before round 2. In-process
+    submits when `port` is None, else HTTP to the portal at `port`.
+    Returns ({"r k": digest}, wall seconds, timing); the sessions are
+    closed. `timing` holds each answer's [queue wait, dispatch, client
+    side] ms under "r k", and the ms of the reconfigure and of each
+    session close."""
+    from repro_torch.portal.gateway import result_digest
+    n_s, n_x, n_r = MESH_SERVE
+    if port is None:
+        sids = [srv.open_session("core") for _ in range(n_s)]
+    else:
+        sids = [http_json(port, "POST", "/v1/core/session")[1]["session"]
+                for _ in range(n_s)]
+    got, errors, timing = {}, [], {"close_ms": []}
+
+    def one(r, k):
+        try:
+            w = windows[r][k]
+            sid = sids[k] if k < n_s else None
+            if port is None:
+                res = srv.submit("core", w, session=sid,
+                                 seed=100 * r + k).result(timeout=600)
+                got[f"{r} {k}"] = result_digest(res.spikes, res.membrane)
+                timing[f"{r} {k}"] = [res.queue_wait_ms, res.dispatch_ms,
+                                      res.latency_ms]
+                return
+            body = {"counts": w.tolist()}
+            body.update({"session": sid} if sid is not None
+                        else {"seed": 100 * r + k})
+            status, out, ms = http_json(port, "POST", "/v1/core/run", body)
+            need(status == 200, f"mesh portal request {r} {k}: {status} "
+                                f"{str(out)[:300]}")
+            got[f"{r} {k}"] = out["digest"]
+            timing[f"{r} {k}"] = [out["queue_wait_ms"], out["dispatch_ms"],
+                                  ms]
+        except BaseException as e:       # noqa: BLE001 — raised below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    for r in range(n_r):
+        if r == 2:
+            t1 = time.perf_counter()
+            if port is None:
+                srv.reconfigure("core", edit["pre"], edit["post"],
+                                edit["weight"]).result(timeout=600)
+            else:
+                status, out, _ = http_json(port, "POST",
+                                           "/v1/core/reconfigure", edit)
+                need(status == 200, f"mesh /reconfigure: {status} {out}")
+            timing["reconfigure_ms"] = 1e3 * (time.perf_counter() - t1)
+        threads = [threading.Thread(target=one, args=(r, k))
+                   for k in range(n_s + n_x)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        need(not any(t.is_alive() for t in threads),
+             "a mesh portal client never returned")
+        if errors:
+            raise errors[0]
+    wall = time.perf_counter() - t0
+    for sid in sids:
+        t1 = time.perf_counter()
+        if port is None:
+            srv.close_session("core", sid)
+        else:
+            need(http_json(port, "DELETE", f"/v1/core/session/{sid}")[0]
+                 == 200, f"closing mesh session {sid}")
+        timing["close_ms"].append(1e3 * (time.perf_counter() - t1))
+    return got, wall, timing
+
+
+def split_ms(timing: dict) -> str:
+    """`mesh_serve_rounds`' timing as text: each round's largest queue
+    wait, dispatch and client-side ms, then p50 / p99 / max of each over
+    every answer, the reconfigure's ms and the largest session close."""
+    req = {k: v for k, v in timing.items() if k[0].isdigit()}
+    rounds = sorted({int(k.split()[0]) for k in req})
+    per = "; ".join(
+        f"round {r} max " + "/".join(
+            f"{max(v[i] for k, v in req.items() if int(k.split()[0]) == r):.1f}"
+            for i in range(3)) for r in rounds)
+    out = []
+    for i, what in enumerate(("queue wait", "dispatch", "client")):
+        xs = [v[i] for v in req.values()]
+        p = np.percentile(xs, [50, 99])
+        out.append(f"{what} p50 {p[0]:.3f}, p99 {p[1]:.3f}, max "
+                   f"{max(xs):.3f}")
+    return (f"{len(req)} answers, ms (queue wait/dispatch/client) {per}; "
+            + "; ".join(out) + f"; reconfigure "
+            f"{timing.get('reconfigure_ms', 0.0):.3f}, largest session "
+            f"close {max(timing['close_ms']):.3f}")
+
+
+def time_calls(dep, calls: list) -> None:
+    """Make each `run_lanes` and `write_synapses` of `dep` append [op,
+    ms, ms inside the mesh tier's collectives] to `calls` (the rest is
+    the rank's own host and device work). The rank process ends after
+    phase 21(c), so the module's collectives stay wrapped."""
+    from repro_torch.distributed import mesh as mesh_mod
+    inside = [0.0]
+    for name in ("all_gather", "broadcast"):
+        def coll(*a, _real=getattr(mesh_mod, name), **kw):
+            t = time.perf_counter()
+            try:
+                return _real(*a, **kw)
+            finally:
+                inside[0] += time.perf_counter() - t
+        setattr(mesh_mod, name, coll)
+    for op in ("run_lanes", "write_synapses"):
+        def call(*a, _real=getattr(dep, op), _op=op, **kw):
+            t, c0 = time.perf_counter(), inside[0]
+            try:
+                return _real(*a, **kw)
+            finally:
+                calls.append([_op, 1e3 * (time.perf_counter() - t),
+                              1e3 * (inside[0] - c0)])
+        setattr(dep, op, call)
+
+
+def mesh_serve_rank(rank: int, c, seed: int, ref, work, zero_counts,
+                    read_counts) -> dict:
+    """Phase 21(c) on one of the ranks: rank 0 leads a SpikeServer over
+    the mesh artifact (n_devices MESH_RANKS, packed) behind an in-process
+    Portal and serves `mesh_serve_rounds` over HTTP; every other rank
+    deploys the same artifact and replays rank 0's calls until its
+    shutdown. Each rank saves its lane state and weights for the parent
+    to compare; returns its numbers."""
+    from repro_torch import deploy
+    from repro_torch.portal import Portal
+    from repro_torch.serve import SpikeServer, serve_follower
+    edit = json.loads(str(ref["serve_edit"]))
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    calls = []
+    if rank:
+        dep = deploy(c, seed=seed, n_devices=MESH_RANKS)
+        time_calls(dep, calls)
+        out = {"replayed": serve_follower(dep)}
+    else:
+        srv = SpikeServer(max_batch=SERVE[0], max_wait_ms=SERVE[1])
+        srv.add_model("core", c, window=SERVE[2], n_sessions=MESH_SERVE[0],
+                      seed=seed, n_devices=MESH_RANKS)
+        dep = srv.models["core"].dep
+        need(dep.impl.world_size == MESH_RANKS and dep.device.type == "cuda",
+             "the mesh server is not on every rank's card")
+        time_calls(dep._dep, calls)
+        with srv, Portal(srv, port=0) as portal:
+            got, wall, timing = mesh_serve_rounds(
+                srv, portal.port, ref["windows"], edit)
+        st = srv.stats()
+        out = {"digests": got, "wall": wall, "timing": timing,
+               "batches": srv.models["core"].batches,
+               "records": srv._leader.records,
+               "p50_ms": st["p50_ms"], "p99_ms": st["p99_ms"],
+               "mean_batch": st["mean_batch_size"]}
+    torch.cuda.synchronize()
+    out["launches"] = read_counts()
+    out["s"] = time.perf_counter() - t0
+    out["calls"] = calls
+    lanes = dep.lane_state()
+    np.savez(work / f"serve_lanes{rank}.npz", V=lanes["V"],
+             keys=lanes["keys"], syn_weight=c.syn_weight)
+    return out
+
+
 def mesh_outputs(d, res, ref, more: bool) -> dict:
     """The keys phase 20 holds to world size 1, from `lane_windows`'
     results on deployment d and the reference sequence `ref`: the
@@ -2885,6 +3088,9 @@ def mesh_rank(rank: int, world: int, work: str, seed: int) -> None:
             "weight_bytes": weights.numel() * weights.element_size()}
         del weights, state, step
         torch.cuda.empty_cache()
+    # phase 21(c): the same ranks serve the mesh artifact, rank 0 leading
+    report["serve"] = mesh_serve_rank(rank, c, seed, ref, work, zero_counts,
+                                      read_counts)
     with open(work / f"rank{rank}.json", "w") as fh:
         json.dump(report, fh)
 
@@ -3041,6 +3247,22 @@ def phase_mesh(ctx, compiled, seed: int, zero_counts, read_counts,
             hc.neuron_core[post] // cpd).size)
     ref.update({k: v for k, v in ws1[True].items()
                 if k not in ("us", "rebuilt")})
+    # phase 21(c)'s reference: its stream on a world-size-1 mesh server
+    from repro_torch.serve import SpikeServer
+    edit = {"pre": pre.tolist(), "post": post.tolist(),
+            "weight": w.tolist()}
+    ref["serve_edit"] = json.dumps(edit)
+    srv1 = SpikeServer(max_batch=SERVE[0], max_wait_ms=SERVE[1])
+    srv1.add_model("core", mc, window=SERVE[2], n_sessions=MESH_SERVE[0],
+                   seed=seed, n_devices=1)
+    with srv1:
+        serve_want, wall1, timing1 = mesh_serve_rounds(
+            srv1, None, ref["windows"], edit)
+    st1 = srv1.stats()
+    srv1.models["core"].dep.load_weights(w0)
+    need(np.array_equal(mc.syn_weight, w0),
+         "phase 21(c)'s world-size-1 server left the weights changed")
+    del srv1
     with tempfile.TemporaryDirectory() as tmp:
         work = Path(tmp)
         t0 = time.perf_counter()
@@ -3056,6 +3278,10 @@ def phase_mesh(ctx, compiled, seed: int, zero_counts, read_counts,
         work_bytes = (work / "mesh.npz").stat().st_size
         windows = {n: np.load(work / f"pod_window_{n}.npy")
                    for n in POD_NLOC}
+        served = []
+        for r in range(MESH_RANKS):
+            with np.load(work / f"serve_lanes{r}.npz") as z:
+                served.append({k: z[k] for k in z.files})
     need(all(reports[0]["pod"][str(n)]["lin"] == 0 for n in POD_NLOC),
          "rank 0 is not shard 0 of the pod mesh")
     log(f"[mesh ranks] {MESH_RANKS} gloo ranks on {reports[0]['device']} "
@@ -3099,8 +3325,463 @@ def phase_mesh(ctx, compiled, seed: int, zero_counts, read_counts,
             f" a rank {[r['max_memory_allocated'] for r in rs]} on {card}")
         launches[f"pod step {MESH_RANKS} ranks n_loc={n_loc}"] = {
             k: sum(r["launches"][k] for r in rs) for k in rs[0]["launches"]}
+    sv = [r["serve"] for r in reports]
+    need(sv[0]["digests"] == serve_want,
+         "phase 21(c): the 8-rank server's answers != world size 1's")
+    need(all(same(x, served[0]) for x in served[1:]),
+         "phase 21(c): a follower's lanes or weights != the leader's")
+    steps = SERVE[2] * sv[0]["batches"]
+    need(all(x["launches"]["split_randint"] == x["launches"]["lif_step"]
+             == steps and x["launches"]["route_lif"]
+             == x["launches"]["spike_matmul"] == 0 for x in sv),
+         f"phase 21(c): launches a rank {[x['launches'] for x in sv]}, "
+         f"{steps} steps served")
+    need(all(x["replayed"] == sv[1]["replayed"] > 0 for x in sv[1:]),
+         f"phase 21(c): replayed calls {[x.get('replayed') for x in sv]}")
+    n_ans = len(serve_want)
+    log(f"[mesh serve] {MESH_RANKS} ranks, n_devices {MESH_RANKS} packed: "
+        f"rank 0 leads a SpikeServer behind Portal(workers=0), the other "
+        f"ranks replay its calls ({sv[0]['records']} records; "
+        f"{sv[1]['replayed']} calls each); {MESH_SERVE[0]} sessions x "
+        f"{MESH_SERVE[2]} windows + {MESH_SERVE[1]} scratch a round, "
+        f"phase 18's {len(edit['pre'])} writes as one /reconfigure: "
+        f"{n_ans} HTTP answers == the world-size-1 mesh server's "
+        f"(in-process), every rank's lane state and weights == rank 0's; "
+        f"{n_ans} answers in {sv[0]['wall']:.3f} s = "
+        f"{n_ans / sv[0]['wall']:.1f} req/s, server p50 "
+        f"{sv[0]['p50_ms']:.3f} ms, p99 {sv[0]['p99_ms']:.3f} ms, mean "
+        f"batch {sv[0]['mean_batch']:.2f} ({sv[0]['batches']} batches); "
+        f"world size 1 in-process {wall1:.3f} s = {n_ans / wall1:.1f} "
+        f"req/s, p50 {st1['p50_ms']:.3f} ms; the serving part "
+        f"{[round(x['s'], 1) for x in sv]} s a rank on {card}")
+    for name, tm in (("8 ranks behind the portal", sv[0]["timing"]),
+                     ("world size 1 in-process", timing1)):
+        log(f"[mesh serve breakdown] {name}: {split_ms(tm)} on {card}")
+    # each replicated call on every rank: its ms, and the ms outside the
+    # collectives (the rank's own work); the slowest rank's own work
+    # bounds what every rank waits for
+    need(len({len(x["calls"]) for x in sv}) == 1
+         and all(x["calls"][i][0] == sv[0]["calls"][i][0] for x in sv
+                 for i in range(len(sv[0]["calls"]))),
+         "phase 21(c): the ranks' replicated calls differ")
+    per = []
+    for i, (op, _, _) in enumerate(sv[0]["calls"]):
+        own = [x["calls"][i][1] - x["calls"][i][2] for x in sv]
+        slow = int(np.argmax(own))
+        per.append(f"{i} {op} {sv[0]['calls'][i][1]:.1f} (own work max "
+                   f"{own[slow]:.1f} on rank {slow}, min {min(own):.1f})")
+    log(f"[mesh serve calls] ms of each replicated call on rank 0 and "
+        f"the largest / smallest own work (outside the collectives) over "
+        f"the ranks: {'; '.join(per)} on {card}")
+    launches[f"mesh {MESH_RANKS} ranks serve (portal)"] = {
+        k: sum(x["launches"][k] for x in sv) for k in sv[0]["launches"]}
     log(f"[mesh phase] wall {time.perf_counter() - t_phase:.1f} s on {card}")
     return launches, windows
+
+
+# ------------------------------------------------ phase 21: the portal
+# phase 17's stream clients sent over HTTP (model, clients) and over
+# websockets; the windows before and after the /reconfigure barrier
+PORTAL_HTTP = (("core", (0, 3, 8, 9)), ("mlp", (0, 1, 2, 3)))
+PORTAL_WS = ("core", (1, 2))
+PORTAL_STAGES = ((0, 1), (2, 3))
+PORTAL_WRITES = 64            # core synapses the barrier rewrites
+PORTAL_WORKERS = (0, 2)       # Portal(workers=...) of the two HTTP passes
+SMOKE_TIMEOUT = 300           # seconds for each subprocess of phase 21(b)
+
+
+def http_json(port: int, method: str, path: str, body=None):
+    """One HTTP request to a portal on localhost: (status, JSON body,
+    client-side ms); the socket times out after 600 s."""
+    import http.client
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request(method, path, None if body is None else json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = resp.read().decode("utf-8")
+    conn.close()
+    ms = 1e3 * (time.perf_counter() - t0)
+    if resp.getheader("Content-Type", "").startswith("text/plain"):
+        return resp.status, data, ms
+    return resp.status, json.loads(data), ms
+
+
+def portal_pass(srv, port, stream, edit, undo) -> tuple:
+    """Phase 21's stream on `srv`: in-process submits when `port` is None,
+    else HTTP to the portal at `port` and websockets for PORTAL_WS.
+    Every session lane of each model is opened (the websocket clients'
+    first, then the HTTP clients', then idle ones) and closed again in
+    that order, so every pass on one server gives each client the same
+    lane; the stage-1 windows of every client, the `edit` barrier, the
+    stage-2 windows, then `undo` applied in-process. Returns ({(model,
+    client, window): digest}, client-side ms of each request of the
+    HTTP clients, wall seconds, {model: [(queue wait ms, dispatch ms)]
+    of every answer})."""
+    from repro_torch.portal import WSClient
+    from repro_torch.portal.gateway import result_digest
+    by = {(m, cl): (sess, ws) for m, cl, sess, ws in stream}
+    http_cl = [(m, cl) for m, cls in PORTAL_HTTP for cl in cls]
+    ws_cl = [(PORTAL_WS[0], cl) for cl in PORTAL_WS[1]]
+    opened = [k for k in ws_cl] + [k for k in http_cl if by[k][0]]
+    opened += [(m, f"idle {i}") for m, mm in srv.models.items()
+               for i in range(mm.sessions.pool.n_slots
+                              - sum(k[0] == m for k in opened))]
+    sids, socks = {}, {}
+    for key in opened:
+        if port is None:
+            sids[key] = srv.open_session(key[0])
+        elif key in ws_cl:
+            socks[key] = WSClient("127.0.0.1", port, key[0], timeout=600)
+            sids[key] = socks[key].session
+        else:
+            sids[key] = http_json(port, "POST", f"/v1/{key[0]}/session")[
+                1]["session"]
+    got, lat, errors = {}, [], []
+    parts = {m: [] for m in srv.models}
+
+    def run_one(m, cl, r):
+        w = by[(m, cl)][1][r]
+        if port is None:
+            t0 = time.perf_counter()
+            res = srv.submit(m, w, session=sids.get((m, cl)),
+                             seed=scratch_seed(cl, r)).result(timeout=600)
+            lat.append(1e3 * (time.perf_counter() - t0))
+            parts[m].append((res.queue_wait_ms, res.dispatch_ms))
+            return result_digest(res.spikes, res.membrane)
+        body = {"counts": w.tolist()}
+        if (m, cl) in sids:
+            body["session"] = sids[(m, cl)]
+        else:
+            body["seed"] = scratch_seed(cl, r)
+        status, out, ms = http_json(port, "POST", f"/v1/{m}/run", body)
+        need(status == 200, f"portal request {m}/{cl}/{r}: {status} "
+                            f"{str(out)[:300]}")
+        lat.append(ms)
+        parts[m].append((out["queue_wait_ms"], out["dispatch_ms"]))
+        return out["digest"]
+
+    def http_client(m, cl, rounds):
+        try:
+            for r in rounds:
+                got[(m, cl, r)] = run_one(m, cl, r)
+        except BaseException as e:      # noqa: BLE001 — raised below
+            errors.append(e)
+
+    def ws_client(m, cl, rounds):
+        try:
+            if port is None:
+                for r in rounds:
+                    res = srv.submit(m, by[(m, cl)][1][r],
+                                     session=sids[(m, cl)]).result(
+                                         timeout=600)
+                    got[(m, cl, r)] = result_digest(res.spikes,
+                                                    res.membrane)
+                    parts[m].append((res.queue_wait_ms, res.dispatch_ms))
+                return
+            ws = socks[(m, cl)]
+            for r in rounds:                # pipelined, then read
+                ws.send_window(counts=by[(m, cl)][1][r], tag=r)
+            for r in rounds:
+                msg = ws.recv()
+                need(msg["tag"] == r, f"websocket window out of order: "
+                                      f"{msg['tag']} for {r}")
+                got[(m, cl, r)] = msg["digest"]
+                parts[m].append((msg["queue_wait_ms"], msg["dispatch_ms"]))
+        except BaseException as e:      # noqa: BLE001 — raised below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    for i, rounds in enumerate(PORTAL_STAGES):
+        if i:
+            if port is None:
+                srv.reconfigure("core", edit["pre"], edit["post"],
+                                edit["weight"]).result(timeout=600)
+            else:
+                status, out, _ = http_json(port, "POST",
+                                           "/v1/core/reconfigure", edit)
+                need(status == 200 and out["uploads"] >= 1,
+                     f"/reconfigure: {status} {out}")
+        threads = [threading.Thread(target=http_client, args=(m, cl, rounds))
+                   for m, cl in http_cl] + \
+            [threading.Thread(target=ws_client, args=(m, cl, rounds))
+             for m, cl in ws_cl]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        need(not any(t.is_alive() for t in threads),
+             "a portal client never returned")
+        if errors:
+            raise errors[0]
+    wall = time.perf_counter() - t0
+    for key in opened:                  # in the order they were opened
+        m, sid = key[0], sids[key]
+        if key in socks:
+            socks[key].close()
+            deadline = time.monotonic() + 60
+            while sid in {x.id for x in srv.models[m].sessions.all()}:
+                need(time.monotonic() < deadline,
+                     f"websocket session {key} never released its lane")
+                time.sleep(0.01)
+        elif port is None:
+            srv.close_session(m, sid)
+        else:
+            status, _, _ = http_json(port, "DELETE",
+                                     f"/v1/{m}/session/{sid}")
+            need(status == 200, f"closing session {key}: {status}")
+    need(not any(m.sessions.n_open for m in srv.models.values()),
+         "a portal session lane leaked")
+    srv.reconfigure("core", undo["pre"], undo["post"],
+                    undo["weight"]).result(timeout=600)
+    return got, lat, wall, parts
+
+
+def portal_subprocesses(seed: int) -> dict:
+    """Phase 21(b): `python -m repro_torch.faults portal-smoke` with a
+    worker_exit plan, `python -m repro_torch.portal --workers 2` asked
+    once and stopped with SIGINT, and `examples/torch_serve_snn.py
+    --portal --portal-workers 2` beside its CPU in-process run, all on
+    the card at once; each must exit 0. Returns their outputs."""
+    import os
+    import signal
+    from repro_torch import compile_spec, deploy
+    from repro_torch.portal.gateway import result_digest
+    from repro_torch.serve.__main__ import demo_spec
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("REPRO_FAULTS", None)
+    py = sys.executable
+    ex = str(ROOT / "examples" / "torch_serve_snn.py")
+    t0 = time.perf_counter()
+    procs = {
+        "smoke": subprocess.Popen(
+            [py, "-m", "repro_torch.faults", "portal-smoke", "--device",
+             "cuda", "--workers", "2", "--plan", "worker_exit@3"],
+            env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True),
+        "example card": subprocess.Popen(
+            [py, ex, "--portal", "--portal-workers", "2"], env=env,
+            cwd=str(ROOT), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True),
+        "example cpu": subprocess.Popen(
+            [py, ex, "--device", "cpu"], env=env, cwd=str(ROOT),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)}
+    cli = subprocess.Popen(
+        [py, "-m", "repro_torch.portal", "--port", "0", "--workers", "2"],
+        env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    out = {}
+    try:
+        head = "\n"
+        while head and "portal serving model" not in head:   # past warnings
+            head = cli.stdout.readline()
+        need("portal serving model 'demo' (engine on cuda" in head,
+             f"portal CLI did not start: {head!r}")
+        port = int(head.split("http://127.0.0.1:")[1].split()[0])
+        status, hz, _ = http_json(port, "GET", "/healthz")
+        need(status == 200 and hz["worker_pid"] != hz["pid"],
+             f"portal CLI healthz: {status} {hz}")
+        counts = np.random.default_rng(seed).integers(0, 2, (8, 16))
+        status, body, _ = http_json(port, "POST", "/v1/demo/run",
+                                    {"counts": counts.tolist(), "seed": 7})
+        need(status == 200, f"portal CLI run: {status} {body}")
+        ref = deploy(compile_spec(demo_spec(16, 64)), seed=0, device="cpu")
+        ref.alloc_lanes(1)
+        spk, V = ref.run_lanes([-1], counts[None].astype(np.int32),
+                               seeds=[7])
+        need(body["digest"] == result_digest(spk[0], V[0]),
+             "portal CLI answer on the card != the CPU port's")
+    finally:
+        cli.send_signal(signal.SIGINT)
+        rest, _ = cli.communicate(timeout=SMOKE_TIMEOUT)
+    need(cli.returncode == 0 and "dispatcher drained" in rest,
+         f"portal CLI did not drain on SIGINT: rc {cli.returncode}, "
+         f"{rest[-2000:]}")
+    for name, p in procs.items():
+        text, _ = p.communicate(timeout=SMOKE_TIMEOUT)
+        need(p.returncode == 0, f"{name} exited {p.returncode}: "
+                                f"{text[-3000:]}")
+        out[name] = text
+    need("portal-smoke: PASS" in out["smoke"], "portal-smoke did not pass")
+    lanes = {k: sorted(ln.split(":", 1)[1] for ln in v.splitlines()
+                       if ln.strip().startswith("client "))
+             for k, v in out.items() if k.startswith("example")}
+    need(len(lanes["example card"]) == 8
+         and lanes["example card"] == lanes["example cpu"],
+         "the example over the card's portal != its CPU in-process run")
+    out["wall"] = time.perf_counter() - t0
+    out["cli"] = head.strip()
+    return out
+
+
+def phase_portal(compiled, sim_compiled, seed: int, zero_counts,
+                 read_counts, card: str) -> dict:
+    """Phase 21(a)-(b), the web portal on the card; returns the launch
+    counts of the two HTTP passes."""
+    from repro_torch import deploy
+    from repro_torch.analysis.retrace import compile_counts
+    from repro_torch.portal import Portal
+    from repro_torch.portal.gateway import result_digest
+    from repro_torch.serve import SpikeServer
+    t_phase = time.perf_counter()
+    stream = serve_stream(seed, {"core": compiled.n_axons,
+                                 "mlp": sim_compiled.n_axons})
+    n_lanes = {m: n for m, _, _, n in SERVE_CLIENTS}
+    srv = SpikeServer(max_batch=SERVE[0], max_wait_ms=SERVE[1])
+    for m, c, kw in (("core", compiled, {"fused": True}),
+                     ("mlp", sim_compiled, {})):
+        srv.add_model(m, c, window=SERVE[2], n_sessions=n_lanes[m],
+                      seed=seed, **kw)
+    models = srv.models
+    need(all(mm.dep.device.type == "cuda" for mm in models.values()),
+         "add_model did not deploy on the card")
+    # the barrier: PORTAL_WRITES core synapses (first record of each
+    # pair) to new weights, and back
+    rng = np.random.default_rng(seed + 21)
+    c = compiled
+    _, first = np.unique(c.syn_item.astype(np.int64) * c.n_neurons
+                         + c.syn_post, return_index=True)
+    cols = rng.choice(first, PORTAL_WRITES, replace=False)
+    item = c.syn_item[cols]
+    pre = np.where(item < c.item_base, -(item + 1), item - c.item_base)
+    old = models["core"].dep.read_synapses(pre, c.syn_post[cols])
+    edit = {"pre": pre.tolist(), "post": c.syn_post[cols].tolist(),
+            "weight": rng.integers(-60, 60, PORTAL_WRITES).tolist()}
+    undo = dict(edit, weight=old.tolist())
+    # every pow2 bucket warmed by direct dispatches; no pass may add one
+    for mm in models.values():
+        zero = np.zeros((SERVE[2], mm.dep.compiled.n_axons), np.int32)
+        for B in (1, 2, 4, 8):
+            if B <= SERVE[0]:
+                mm.dep.run_lanes([-1] * B, np.stack([zero] * B))
+    shapes0 = {m: compile_counts(mm.dep.impl) for m, mm in models.items()}
+    n_req = sum(len(cls) for _, cls in PORTAL_HTTP) * \
+        sum(len(r) for r in PORTAL_STAGES)
+    n_ws = len(PORTAL_WS[1]) * sum(len(r) for r in PORTAL_STAGES)
+    with srv:
+        want, lat_in, wall_in, parts_in = portal_pass(srv, None, stream,
+                                                      edit, undo)
+        torch.cuda.synchronize()
+        batches0 = {m: mm.batches for m, mm in models.items()}
+        zero_counts()
+        runs = {}
+        for workers in PORTAL_WORKERS:
+            with Portal(srv, port=0, workers=workers) as portal:
+                got, lat, wall, parts = portal_pass(srv, portal.port,
+                                                    stream, edit, undo)
+                # 200 while serving: "degraded" (the watchdog's
+                # straggler flag) is still 200 by design, and reported
+                status, hz, _ = http_json(portal.port, "GET", "/healthz")
+                need(status == 200 and hz["ok"] is True,
+                     f"/healthz behind workers={workers}: {status} {hz}")
+                status, text, _ = http_json(portal.port, "GET", "/metrics")
+                need(status == 200, f"/metrics: {status}")
+                posts = sum(float(ln.split()[-1])
+                            for ln in text.splitlines()
+                            if ln.startswith("repro_http_requests_total{")
+                            and 'method="POST"' in ln
+                            and 'status="200"' in ln)
+                need(posts >= n_req, f"/metrics counted {posts} POSTs "
+                                     f"< {n_req} behind workers={workers}")
+            need(got == want, f"the portal's answers behind workers="
+                              f"{workers} != in-process submit's")
+            runs[workers] = (lat, wall, posts, hz["status"], hz["reason"],
+                             parts)
+        counts = read_counts()
+        batches = {m: mm.batches - batches0[m] for m, mm in models.items()}
+    need(all(compile_counts(mm.dep.impl) == shapes0[m]
+             and all(B & (B - 1) == 0 and B <= SERVE[0] and T == SERVE[2]
+                     for B, T in mm.trace_shapes)
+             for m, mm in models.items()),
+         f"the portal ran a lane shape past the warmed buckets: "
+         f"{ {m: sorted(mm.trace_shapes) for m, mm in models.items()} }")
+    need(all(mm.sessions.n_open == 0 for mm in models.values()),
+         "a session lane leaked")
+    log(f"[portal] {n_req} HTTP requests from "
+        f"{sum(len(c) for _, c in PORTAL_HTTP)} clients and {n_ws} "
+        f"websocket windows from {len(PORTAL_WS[1])} sessions a pass, "
+        f"one /reconfigure barrier ({PORTAL_WRITES} core synapses) between "
+        f"windows {PORTAL_STAGES[0][-1]} and {PORTAL_STAGES[1][0]}: "
+        f"behind Portal(workers=0) and Portal(workers=2), every answer == "
+        f"in-process submit on the same server (sessions on their lanes, "
+        f"websocket windows in order, scratch by seed); /healthz 200, "
+        f"/metrics counted {[int(runs[w][2]) for w in PORTAL_WORKERS]} "
+        f"POST 200s; healthz {[runs[w][3:5] for w in PORTAL_WORKERS]}; lane "
+        f"shapes within the warmed buckets "
+        f"{ {m: sorted(mm.trace_shapes) for m, mm in models.items()} }")
+    # the mlp's first 4 requests on a CPU-port server
+    cpu = SpikeServer(max_batch=SERVE[0], max_wait_ms=SERVE[1])
+    cpu.add_model("mlp", sim_compiled, window=SERVE[2],
+                  n_sessions=n_lanes["mlp"], seed=seed, device="cpu")
+    by = {(m, cl): (sess, ws) for m, cl, sess, ws in stream}
+    first = list(dict(PORTAL_HTTP)["mlp"])[:4]
+    with cpu:
+        csid = {cl: cpu.open_session("mlp") for cl in first
+                if by[("mlp", cl)][0]}
+        fs = {cl: cpu.submit("mlp", by[("mlp", cl)][1][0],
+                             session=csid.get(cl), seed=scratch_seed(cl, 0))
+              for cl in first}
+        on_cpu = {}
+        for cl, f in fs.items():
+            res = f.result(timeout=600)
+            on_cpu[("mlp", cl, 0)] = result_digest(res.spikes, res.membrane)
+    need(on_cpu == {k: want[k] for k in on_cpu},
+         "the CPU-port server's digests differ from the portal's")
+    log(f"[portal cpu] the mlp's first {len(on_cpu)} requests: card portal "
+        f"== CPU-port server (digests)")
+    p_in = np.percentile(lat_in, [50, 99])
+    rate_in = (n_req + n_ws) / wall_in
+    for w in PORTAL_WORKERS:
+        lat, wall = runs[w][:2]
+        p = np.percentile(lat, [50, 99])
+        rate = (n_req + n_ws) / wall
+        log(f"[portal http workers={w}] {n_req + n_ws} answers in "
+            f"{wall:.3f} s = {rate:.1f} req/s; HTTP p50 {p[0]:.3f} ms, p99 "
+            f"{p[1]:.3f} ms (client side, {len(lat)} requests); in-process "
+            f"submit of the same stream {rate_in:.1f} req/s, p50 "
+            f"{p_in[0]:.3f} ms, p99 {p_in[1]:.3f} ms: HTTP / in-process "
+            f"req/s {rate / rate_in:.4f}, p50 {p[0] / p_in[0]:.4f}, p99 "
+            f"{p[1] / p_in[1]:.4f} (8 HTTP clients; core answers carry "
+            f"16 x 125,000 spikes as JSON) on {card}")
+    # what stretches a batch behind the portal: each answer's dispatch
+    # (its batch's own time) beside its queue wait, per model and pass
+    for name, parts in [("in-process", parts_in)] + [
+            (f"workers={w}", runs[w][5]) for w in PORTAL_WORKERS]:
+        text = []
+        for m, xs in parts.items():
+            q, d = np.asarray(xs).T
+            pq, pd = np.percentile(q, [50, 99]), np.percentile(d, [50, 99])
+            text.append(f"{m} ({len(xs)} answers) dispatch p50 {pd[0]:.3f}, "
+                        f"p99 {pd[1]:.3f}, max {d.max():.3f}, queue wait p50 "
+                        f"{pq[0]:.3f}, p99 {pq[1]:.3f}, max {q.max():.3f}")
+        log(f"[portal dispatch {name}] ms: " + "; ".join(text)
+            + f" on {card}")
+    steps = {m: SERVE[2] * n for m, n in batches.items()}
+    need(counts["split_randint"] == steps["core"] + steps["mlp"]
+         and counts["route_lif"] == steps["core"]
+         and counts["spike_matmul"] == counts["lif_step"] == steps["mlp"],
+         f"the portal's launches are not one a step: {counts}, steps "
+         f"{steps}")
+    log(f"[portal launches] lif_step {counts['lif_step']}, route_lif "
+        f"{counts['route_lif']}, spike_matmul {counts['spike_matmul']}, "
+        f"split_randint {counts['split_randint']} over {batches} batches "
+        f"of {SERVE[2]} steps (the two HTTP passes)")
+    del srv, models
+    torch.cuda.empty_cache()
+
+    # (b) the portal's command lines as subprocesses, on the card
+    sub = portal_subprocesses(seed)
+    smoke = [ln for ln in sub["smoke"].splitlines()
+             if ln.startswith("served ")]
+    log(f"[portal smoke] python -m repro_torch.faults portal-smoke --device "
+        f"cuda --workers 2 --plan worker_exit@3: {smoke[0] if smoke else ''}"
+        f"; python -m repro_torch.portal --workers 2: {sub['cli']!r}, "
+        f"answered == the CPU port, drained on SIGINT; examples/"
+        f"torch_serve_snn.py --portal --portal-workers 2 == its CPU "
+        f"in-process run (8 clients' rates and |V|); "
+        f"{sub['wall']:.1f} s for the three at once")
+    log(f"[portal phase] wall {time.perf_counter() - t_phase:.1f} s on {card}")
+    return counts
 
 
 def same(a: dict, b: dict) -> bool:
@@ -3472,6 +4153,15 @@ def main(argv=None) -> int:
     by_path.update({p: {k: c.get(k, 0) for k in kernels_of}
                     for p, c in mesh_paths.items()})
     del hiaer_ctx
+
+    # ---- 21. the web portal on the card: phase 17's two models behind
+    # Portal(workers=0) and Portal(workers=2), then the portal's command
+    # lines as subprocesses (21(c), the mesh ranks' portal, ran inside
+    # phase 20's spawn); every portal, worker and thread stopped inside
+    by_path["portal core fused + mlp simulator"] = phase_portal(
+        compiled, sim_compiled, args.seed, zero_counts, read_counts, card)
+    need(threading.active_count() == 1,
+         f"threads alive after phase 21: {threading.enumerate()}")
 
     if args.profile:
         for fused in (False, True):

@@ -12,8 +12,14 @@ all eight streams into single dispatches.
     PYTHONPATH=src python examples/torch_serve_snn.py              # card
     PYTHONPATH=src python examples/torch_serve_snn.py --device cpu
 
-`--portal` (the websocket front end) raises: the port's portal is
-ROADMAP queue 1, item 5b.
+With `--portal`, the same eight streams run over localhost instead of
+in-process: each client opens a websocket streaming session
+(`GET /v1/dvs/stream`, lane-pinned, pipelined windows) against the
+port's web portal, and the recurrent state lives server-side exactly as
+before. Add `--portal-workers 4` to fan the front end out across
+bridged worker processes.
+
+    PYTHONPATH=src python examples/torch_serve_snn.py --portal
 """
 import argparse
 import threading
@@ -65,12 +71,34 @@ def stream_client(srv, cid, samples, results):
     srv.close_session("dvs", sid)
 
 
+def stream_client_ws(port, cid, samples, results):
+    """Same gesture stream, but over the web portal: one websocket
+    session per client, every window pipelined onto the wire before
+    the first result is read."""
+    from repro_torch.portal import WSClient
+
+    ws = WSClient("127.0.0.1", port, "dvs")
+    for s in samples:                    # pipeline: send all, then read
+        ws.send_window(counts=frames_to_windows(s))
+    rates, final_V = [], None
+    for _ in samples:
+        msg = ws.recv()
+        rates.append(float(np.asarray(msg["spikes"]).mean()))
+        final_V = np.asarray(msg["membrane"])
+    ws.close()                           # lane released server-side
+    results[cid] = {"session": ws.session, "rates": rates,
+                    "final_V": final_V}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--clients", type=int, default=8)
     ap.add_argument("--portal", action="store_true",
-                    help="stream over the web-portal front end (not "
-                         "ported yet: raises)")
+                    help="stream over localhost websockets through the "
+                         "web-portal front end instead of in-process")
+    ap.add_argument("--portal-workers", type=int, default=0,
+                    help="with --portal: bridged front-end worker "
+                         "processes (0 = in-process front end)")
     ap.add_argument("--samples", type=int, default=3,
                     help="gestures streamed per client")
     ap.add_argument("--shape", type=int, default=12,
@@ -82,10 +110,6 @@ def main(argv=None):
                     help="where the resident network runs (default: the "
                          "card; cpu runs the kernels' plain versions)")
     args = ap.parse_args(argv)
-    if args.portal:
-        raise NotImplementedError(
-            "the port's web portal is not ported yet (ROADMAP queue 1, "
-            "item 5b); run without --portal for in-process sessions")
     H = W = args.shape
     n_axons = 2 * H * W
 
@@ -103,8 +127,10 @@ def main(argv=None):
     srv.add_model("dvs", compiled, window=args.frames,
                   n_sessions=args.clients, seed=0, device=args.device)
 
+    how = ("websocket streams through the web portal" if args.portal
+           else "in-process sessions")
     print(f"== 3. {args.clients} clients streaming "
-          f"{args.samples} gestures each (in-process sessions) ==")
+          f"{args.samples} gestures each ({how}) ==")
     results = {}
     with srv:
         # warm up (lone request + full-width burst) so the latencies
@@ -116,15 +142,30 @@ def main(argv=None):
                   for _ in range(args.clients)]:
             f.result()
         srv.reset_stats()
-        t0 = time.monotonic()
-        ts = [threading.Thread(target=stream_client,
-                               args=(srv, c, per_client[c], results))
-              for c in range(args.clients)]
-        for t in ts:
-            t.start()
-        for t in ts:
-            t.join()
-        wall = time.monotonic() - t0
+
+        def run_clients(target, *extra):
+            t0 = time.monotonic()
+            ts = [threading.Thread(target=target,
+                                   args=(*extra, c, per_client[c],
+                                         results))
+                  for c in range(args.clients)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join()
+            return time.monotonic() - t0
+
+        if args.portal:
+            from repro_torch.portal import Portal
+
+            with Portal(srv, port=0,
+                        workers=args.portal_workers) as portal:
+                print(f"   portal at {portal.url} "
+                      f"({args.portal_workers or 'no'} bridged "
+                      f"workers)")
+                wall = run_clients(stream_client_ws, portal.port)
+        else:
+            wall = run_clients(stream_client, srv)
         stats = srv.stats()
 
     total = args.clients * args.samples

@@ -20,13 +20,29 @@ nothing of `repro`.
     dep = deploy(compile_spec(spec), device="cpu")   # plain versions
     net = CRI_network.from_spec(spec, backend="simulator")
 """
-from repro_torch.core.api import CRI_network
-from repro_torch.core.compile import CompiledNetwork, compile_spec
-from repro_torch.core.deploy import Deployment, deploy
-from repro_torch.core.neuron import ANN_neuron, LIF_neuron
-from repro_torch.core.partition import Hierarchy
-from repro_torch.core.spec import NetworkSpec
-
 __all__ = ["ANN_neuron", "CRI_network", "CompiledNetwork", "Deployment",
            "Hierarchy", "LIF_neuron", "NetworkSpec", "compile_spec",
            "deploy"]
+
+# resolved at first use (PEP 562): `python -m repro_torch.portal --worker`
+# and the stdlib-only modules it imports (portal.{errors,auth,ws,http,
+# bridge}, obs, faults) load neither torch nor numpy
+_LAZY = {"CRI_network": "repro_torch.core.api",
+         "ANN_neuron": "repro_torch.core.neuron",
+         "LIF_neuron": "repro_torch.core.neuron",
+         "CompiledNetwork": "repro_torch.core.compile",
+         "compile_spec": "repro_torch.core.compile",
+         "Deployment": "repro_torch.core.deploy",
+         "deploy": "repro_torch.core.deploy",
+         "Hierarchy": "repro_torch.core.partition",
+         "NetworkSpec": "repro_torch.core.spec"}
+
+
+def __getattr__(name):
+    mod = _LAZY.get(name)
+    if mod is None:
+        raise AttributeError(f"module 'repro_torch' has no attribute "
+                             f"{name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(mod), name)

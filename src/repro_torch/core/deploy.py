@@ -112,6 +112,7 @@ class Deployment:
         else:
             raise ValueError(f"unknown target {c.target!r}")
         self.compiled = c
+        self.seed = int(seed)
         self.device = self.impl.device
         self.weight_uploads = 0         # batches applied, not synapses
         self._ikeys: Optional[np.ndarray] = None

@@ -33,8 +33,8 @@ import torch.distributed as dist
 
 from repro_torch.device import resolve
 
-__all__ = ["world", "rank_device", "init_for_tests", "spawn",
-           "stage_groups", "all_gather", "broadcast"]
+__all__ = ["world", "rank_device", "init_from_env", "init_for_tests",
+           "spawn", "stage_groups", "all_gather", "broadcast"]
 
 # the groups every rank has built, keyed by their ranks: new_group is a
 # collective of the whole world, so each group is built once, by every
@@ -71,19 +71,39 @@ def rank_device(device=None) -> torch.device:
     return torch.device("cuda", local_rank if own else 0)
 
 
-def init_for_tests(store_path, rank: int, world_size: int) -> None:
+def init_from_env(device=None) -> bool:
+    """Join the world `torchrun` describes (RANK, WORLD_SIZE and the
+    MASTER_* rendezvous in the environment): NCCL when `device` is the
+    card and each rank on the host has one of its own, gloo otherwise;
+    then make the rank's card current. Returns True when this call
+    started the world (the caller destroys it), False outside torchrun
+    or with a world already up."""
+    if "RANK" not in os.environ or dist.is_initialized():
+        return False
+    dev = resolve(device)
+    own = dev.type == "cuda" and torch.cuda.device_count() >= int(
+        os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"]))
+    dist.init_process_group("nccl" if own else "gloo")
+    if dev.type == "cuda":
+        torch.cuda.set_device(rank_device(device))
+    return True
+
+
+def init_for_tests(store_path, rank: int, world_size: int,
+                   timeout_s: float = 300.0) -> None:
     """Start a gloo world from a `FileStore` at `store_path` (never a TCP
     port: test workers run side by side). Every rank passes the same
     path; the file must not hold an earlier world's store. A collective
-    that waits 300 s for a peer raises."""
+    that waits `timeout_s` for a peer raises."""
     store = dist.FileStore(str(store_path), world_size)
     dist.init_process_group(
         "gloo", store=store, rank=rank, world_size=world_size,
-        timeout=datetime.timedelta(seconds=300))
+        timeout=datetime.timedelta(seconds=timeout_s))
 
 
-def _rank_entry(rank: int, fn, world_size: int, store_path, args) -> None:
-    init_for_tests(store_path, rank, world_size)
+def _rank_entry(rank: int, fn, world_size: int, store_path, args,
+                timeout_s: float = 300.0) -> None:
+    init_for_tests(store_path, rank, world_size, timeout_s)
     try:
         fn(rank, world_size, *args)
     finally:
@@ -92,16 +112,18 @@ def _rank_entry(rank: int, fn, world_size: int, store_path, args) -> None:
 
 
 def spawn(fn, world_size: int, store_path, args: Sequence = (),
-          timeout_s: float = 600.0) -> None:
+          timeout_s: float = 600.0,
+          collective_timeout_s: float = 300.0) -> None:
     """Run `fn(rank, world_size, *args)` in `world_size` spawned
-    processes over one gloo world (`init_for_tests` at `store_path`).
-    `fn` must be importable by the children (a module-level function).
-    Returns when every rank has returned; raises when one raised (the
-    others are terminated) or when `timeout_s` passes first."""
+    processes over one gloo world (`init_for_tests` at `store_path`,
+    collectives waiting `collective_timeout_s` at most). `fn` must be
+    importable by the children (a module-level function). Returns when
+    every rank has returned; raises when one raised (the others are
+    terminated) or when `timeout_s` passes first."""
     import torch.multiprocessing as mp
     ctx = mp.start_processes(_rank_entry, nprocs=world_size, join=False,
                              args=(fn, world_size, str(store_path),
-                                   tuple(args)),
+                                   tuple(args), collective_timeout_s),
                              start_method="spawn")
     deadline = time.monotonic() + timeout_s
     while not ctx.join(timeout=1.0):

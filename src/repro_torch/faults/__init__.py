@@ -17,8 +17,8 @@ the i-th time that site is reached, 1-based) or with a seeded Bernoulli
 rate (`%p` — `random.Random(seed ^ site)` drives it, so the sequence
 of triggers is a pure function of (plan spec, seed)).
 
-Sites (the first three wired through serve/server.py; the portal's
-two arrive with the port's portal, ROADMAP item 5b):
+Sites (the first three wired through serve/server.py, the last two
+through portal/bridge.py and portal/http.py):
 
   dispatch_crash   dispatcher loop dies mid-batch  -> supervisor restart
   batch_exception  one micro-batch raises          -> batch rejected,

@@ -12,11 +12,14 @@ Requests from many clients enter a double-buffered queue, are
 micro-batched under a deadline + max-batch policy into single
 `Deployment.run_lanes` dispatches, and come back per-client:
 bit-identical to running each request alone, and to `repro`'s server.
+A mesh deployment spanning several ranks is served by rank 0 while the
+other ranks replay its calls (`serve_follower`, `serve.replica`).
 `python -m repro_torch.serve` runs a self-contained demo server against
 a synthetic network. `queue.SlotPool` also backs the LM slot server.
 """
 from repro_torch.serve.queue import (BufferClosed, BufferFull,
                                      DoubleBuffer, SlotPool)
+from repro_torch.serve.replica import serve_follower
 from repro_torch.serve.server import ResidentModel, SpikeServer, next_pow2
 from repro_torch.serve.session import (DeadlineError, DispatchRestart,
                                        Reconfigure, Request, ServeResult,
@@ -26,5 +29,5 @@ __all__ = [
     "SpikeServer", "ResidentModel", "next_pow2",
     "DoubleBuffer", "SlotPool", "BufferFull", "BufferClosed",
     "Request", "Reconfigure", "ServeResult", "Session", "SessionStore",
-    "DeadlineError", "DispatchRestart",
+    "DeadlineError", "DispatchRestart", "serve_follower",
 ]

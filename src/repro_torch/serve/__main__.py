@@ -9,6 +9,13 @@ the batch shapes run (the power-of-two buckets).
 
     PYTHONPATH=src python -m repro_torch.serve --clients 8 --requests 4
     PYTHONPATH=src python -m repro_torch.serve --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.serve \
+        --device cpu --backend mesh
+
+Under `torchrun`, `--backend mesh` spreads the network's cores over the
+world (one core a rank) and serves it from rank 0: the other ranks
+deploy the same artifact and replay rank 0's dispatches
+(`serve.replica.serve_follower`) until its server shuts down.
 """
 from __future__ import annotations
 
@@ -20,7 +27,9 @@ import numpy as np
 
 from repro_torch.core.compile import compile_spec
 from repro_torch.core.neuron import LIF_neuron
+from repro_torch.core.partition import Hierarchy
 from repro_torch.core.spec import NetworkSpec
+from repro_torch.distributed import mesh
 from repro_torch.serve import SpikeServer
 
 
@@ -40,6 +49,35 @@ def demo_spec(n_axons: int, n_neurons: int, fanout: int = 6,
     spec.connect(pre, post, w)
     spec.set_outputs(list(range(min(8, n_neurons))))
     return spec
+
+
+def demo_compiled(args):
+    """The demo network compiled for `args.backend`; under a world of W
+    ranks the mesh target gets W cores (one a rank) — the served spikes
+    and membranes are the same on any hierarchy."""
+    kw = {}
+    W = mesh.world()[1]
+    if args.backend == "mesh" and W > 1:
+        kw["hierarchy"] = Hierarchy(1, 1, W, -(-args.neurons // W))
+    return compile_spec(demo_spec(args.axons, args.neurons),
+                        target=args.backend, **kw)
+
+
+def follow(compiled, device) -> int:
+    """A follower rank of a multi-rank mesh server: deploy the artifact
+    (in step with the leader's `add_model`) and replay its calls until
+    the leader's stop record. SIGINT and SIGTERM, which torchrun and a
+    terminal's Ctrl-C deliver to every rank, are left to the leader: it
+    drains and sends the stop record (torchrun kills a rank that outlives
+    its shutdown grace)."""
+    import signal
+
+    from repro_torch.core.deploy import deploy
+    from repro_torch.serve import serve_follower
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, lambda signum, frame: None)
+    serve_follower(deploy(compiled, seed=0, device=device))
+    return 0
 
 
 def _client(srv: SpikeServer, model: str, cid: int, n_requests: int,
@@ -77,8 +115,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.serve")
     ap.add_argument("--backend", default="engine",
                     choices=["simulator", "engine", "hiaer", "mesh"],
-                    help="mesh runs at world size 1: one rank holds "
-                         "the network's one core")
+                    help="mesh under torchrun: one core a rank, served "
+                         "by rank 0; without it, world size 1")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the model runs (cpu: the kernels' plain "
                          "versions)")
@@ -119,9 +157,20 @@ def main(argv=None) -> int:
     else:
         faults.install_from_env()
 
-    tel = Telemetry(log_json=args.log_json)
-    compiled = compile_spec(demo_spec(args.axons, args.neurons),
-                            target=args.backend)
+    started = args.backend == "mesh" and mesh.init_from_env(args.device)
+    try:
+        return _serve(args, Telemetry(log_json=args.log_json),
+                      chrome_trace)
+    finally:
+        if started:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _serve(args, tel, chrome_trace) -> int:
+    compiled = demo_compiled(args)
+    if mesh.world()[0] != 0:
+        return follow(compiled, args.device)
     srv = SpikeServer(max_batch=args.max_batch, max_wait_ms=args.wait_ms,
                       telemetry=tel)
     srv.add_model("demo", compiled, window=args.window,

@@ -31,7 +31,11 @@ is the layer that makes one process serve many concurrent clients:
     batches (never mid-flight), so the weight history every request
     observes equals the serial execution of the submission order;
   * multiple resident models share the process; requests route by
-    model id and batches never mix models.
+    model id and batches never mix models;
+  * a mesh deployment that spans several ranks is served by rank 0, the
+    leader: its calls that change lane state or weights are broadcast
+    to the other ranks, which replay them in `serve.replica.
+    serve_follower` until this server's `shutdown` (ROADMAP item 7b).
 """
 from __future__ import annotations
 
@@ -51,9 +55,11 @@ from repro_torch.core import schedule as sched
 from repro_torch.core.compile import CompiledNetwork
 from repro_torch.core.costmodel import LEVEL_NAMES
 from repro_torch.core.deploy import Deployment, deploy
+from repro_torch.distributed import mesh
 from repro_torch.distributed.elastic import StepWatchdog
 from repro_torch.obs import Telemetry
 from repro_torch.serve.queue import BufferFull, DoubleBuffer
+from repro_torch.serve.replica import Leader
 from repro_torch.serve.session import (DeadlineError, DispatchRestart,
                                        Reconfigure, Request, ServeResult,
                                        Session, SessionStore)
@@ -195,6 +201,9 @@ class SpikeServer:
         # stalls degrade rather than restart)
         self._wd = StepWatchdog(factor=8.0, patience=2)
         self._straggler_until = 0.0
+        # the followers of this server's multi-rank deployments (None
+        # until add_model makes one resident)
+        self._leader: Optional[Leader] = None
         self._setup_metrics()
 
     # ---------------------------------------------------------- telemetry
@@ -286,7 +295,12 @@ class SpikeServer:
         fixes the per-dispatch timestep count — stateless requests
         shorter than the window are zero-padded and their responses
         sliced back; session requests must fill it.
-        `n_sessions` lanes are allocated for resident client state."""
+        `n_sessions` lanes are allocated for resident client state.
+        A mesh deployment of several ranks is added on rank 0 only (the
+        others deploy the same artifact with the same seed and run
+        `serve_follower`), one such model a server; its replayed calls
+        go out through the server's `Leader`, and it raises on every
+        rank when a follower's deployment differs."""
         if name in self.models:
             raise ValueError(f"model {name!r} already resident")
         if window < 1:
@@ -296,14 +310,18 @@ class SpikeServer:
                 raise TypeError("add_model needs compiled= or "
                                 "deployment=")
             deployment = deploy(compiled, seed=seed, **deploy_kw)
-        ranks = getattr(deployment.impl, "world_size", 1)
-        if ranks > 1:
-            # micro-batches form on each rank's clock, so the ranks would
-            # batch differently: serving needs one leader's dispatches
-            raise NotImplementedError(
-                f"serving a mesh deployment that spans {ranks} ranks needs "
-                f"a rank-0 leader that broadcasts each dispatch: ROADMAP "
-                f"item 7b; serve it at world size 1")
+        if getattr(deployment.impl, "world_size", 1) > 1:
+            # micro-batches form on one clock: rank 0's, replayed by the
+            # other ranks in the order it makes them
+            rank = mesh.world()[0]
+            if rank != 0:
+                raise ValueError(
+                    f"rank {rank} cannot serve a multi-rank deployment: "
+                    f"rank 0 leads, the other ranks run "
+                    f"serve.replica.serve_follower")
+            if self._leader is None:
+                self._leader = Leader()
+            deployment = self._leader.wrap(deployment, name)
         deployment.alloc_lanes(n_sessions)
         m = ResidentModel(name=name, dep=deployment, window=int(window),
                           sessions=SessionStore(n_sessions))
@@ -452,7 +470,9 @@ class SpikeServer:
         be mid-shutdown): a once-guard makes every call after the
         first a no-op, so futures are never double-drained. Also safe
         with the dispatcher never started — queued items are then
-        cancelled (there is nothing to drain with)."""
+        cancelled (there is nothing to drain with). A server leading
+        followers sends them the stop record here, once the dispatcher
+        is joined; it cannot start again."""
         with self._shutdown_lock:
             if self._shutdown_started:
                 return
@@ -470,6 +490,9 @@ class SpikeServer:
             if not it.future.cancel():
                 _reject(it.future,
                         RuntimeError("server stopped before dispatch"))
+        if self._leader is not None:
+            # the dispatcher is joined: no record follows the stop
+            self._leader.release()
         self._shutdown_done = True
 
     # the historical name — same contract
@@ -524,6 +547,8 @@ class SpikeServer:
             if not items:
                 if self._stop.is_set():
                     break
+                if self._leader is not None:
+                    self._leader.keepalive()
                 continue
             # `_inflight` is what the supervisor rejects if this
             # thread dies before the batch settles; cleared (with the

@@ -389,3 +389,44 @@ def test_checkpoint_restore_sessions_resume_bit_exact(tmp_path, writer,
                                  edit_at=-1)
         assert srv_b.open_session("m") != sid
     assert rest == ref[3:]
+
+
+# ----------------------------------------------------- portal smoke
+def test_portal_smoke_cli_respawns_worker_and_matches_jax(tmp_path):
+    """`python -m repro_torch.faults portal-smoke --workers 2` with a
+    `worker_exit` plan: a front-end worker hard-exits mid-traffic, the
+    reaper respawns it, the CLI exits 0, and every answer carries the
+    JAX server's digest for the same request; the fault log names the
+    exits."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro.core.compile import compile_spec as j_compile
+    from repro.core.deploy import deploy as j_deploy
+    from repro.serve.__main__ import demo_spec as j_demo_spec
+
+    root = Path(__file__).resolve().parents[1]
+    log = tmp_path / "faults.ndjson"
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    env.pop("REPRO_FAULTS", None)
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.faults", "portal-smoke",
+         "--device", "cpu", "--workers", "2", "--plan", "worker_exit@3",
+         "--log", str(log)],
+        env=env, capture_output=True, text=True, timeout=120,
+        cwd=str(root))
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-3000:]
+    assert "portal-smoke: PASS" in proc.stdout
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("served 10 requests")][0]
+    assert "digests identical: True" in line
+    dep = j_deploy(j_compile(j_demo_spec(16, 64), target="engine"), seed=0)
+    dep.alloc_lanes(1)
+    counts = np.random.default_rng(0).integers(0, 2, (8, 16)) \
+        .astype(np.int32)
+    spk, V = dep.run_lanes([-1], counts[None], seeds=[0])
+    assert line.endswith(f"digest: {j_digest(spk[0], V[0])}")
+    fired = [json.loads(ln) for ln in log.read_text().splitlines()]
+    assert fired and all(f["site"] == "worker_exit" and f["hit"] == 3
+                         for f in fired)

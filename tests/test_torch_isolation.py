@@ -64,6 +64,64 @@ def test_no_source_imports_jax_or_repro():
                     f"{path}:{node.lineno} imports {m}"
 
 
+def test_portal_front_end_and_faults_load_no_torch_numpy_or_jax():
+    """The modules a bridge worker imports — the portal's stdlib half,
+    its `--worker` entry point, `obs` and `faults` — load neither torch
+    nor numpy (nor jax): the lazy exports keep the package light."""
+    mods = ["repro_torch.portal.errors", "repro_torch.portal.auth",
+            "repro_torch.portal.ws", "repro_torch.portal.http",
+            "repro_torch.portal.bridge", "repro_torch.portal.__main__",
+            "repro_torch.faults", "repro_torch.obs"]
+    code = ("import sys\n"
+            f"for m in {mods!r}:\n"
+            "    __import__(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'numpy', 'jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n"
+            "import repro_torch.portal as p\n"
+            "assert 'torch' not in sys.modules\n"
+            "p.Portal\n"
+            "assert 'torch' in sys.modules\n"
+            "print('LIGHT')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "LIGHT" in out.stdout
+
+
+def test_portal_workers_are_spawned_from_the_port():
+    """`Portal(workers=2)` spawns `python -m repro_torch.portal --worker`
+    (never JAX's `repro.portal`, whose workers would answer as well),
+    with the port's src root first on PYTHONPATH, and the running
+    workers have loaded no torch library."""
+    import numpy as np
+    from repro_torch import LIF_neuron, NetworkSpec, compile_spec
+    from repro_torch.portal import Portal
+    from repro_torch.serve import SpikeServer
+    spec = NetworkSpec()
+    ax = spec.add_axons(2)
+    spec.add_neurons(3, LIF_neuron(threshold=5))
+    spec.connect(np.repeat(ax, 3), np.tile(np.arange(3), 2),
+                 np.full(6, 3))
+    spec.set_outputs([0])
+    srv = SpikeServer(max_batch=2, max_wait_ms=1.0)
+    srv.add_model("m", compile_spec(spec), window=2, n_sessions=1,
+                  device="cpu")
+    with srv, Portal(srv, port=0, workers=2) as portal:
+        cmd = portal._worker_cmd
+        assert cmd[1:4] == ["-m", "repro_torch.portal", "--worker"], cmd
+        assert "repro.portal" not in cmd
+        assert portal._worker_env["PYTHONPATH"].split(os.pathsep)[0] == \
+            str(ROOT / "src")
+        for p in portal._procs:
+            assert p.args == cmd
+            maps = Path(f"/proc/{p.pid}/maps")
+            if maps.exists():
+                text = maps.read_text()
+                assert "libtorch" not in text and "libc10" not in text
+
+
 def test_deploy_defaults_to_the_card():
     from repro_torch import compile_spec, deploy, LIF_neuron, NetworkSpec
     spec = NetworkSpec()

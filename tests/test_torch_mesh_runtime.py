@@ -9,6 +9,7 @@ subprocess: `tests/_torch_mesh_ranks.py` spawns 8 gloo ranks on the CPU
 from a `FileStore` in tmp_path; they replay the input sequences whose
 JAX outputs this process wrote to an .npz, and never import jax.
 """
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -18,7 +19,7 @@ import pytest
 
 import repro.core.neuron as jn
 import repro_torch.core.neuron as tn
-from _torch_mesh_ranks import replay
+from _torch_mesh_ranks import replay, serve_data, serve_stream
 from _torch_pair import noisy_spec
 from repro.core.api import CRI_network as JNet
 from repro.core.compile import CompiledNetwork as JCompiled
@@ -29,6 +30,8 @@ from repro.core.partition import Hierarchy as JHier
 from repro.core.spec import NetworkSpec as JSpec
 from repro.kernels.exchange import HierSpec as JHierSpec
 from repro.kernels.exchange import collective_stages as j_stages
+from repro.portal import Portal as JPortal
+from repro.portal import WSClient as JWSClient
 from repro.serve import SpikeServer as JServer
 from repro_torch.analysis.retrace import RetraceDetector, RetraceError
 from repro_torch.core.api import CRI_network as TNet
@@ -38,6 +41,7 @@ from repro_torch.core.deploy import deploy as t_deploy
 from repro_torch.core.mesh_runtime import MeshNetwork
 from repro_torch.core.mesh_runtime import default_device_count as t_ddc
 from repro_torch.core.partition import Hierarchy as THier
+from repro_torch.portal import Portal, WSClient
 from repro_torch.core.spec import NetworkSpec as TSpec
 from repro_torch.serve import SpikeServer
 from test_routing_vectorized import drive, random_net
@@ -276,7 +280,8 @@ def test_mesh_eight_gloo_ranks_subprocess(tmp_path):
     {1, 2, 4, 8} dividing the cores (ranks past n_devices take rank 0's
     outputs by broadcast), both wires, through step, run, run_batch,
     run_lanes and a weight write; every rank == JAX's mesh outputs, and
-    a multi-rank SpikeServer raises naming ROADMAP item 7b."""
+    a multi-rank SpikeServer on rank 0 (the other ranks following)
+    serves the two run_lanes windows with JAX's lanes' digests."""
     for i, hier in enumerate(CHILD_HIERS):
         _mesh_case(tmp_path, i, hier, 40 + i, with_engine=i == 0)
     proc = subprocess.run(
@@ -285,6 +290,58 @@ def test_mesh_eight_gloo_ranks_subprocess(tmp_path):
         capture_output=True, text=True, timeout=300, cwd=str(ROOT))
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-5000:]
     assert "MESH-RANKS-OK" in proc.stdout
+
+
+def test_mesh_four_gloo_ranks_serve_subprocess(tmp_path):
+    """4 gloo ranks serve a mesh artifact (one core a rank): rank 0
+    leads a SpikeServer behind a Portal, the others replay its calls.
+    Sessions, scratch requests, a websocket session, two reconfigures,
+    a checkpoint and a restore give the digests of a world-size-1 port
+    server and of JAX's mesh server, also with dispatch_crash@2 armed on
+    the leader; every follower's lanes and weights == the leader's. A
+    follower deployed with another seed first makes the leader's
+    add_model and every follower raise."""
+    from _torch_mesh_ranks import SERVE_SESSIONS
+    from test_torch_serve import _spec
+    from repro.core.api import LIF_neuron as JLIF
+    jc = j_compile(_spec(JSpec, JLIF, 6, 24, 5), "mesh",
+                   hierarchy=JHier(1, 2, 2, 6))
+    art = tmp_path / "art.npz"
+    jc.save(art)
+    rng = np.random.default_rng(61)
+    T = 3
+    data = serve_data(rng, jc.n_axons, T)
+    edits = []
+    for _ in range(2):
+        pre, post, w = _write_batch(jc, rng, 5)
+        edits.append({"pre": pre.tolist(), "post": post.tolist(),
+                      "weight": w.tolist()})
+    want = {}
+    jsrv = JServer(max_batch=8, max_wait_ms=2.0)
+    jsrv.add_model("m", JCompiled.load(art), window=T,
+                   n_sessions=SERVE_SESSIONS + 1, seed=0)
+    with jsrv, JPortal(jsrv, port=0) as p:
+        want["jax"] = serve_stream(p.port, jsrv, JWSClient, data, edits,
+                                   tmp_path / "ck_jax")
+    tsrv = SpikeServer(max_batch=8, max_wait_ms=2.0)
+    tsrv.add_model("m", TCompiled.load(art), window=T,
+                   n_sessions=SERVE_SESSIONS + 1, seed=0, device="cpu")
+    with tsrv, Portal(tsrv, port=0) as p:
+        want["ws1"] = serve_stream(p.port, tsrv, WSClient, data, edits,
+                                   tmp_path / "ck_ws1")
+    assert want["ws1"] == want["jax"]
+    assert want["jax"]["rcA"] == 1 and want["jax"]["rcB"] == 2
+    cases = tmp_path / "serve.npz"
+    np.savez(cases, artifact=str(art), edits=json.dumps(edits),
+             want_jax=json.dumps(want["jax"]),
+             want_ws1=json.dumps(want["ws1"]), **data)
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tests" / "_torch_mesh_ranks.py"),
+         "serve", str(cases), str(tmp_path / "store"), "4"],
+        capture_output=True, text=True, timeout=300, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-5000:]
+    assert "MESH-RANKS-OK" in proc.stdout
+    assert "serve chaos:" in proc.stdout
 
 
 def test_serve_cli_mesh_backend():
@@ -307,3 +364,32 @@ def test_serve_cli_mesh_backend():
     rate = [x.split("rate")[-1] for b in ("mesh", "engine")
             for x in lines[b] if "mean spike rate" in x]
     assert len(rate) == 2 and rate[0] == rate[1] and float(rate[0]) > 0
+
+
+def test_serve_cli_mesh_backend_under_torchrun():
+    """`torchrun --nproc-per-node 4 -m repro_torch.serve --backend mesh`:
+    one core a rank, rank 0 serving while the others replay its
+    dispatches; the same requests and spike rate as world size 1 (the
+    demo network's spikes do not depend on the hierarchy)."""
+    import contextlib
+    import io
+    import os
+
+    from repro_torch.serve.__main__ import main
+    argv = ["--device", "cpu", "--backend", "mesh", "--clients", "2",
+            "--requests", "2", "--sessions"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(argv) == 0
+    one = buf.getvalue().splitlines()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "repro_torch.serve"] + argv,
+        env=env, capture_output=True, text=True, timeout=240, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-5000:]
+    four = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    assert len(four) == len(one), (four, one)
+    assert four[0].startswith("served 4 requests from 2 clients")
+    assert four[-1].split("mean spike rate")[-1] == \
+        one[-1].split("mean spike rate")[-1]
