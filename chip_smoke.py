@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA card.
 
-    python3 chip_smoke.py            # one card, full width, ~8 minutes
+    python3 chip_smoke.py            # one card, full width, ~13 minutes
 
 Phases, in the order they run (the timing phase 6 runs last, so that it
 can time the shapes the other phases give the kernels); any failure
@@ -47,7 +47,8 @@ raises and the script exits non-zero:
      against its plain version on the card, fp32 within 2e-5 and bf16
      within 2e-2 (bf16 also within 2e-2 of the plain version in fp32 on
      the same inputs): at the prefill shape (B = 1, S = 4,096, 16 query
-     heads, 2 KV heads, D = 128), a ragged S = 1,000 (B = 2), KV == H
+     heads, 2 KV heads, D = 128), DeepSeekMoE-16B's MHA shape (16 query
+     and 16 KV heads at S = 4,096), a ragged S = 1,000 (B = 2), KV == H
      (the TPU kernel's contract), D = 256, S = 1, causal=False, a peaky
      softmax (q and k x 4 at (2, 1,000, 16, 2, 128)) and a flat one over
      8 k keys (q x 0.05 at (1, 8,192, 4, 1, 128)), where the rounding of
@@ -64,7 +65,8 @@ raises and the script exits non-zero:
      dv's; each gradient's relative and absolute error and the plain
      version's max |.| printed, and that max must be > 0 wherever the
      gradient cannot vanish), at the training shape (B = 1, S = 4,096,
-     16 / 2 heads, D = 128), a ragged S = 1,000 (B = 2), KV == H, D = 256, D = 64,
+     16 / 2 heads, D = 128), the MHA shape (16 / 16 heads), a ragged
+     S = 1,000 (B = 2), KV == H, D = 256, D = 64,
      S = 1, causal=False and phase 10's peaky and flat softmaxes; then
      two backward calls give the same bits, and perturbing the keys and
      values after p leaves dQ's rows up to p unchanged bit for bit;
@@ -131,6 +133,35 @@ raises and the script exits non-zero:
      kernel 72 times (the remat recomputes it), each backward kernel 36
      times and the prefill's forward none; step time, tokens/s and peak
      device memory;
+ 22. the MoE family: (a) DeepSeekMoE-16B at its published widths cut to
+     3 layers (1 dense + 2 MoE), fp32, one seed's weights drawn on the
+     card and copied to the CPU (TF32 off): `prefill` at S = 256 (C = 40,
+     so events drop), every MoE layer's expert ids equal card vs CPU on
+     each choice whose CPU probability lies 1e-5 or more from its
+     neighbours in the sorted order (the near-ties under it counted), its
+     kept events, dropped-event count and output (within 1e-4 of its
+     max) equal on the tokens before the first that parted, logits within
+     1e-3 and caches within 1e-4 when none parted; the `Server` as in
+     phase 11 (4 requests, prompt 16, max_new 16), a stream free to part
+     from the first decode call whose routing parted at a near-tie; the
+     training parity of phase 14 at B = 1, S = 128 (gradients, the fp32
+     routers included, the aux loss within 1e-5 relative, one
+     `make_train_step`), held when its forward routes no choice apart;
+     (b) the full 28-layer model (16.38 B parameters) in bf16, weights
+     drawn on the card: the `Server` with 4 slots, prompt 16, max_new
+     32, every request answered; `prefill` at B = 1, S = 4,096: finite
+     logits, caches `dense_blocks` (1, 1, 4096, 16, 128) and `blocks`
+     (27, 1, 4096, 16, 128), the flash kernel launched 28 times, the
+     dropped events per layer; prefill ms and tokens/s, decode ms a tick
+     beside its weight-read bound, peak device memory (with --profile,
+     one tick's and one prefill's device events and busy share); (c)
+     training at full widths cut to 10 layers (1 dense + 9 MoE, 5.79 B
+     parameters, the most that fit: MOE_TRAIN), bf16 parameters, fp32
+     moments, `make_train_step` on `TokenPipeline` at B = 1, S = 4,096, 3
+     steps: finite losses and grad norms, the parameters changed (a
+     router among them), 0 < aux < 0.2 ce, and per step the forward with
+     lse launched 20 times and each backward kernel 10 times; step ms,
+     tokens/s and peak memory;
  17. the serving tier at full width: one `SpikeServer` (max_batch 8,
      max_wait 2 ms, window 16) holding the core on the fused engine (8
      session lanes) and the MLP on the simulator (4), both deployed by
@@ -250,12 +281,13 @@ raises and the script exits non-zero:
      pairs and atomic adds; spike_matmul also without the L2 flush, at
      16,384 x 16,384 int32, past the L2 cache, and at phase 20's pod
      window, 1 x 512 events x (512, 625,000) int16; flash_attention at the
-     prefill shape in bf16 and fp32),
+     prefill shape in bf16 and fp32, and at the MHA shape in bf16),
      beside a library call or a time-only yardstick where one exists
      (the flash kernels also in TFLOP/s and as a multiple of the library),
      run_lanes' time per step on both networks, and the full LM's
      prefill tokens/s and decode ms per tick; the training kernels at
-     the training shape in bf16 and fp32 (the forward with lse against
+     the training shape in bf16 and fp32, and at the MHA shape in bf16
+     (the forward with lse against
      SDPA's forward, the backward against autograd through SDPA, the
      forward excluded).
 
@@ -268,9 +300,12 @@ Two networks, weights from a numpy seed:
     (benchmarks/table2_vision.py): 784 axons -> 2,000 -> 1,000 -> 10 ANN
     neurons, all-to-all between layers, 3,010 neurons and 3,578,000
     synapses.
-and one LM, configs/qwen2_5_3b.py (36 layers, d_model 2,048, 16 query
-and 2 KV heads of 128, d_ff 11,008, vocab 151,936), weights drawn from a
-torch generator seeded with --seed.
+and two LMs, configs/qwen2_5_3b.py (36 layers, d_model 2,048, 16 query
+and 2 KV heads of 128, d_ff 11,008, vocab 151,936) and
+configs/deepseek_moe_16b.py (28 layers, d_model 2,048, 16 heads of 128
+with 16 KV heads, layer 0 dense with d_ff 10,944, then 64 routed experts
+of width 1,408 top-6 and 2 shared, capacity factor 1.5, vocab 102,400),
+weights drawn from a torch generator seeded with --seed.
 
 The last line of standard output is the JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
@@ -312,6 +347,19 @@ LM_TOL = 1e-3                 # 2-layer fp32 logits, card vs CPU
 LM_TRAIN = (1, 4096, 4)       # training batch, length and steps, full model
 PARITY_TRAIN = (1, 256)       # the same on the 2-layer card-vs-CPU model
 STEP_TOL = 1e-4               # an AdamW step against its formula, of its max
+MOE_ARCH = "deepseek_moe_16b"  # its published widths (configs/)
+# card vs CPU in fp32: the layers (1 dense + 2 MoE), the prefill length
+# (C = 40 there, so events drop) and the training parity's B, S
+MOE_PARITY = (3, 256, (1, 128))
+MOE_SERVE = (4, 16, 32)       # the full model's Server: slots, prompt, max_new
+MOE_PREFILL = (1, 4096)       # the full model's bf16 prefill: B, S
+# training at full width: layers, B, S, steps. The most layers that fit:
+# peak device memory grows 7.06 GB a layer (44.70 GB at 6, 58.81 GB at
+# 8 on the H100), so 10 layers peak near 73 GB, and 11 (~80 GB) would
+# leave too little of the card's 85.5 GB beside the earlier phases' tensors
+MOE_TRAIN = (10, 1, 4096, 3)
+ROUTE_NEAR = 1e-5             # a CPU probability margin under it: a near-tie
+MHA_SHAPE = (1, 4096, 16, 16, 128)  # its attention's (B, S, H, KV, D)
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # of max |ref|
 
 
@@ -1215,6 +1263,7 @@ def phase_flash_kernel(dev, seed: int) -> dict:
     B, S = LM_PREFILL
     cases = [  # name, (B, S, H, KV, D), layout, causal, (q, k) x
         ("prefill shape", (B, S, 16, 2, 128), "model", True, (1.0, 1.0)),
+        ("MHA model shape", MHA_SHAPE, "model", True, (1.0, 1.0)),
         ("ragged S", (2, 1000, 16, 2, 128), "model", True, (1.0, 1.0)),
         ("KV == H", (2, 512, 8, 8, 64), "heads", True, (1.0, 1.0)),
         ("D = 256", (1, 700, 16, 16, 256), "model", True, (1.0, 1.0)),
@@ -1312,6 +1361,7 @@ def phase_flash_train_kernels(dev, seed: int) -> dict:
     B, S = LM_TRAIN[:2]
     cases = [  # name, (B, S, H, KV, D), layout, causal, (q, k) x
         ("training shape", (B, S, 16, 2, 128), "model", True, (1.0, 1.0)),
+        ("MHA model shape", MHA_SHAPE, "model", True, (1.0, 1.0)),
         ("ragged S", (2, 1000, 16, 2, 128), "model", True, (1.0, 1.0)),
         ("KV == H", (2, 512, 8, 8, 128), "heads", True, (1.0, 1.0)),
         ("D = 256", (1, 700, 16, 16, 256), "model", True, (1.0, 1.0)),
@@ -1450,27 +1500,33 @@ def serve(srv, prompts, max_new: int):
     return slots, active, tick_ms
 
 
-def greedy_agreement(card_calls, cpu_calls, prompts, slots, active):
+def greedy_agreement(card_calls, cpu_calls, prompts, slots, active,
+                     flip_call=None):
     """Walk each slot's greedy decisions (its admit's last decode call,
     then one per tick) on both servers. A stream may part only where the
-    CPU's top-2 margin is under LM_TOL (a near-tie); it is not compared
-    after that. Returns (decisions compared, near-ties)."""
+    CPU's top-2 margin is under LM_TOL (a near-tie), or from `flip_call`
+    on, the first decode call whose MoE routing parted at a routing
+    near-tie (`routing_flips`); it is not compared after that. Returns
+    (decisions compared, near-ties, streams parted after a flip)."""
     ends = np.cumsum([len(p) for p in prompts]) - 1
     per_slot = {s: [int(ends[i])] for i, s in enumerate(slots)}
     for j, act in enumerate(active):
         for s in act:
             per_slot[s].append(int(ends[-1]) + 1 + j)
-    compared = near_ties = 0
+    compared = near_ties = after_flip = 0
     for s, idx in per_slot.items():
         for c in idx:
             compared += 1
             if card_calls[c][0][s] != cpu_calls[c][0][s]:
+                if flip_call is not None and c >= flip_call:
+                    after_flip += 1
+                    break
                 margin = float(cpu_calls[c][1][s])
                 need(margin < LM_TOL, f"slot {s} parts at decode call {c} "
                                       f"with a CPU top-2 margin {margin}")
                 near_ties += 1
                 break
-    return compared, near_ties
+    return compared, near_ties, after_flip
 
 
 def explain_prefill_mismatch(first, again) -> None:
@@ -1560,8 +1616,8 @@ def phase_lm_parity(dev, seed: int) -> dict:
         calls = record_decisions(srv)
         runs[where] = (calls,) + serve(srv, prompts, max_new)[:2]
     need(runs[dev][1:] == runs["cpu"][1:], "the servers' slots differ")
-    compared, ties = greedy_agreement(runs[dev][0], runs["cpu"][0],
-                                      prompts, *runs["cpu"][1:])
+    compared, ties, _ = greedy_agreement(runs[dev][0], runs["cpu"][0],
+                                         prompts, *runs["cpu"][1:])
     log(f"[lm parity] Server, {slots_n} requests (prompt {plen}, max_new "
         f"{max_new}): {compared} greedy decisions compared, card == CPU on "
         f"all but {ties} near-tie(s) (CPU top-2 margin < {LM_TOL}); "
@@ -1611,25 +1667,44 @@ def phase_train_parity(dev, seed: int, zero_counts, read_counts) -> dict:
     then one `make_train_step` with lr 1e-2 from the first step (the
     loss, the moments and the step). Returns the gaps and the card step's
     kernel launches."""
-    from repro_torch.launch.steps import make_train_step
     from repro_torch.models import lm
-    from repro_torch.optim import AdamWConfig, adamw_init
     need(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
     cfg = lm_config(2)
-    oc = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=10)
     t0 = time.perf_counter()
     models = {"cpu": lm.init_params(cfg, seed, torch.float32, "cpu")}
     models[dev] = lm.init_params(cfg, seed, torch.float32, dev)
     models[dev].load_state_dict(models["cpu"].state_dict())
     tokens = np.random.default_rng(seed + 25).integers(
         0, cfg.vocab_size, PARITY_TRAIN)
-    grads = {}
+    return train_parity(dev, cfg, models, tokens, zero_counts, read_counts,
+                        f"2-layer {LM_ARCH} full width fp32, B, S = "
+                        f"{PARITY_TRAIN}", t0)
+
+
+def train_parity(dev, cfg, models, tokens, zero_counts, read_counts,
+                 tag: str, t0: float) -> dict:
+    """Phase 14's checks of one model on the card and its copy on the
+    CPU (`models`, keyed by device) at `tokens`: every gradient leaf of
+    `lm.loss_fn` within LM_TOL of its own max, then one `make_train_step`
+    with lr 1e-2 from the first step (the loss, the moments and the step
+    against plain AdamW and the CPU's). Returns the gaps, each side's
+    aux and the card step's kernel launches."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    oc = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=10)
+    secs = {}
+    grads, aux = {}, {}
     for where, model in models.items():
+        t1 = time.perf_counter()
         names, leaves = zip(*model.named_parameters())
-        loss, _ = lm.loss_fn(model, cfg, {"tokens": torch.as_tensor(
+        loss, parts = lm.loss_fn(model, cfg, {"tokens": torch.as_tensor(
             tokens, device=where)})
+        aux["cpu" if where == "cpu" else "card"] = float(parts["aux"].detach())
         grads[where] = dict(zip(names, torch.autograd.grad(loss, leaves)))
-    g_err = max(rel_err(grads[dev][n].cpu(), grads["cpu"][n])
+        secs[f"grads {where}"] = time.perf_counter() - t1
+    # the comparisons run on the card, the CPU's tensors moved there
+    g_err = max(rel_err(grads[dev][n], grads["cpu"][n].to(dev))
                 for n in grads["cpu"])
     need(g_err <= LM_TOL, f"training gradients card vs CPU: a leaf is "
                           f"{g_err:.3g} of its max |grad| apart")
@@ -1641,10 +1716,13 @@ def phase_train_parity(dev, seed: int, zero_counts, read_counts) -> dict:
         opts[where] = adamw_init(model, oc)
         torch.cuda.synchronize()
         zero_counts()
+        t1 = time.perf_counter()
         out[where] = step(model, opts[where], {"tokens": tokens})[2]
         torch.cuda.synchronize()
+        secs[f"step {where}"] = time.perf_counter() - t1
         if where != "cpu":
             counts = read_counts()
+    t1 = time.perf_counter()
     loss_err = abs(float(out[dev]["loss"]) - float(out["cpu"]["loss"]))
     lr = float(out["cpu"]["lr"])
     need(math.isclose(lr, oc.lr, rel_tol=1e-6)
@@ -1666,32 +1744,34 @@ def phase_train_parity(dev, seed: int, zero_counts, read_counts) -> dict:
     controls = {"no step": 0.0, "flipped": 0.0}
     n_well, n_all = 0, 0
 
-    def step_errs(p1, n, mu, nu, well):
+    def step_errs(p1, p0n, cpu_p1, mu, nu, well):
         want = -lr * ((mu / bc1) / ((nu / bc2).sqrt() + oc.eps)
-                      + oc.weight_decay * p0[n])
-        got, cpu = p1 - p0[n], state[n] - p0[n]
+                      + oc.weight_decay * p0n)
+        got, cpu = p1 - p0n, cpu_p1 - p0n
         return (rel_err(got, want), float(torch.where(well, got - cpu, 0.0)
                                            .abs().max() / cpu.abs().max()
                                            .clamp(min=1e-30)))
 
-    for n, t in models[dev].state_dict().items():
-        mu, nu = opts[dev]["mu"][n].cpu(), opts[dev]["nu"][n].cpu()
+    for n, p1 in models[dev].state_dict().items():
+        mu, nu = opts[dev]["mu"][n], opts[dev]["nu"][n]
+        p0n, cpu_p1 = p0[n].to(dev), state[n].to(dev)
+        cpu_nu = opts["cpu"]["nu"][n].to(dev)
         errs["moments"] = max(errs["moments"],
-                              rel_err(mu, opts["cpu"]["mu"][n]),
-                              rel_err(nu, opts["cpu"]["nu"][n]))
-        well = (opts["cpu"]["nu"][n] / bc2).sqrt() >= 1e4 * oc.eps
-        p1 = t.cpu()
-        e_formula, e_cpu = step_errs(p1, n, mu, nu, well)
+                              rel_err(mu, opts["cpu"]["mu"][n].to(dev)),
+                              rel_err(nu, cpu_nu))
+        well = (cpu_nu / bc2).sqrt() >= 1e4 * oc.eps
+        e_formula, e_cpu = step_errs(p1, p0n, cpu_p1, mu, nu, well)
         errs["formula"] = max(errs["formula"], e_formula)
         errs["cpu"] = max(errs["cpu"], e_cpu)
-        for what, fake in (("no step", p0[n]), ("flipped", 2 * p0[n] - p1)):
+        for what, fake in (("no step", p0n), ("flipped", 2 * p0n - p1)):
             if well.any():   # a control's error over both checks
-                controls[what] = max(controls[what],
-                                     min(step_errs(fake, n, mu, nu, well)))
-        need(float((p1 - state[n]).abs().max()) <= 2 * lr,
+                controls[what] = max(controls[what], min(step_errs(
+                    fake, p0n, cpu_p1, mu, nu, well)))
+        need(float((p1 - cpu_p1).abs().max()) <= 2 * lr,
              f"{n}: a step differs by more than 2 lr card vs CPU")
         n_well += int(well.sum())
         n_all += well.numel()
+    secs["checks"] = time.perf_counter() - t1
     need(loss_err <= 1e-4 and errs["moments"] <= LM_TOL
          and errs["formula"] <= STEP_TOL and errs["cpu"] <= LM_TOL,
          f"train step card vs CPU: loss {loss_err:.3g} (<= 1e-4), mu/nu "
@@ -1705,8 +1785,7 @@ def phase_train_parity(dev, seed: int, zero_counts, read_counts) -> dict:
                                      "flash_bwd_dq")),
          f"the card's train step did not launch the training kernels: "
          f"{counts}")
-    log(f"[train parity] 2-layer {LM_ARCH} full width fp32, B, S = "
-        f"{PARITY_TRAIN}, lr {lr:g}: card vs CPU loss "
+    log(f"[train parity] {tag}, lr {lr:g}: card vs CPU loss "
         f"{float(out['cpu']['loss']):.6f} +- {loss_err:.3g} (<= 1e-4); "
         f"gradients {g_err:.3g} and mu/nu {errs['moments']:.3g} of each "
         f"leaf's max |.| (<= {LM_TOL}); card's step against plain AdamW "
@@ -1715,24 +1794,29 @@ def phase_train_parity(dev, seed: int, zero_counts, read_counts) -> dict:
         f"the {n_well} of {n_all} elements with |g| >= 1e4 eps, within "
         f"2 lr on the rest; a step left out or flipped misses by "
         f"{controls}; card launches {counts}; "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + ")")
     return {"loss_err": loss_err, "grad_rel_err": g_err,
             "moment_rel_err": errs["moments"],
             "step_vs_formula": errs["formula"],
             "step_vs_cpu": errs["cpu"], "step_checked": n_well,
-            "controls": controls, "launches": counts}
+            "controls": controls, "launches": counts, "aux": aux}
 
 
-def run_lm_train(seed: int, zero_counts, read_counts, profile=False):
-    """LM_TRAIN's steps of the full 36-layer model in bf16 (fp32 AdamW
-    moments) on TokenPipeline batches. Returns per-step losses, grad
-    norms, host ms (synchronised), launches, and the peak memory."""
+def run_lm_train(seed: int, zero_counts, read_counts, profile=False,
+                 cfg=None, shape=LM_TRAIN, watch=None,
+                 tag="lm train step 36L bf16"):
+    """`shape`'s (B, S, steps) steps of `cfg` (the full 36-layer
+    Qwen2.5-3B by default) in bf16 (fp32 AdamW moments) on TokenPipeline
+    batches. Returns per-step losses, grad norms, host ms
+    (synchronised), launches, the peak memory and, after the steps, the
+    loss's ce and aux parts on one more batch."""
     from repro_torch.data.synthetic import TokenPipeline
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import lm
     from repro_torch.optim import AdamWConfig, adamw_init
-    cfg = lm_config()
-    B, S, n_steps = LM_TRAIN
+    cfg = lm_config() if cfg is None else cfg
+    B, S, n_steps = shape
     torch.cuda.reset_peak_memory_stats()
     model = lm.init_params(cfg, seed, torch.bfloat16)
     oc = AdamWConfig(moment_dtype=cfg.opt_dtype, total_steps=n_steps)
@@ -1741,8 +1825,8 @@ def run_lm_train(seed: int, zero_counts, read_counts, profile=False):
     pipe = TokenPipeline(cfg.vocab_size, S, B, seed=seed)
     # weight matrices: a bf16 norm scale near 1 does not move at the
     # warmup's learning rate (3e-6 at step 1, under half its ulp)
-    watch = ("blocks.0.attn.wq", f"blocks.{cfg.n_layers - 1}.mlp.w_out",
-             "embed.table")
+    watch = watch or ("blocks.0.attn.wq",
+                      f"blocks.{cfg.n_layers - 1}.mlp.w_out", "embed.table")
     leaves = dict(model.named_parameters())
     before = {n: leaves[n].detach().clone() for n in watch}
     out = {"loss": [], "grad_norm": [], "ms": [], "launches": []}
@@ -1762,10 +1846,373 @@ def run_lm_train(seed: int, zero_counts, read_counts, profile=False):
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     out["changed"] = {n: not torch.equal(before[n], leaves[n]) for n in watch}
     out["n_params"] = sum(p.numel() for p in leaves.values())
+    with torch.no_grad():
+        _, parts = lm.loss_fn(model, cfg, {"tokens": torch.as_tensor(
+            pipe.next_batch()["tokens"], device=model.embed.table.device)})
+    out["ce"], out["aux"] = float(parts["ce"]), float(parts["aux"])
     if profile:
-        profile_window("[profile lm train step 36L bf16]",
+        profile_window(f"[profile {tag}]",
                        lambda: step(model, opt, pipe.next_batch()), 1)
     return out
+
+
+# ------------------------------------------------------- the MoE family
+def moe_config(n_layers=None):
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfg = get_arch(MOE_ARCH)
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
+class MoERecorder:
+    """While in its `with` block, `models.moe.moe_apply` is wrapped so
+    that each MoE layer's call appends, on the host, the routing of its
+    tokens as `_route` and `_pack` give it again on the same input (ids,
+    keep), each token's top k + 1 probabilities (sorted) and, with
+    `outputs`, the layer's output. The model's own path is unchanged."""
+
+    def __init__(self, outputs=False):
+        self.outputs = outputs
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        real = self._real = moe.moe_apply
+
+        def recorded(p, x, cfg):
+            y, aux = real(p, x, cfg)
+            with torch.no_grad():
+                xt = x.reshape(-1, x.shape[-1])
+                w, ids, _ = moe._route(xt, p.router, cfg)
+                keep = moe._pack(xt, ids, w, moe._capacity(xt.shape[0], cfg),
+                                 cfg.moe.n_routed)[2]
+                probs = torch.softmax(xt.float() @ p.router.float(), dim=-1)
+                rec = {"ids": ids.cpu(), "keep": keep.cpu(),
+                       "top": probs.sort(dim=-1, descending=True)
+                       .values[:, :cfg.moe.top_k + 1].cpu()}
+                if self.outputs:
+                    rec["y"] = y.float().cpu()
+            self.calls.append(rec)
+            return y, aux
+        moe.moe_apply = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.moe_apply = self._real
+
+
+def routing_flips(card, cpu, what: str):
+    """Card against CPU routing, call by call (a call is one MoE layer
+    over its tokens). A choice whose CPU probability lies within
+    ROUTE_NEAR of a neighbour in the sorted order is a near-tie; every
+    other choice must pick the same expert on both sides. Returns (the
+    near-tie choices, the choices that parted, and per call the first
+    token that parted, or the token count)."""
+    near = flips = 0
+    first = []
+    for i, (c, h) in enumerate(zip(card, cpu)):
+        gaps = h["top"][:, :-1] - h["top"][:, 1:]
+        margin = gaps.clone()
+        margin[:, 1:] = torch.minimum(gaps[:, 1:], gaps[:, :-1])
+        close = margin < ROUTE_NEAR
+        diff = c["ids"] != h["ids"]
+        need(not bool((diff & ~close).any()),
+             f"{what}: MoE call {i} routes a choice apart card vs CPU "
+             f"where the CPU's margin is >= {ROUTE_NEAR}")
+        near += int(close.sum())
+        flips += int(diff.sum())
+        rows = torch.nonzero(diff.any(dim=1))[:, 0]
+        first.append(int(rows[0]) if len(rows) else diff.shape[0])
+    return near, flips, first
+
+
+def phase_moe_parity(dev, seed: int, zero_counts, read_counts) -> dict:
+    """22(a): DeepSeekMoE-16B at its published widths cut to MOE_PARITY's
+    layers, fp32, one seed's weights drawn on the card and copied to the
+    CPU (TF32 off; the CPU prefill on one thread). Prefill: routing
+    (`routing_flips`), each layer's kept events and drops, its output on
+    the tokens routed alike, then logits and caches; the `Server`'s
+    greedy tokens; training: gradients, aux and one `make_train_step`
+    (`train_parity`). Where a near-tie parted, what it feeds is printed,
+    not held."""
+    import copy
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import lm
+    from repro_torch.models.moe import _capacity
+    need(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    n_layers, S, train_shape = MOE_PARITY
+    cfg = moe_config(n_layers)
+    k = cfg.moe.top_k
+    t0 = time.perf_counter()
+    models = {dev: lm.init_params(cfg, seed, torch.float32, dev)}
+    models["cpu"] = copy.deepcopy(models[dev]).cpu()
+    tokens = torch.as_tensor(np.random.default_rng(seed + 61).integers(
+        0, cfg.vocab_size, (1, S)))
+    out, recs, ref_s = {}, {}, 0.0
+    for where in ("cpu", dev):
+        threads = torch.get_num_threads()
+        if where == "cpu":      # one fixed order of the CPU's reductions
+            torch.set_num_threads(1)
+        try:
+            t1 = time.perf_counter()
+            with MoERecorder(outputs=True) as rec:
+                out[where] = lm.prefill(models[where], cfg,
+                                        {"tokens": tokens.to(where)})
+            if where == "cpu":
+                ref_s = time.perf_counter() - t1
+        finally:
+            torch.set_num_threads(threads)
+        recs[where] = rec.calls
+    near, flips, first = routing_flips(recs[dev], recs["cpu"], "prefill")
+    layers = []
+    cut = S
+    for c, h, f in zip(recs[dev], recs["cpu"], first):
+        # tokens before the first parted one, in this layer or an earlier
+        cut = min(cut, f)
+        need(torch.equal(c["keep"][:cut * k], h["keep"][:cut * k]),
+             f"prefill: kept events differ card vs CPU before token {cut}")
+        drops = (int((~c["keep"]).sum()), int((~h["keep"]).sum()))
+        need(cut < S or drops[0] == drops[1],
+             f"prefill: dropped events card vs CPU {drops}")
+        y_err = rel_err(c["y"][:cut], h["y"][:cut])
+        need(y_err <= 1e-4, f"prefill: an MoE layer's output is {y_err:.3g} "
+                            f"of its max apart card vs CPU")
+        layers.append({"drops": drops, "out_rel_err": y_err,
+                       "alike_tokens": cut})
+    (lg_h, kv_h), (lg_c, kv_c) = out["cpu"], out[dev]
+    e_lg = float((lg_c.cpu() - lg_h).abs().max())
+    e_kv = max(float((kv_c[g][n].cpu() - kv_h[g][n]).abs().max())
+               for g in kv_h for n in ("k", "v"))
+    need(flips > 0 or (e_lg <= LM_TOL and e_kv <= 1e-4),
+         f"MoE prefill card vs CPU: logits {e_lg:.3g}, caches {e_kv:.3g}")
+    log(f"[moe parity] {n_layers}-layer {MOE_ARCH} full width fp32, prefill "
+        f"S={S} (C = {_capacity(S, cfg)}): {near} near-tie choice(s) "
+        f"(CPU margin < {ROUTE_NEAR}), {flips} routed apart; per MoE layer "
+        f"dropped events card/CPU, output error of its max on the tokens "
+        f"routed alike: {layers}; logits {e_lg:.3g} (<= {LM_TOL}"
+        f"{'' if not flips else ', not held: routing parted'}), caches "
+        f"{e_kv:.3g} (<= 1e-4); the CPU prefill on 1 thread in "
+        f"{ref_s:.1f} s")
+    slots_n, plen, max_new = PARITY_SERVE
+    prompts = prompts_for(cfg, slots_n, plen, seed + 62)
+    runs, serve_s = {}, {}
+    for where in (dev, "cpu"):
+        t1 = time.perf_counter()
+        srv = Server(cfg, max_len=plen + max_new + 2, slots=slots_n,
+                     device=where, params=models[where])
+        calls = record_decisions(srv)
+        with MoERecorder() as rec:
+            slots, active, _ = serve(srv, prompts, max_new)
+        runs[where] = (calls, slots, active, rec.calls)
+        serve_s["cpu" if where == "cpu" else "card"] = round(
+            time.perf_counter() - t1, 1)
+        del srv
+    need(runs[dev][1:3] == runs["cpu"][1:3], "the servers' slots differ")
+    s_near, s_flips, s_first = routing_flips(runs[dev][3], runs["cpu"][3],
+                                             "Server")
+    per_call = lm.segment_layers(cfg)["blocks"]
+    flip_call = next((i // per_call for i, f in enumerate(s_first)
+                      if f < slots_n), None)
+    compared, ties, after = greedy_agreement(
+        runs[dev][0], runs["cpu"][0], prompts, *runs["cpu"][1:3],
+        flip_call=flip_call)
+    log(f"[moe parity] Server, {slots_n} requests (prompt {plen}, max_new "
+        f"{max_new}): {compared} greedy decisions compared, card == CPU on "
+        f"all but {ties} near-tie(s) (CPU top-2 margin < {LM_TOL}); routing "
+        f"near-ties {s_near}, routed apart {s_flips} (first at decode call "
+        f"{flip_call}), streams parted after it {after}; seconds "
+        f"{serve_s}")
+    tokens = np.random.default_rng(seed + 63).integers(
+        0, cfg.vocab_size, train_shape)
+    recs = {}
+    for where in ("cpu", dev):
+        with torch.no_grad(), MoERecorder() as rec:
+            lm.backbone(models[where], cfg, {"tokens": torch.as_tensor(
+                tokens, device=where)}, remat=False)
+        recs[where] = rec.calls
+    t_near, t_flips, _ = routing_flips(recs[dev], recs["cpu"], "training")
+    res = {"logits_err": e_lg, "cache_err": e_kv, "near_ties": near,
+           "flips": flips, "layers": layers, "server_compared": compared,
+           "server_near_ties": ties, "server_flips": s_flips,
+           "train_flips": t_flips}
+    if t_flips:
+        log(f"[moe parity] training B, S = {train_shape}: {t_flips} choice(s) "
+            f"routed apart at near-ties ({t_near} near); the gradients, aux "
+            f"and step are not comparable and not held")
+        return res
+    tp = train_parity(dev, cfg, models, tokens, zero_counts, read_counts,
+                      f"{n_layers}-layer {MOE_ARCH} full width fp32, B, S = "
+                      f"{train_shape} ({t_near} routing near-ties, none "
+                      f"parted)", time.perf_counter())
+    aux_err = abs(tp["aux"]["card"] - tp["aux"]["cpu"]) / tp["aux"]["cpu"]
+    need(tp["aux"]["cpu"] > 0 and aux_err <= 1e-5,
+         f"MoE aux card vs CPU {tp['aux']} ({aux_err:.3g} relative)")
+    log(f"[moe parity] training aux card {tp['aux']['card']:.9g}, CPU "
+        f"{tp['aux']['cpu']:.9g} ({aux_err:.3g} relative, <= 1e-5); phase "
+        f"22(a) {time.perf_counter() - t0:.1f} s")
+    return {**res, **tp, "aux_rel_err": aux_err}
+
+
+def run_moe_full(seed: int, zero_counts, read_counts, profile=False) -> dict:
+    """22(b): the full 28-layer DeepSeekMoE-16B in bf16, weights drawn on
+    the card: the `Server` answering MOE_SERVE's requests, then `prefill`
+    at MOE_PREFILL (finite logits, both cache segments' shapes, the
+    flash kernel once a layer, the dropped events per layer), timed."""
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import lm
+    cfg = moe_config()
+    slots_n, plen, max_new = MOE_SERVE
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = Server(cfg, max_len=plen + max_new + 2, slots=slots_n,
+                 dtype=torch.bfloat16, seed=seed)
+    torch.cuda.synchronize()
+    res = {"draw_s": time.perf_counter() - t0}
+    zero_counts()
+    t0 = time.perf_counter()
+    _, _, tick_ms = serve(srv, prompts_for(cfg, slots_n, plen, seed + 64),
+                          max_new)
+    res["serve_s"] = time.perf_counter() - t0
+    res["serve_counts"] = read_counts()
+    need(all(len(o) == max_new and all(0 <= t < cfg.vocab_size for t in o)
+             for o in srv.outputs),
+         f"not every request was answered: {[len(o) for o in srv.outputs]}")
+    if profile:
+        profile_window("[profile moe decode tick 28L bf16]", srv.tick, 1)
+    model = srv.params
+    res["tick_ms"] = tick_ms
+    res["n_params"] = sum(p.numel() for p in model.parameters())
+    res["param_bytes"] = sum(p.nbytes for p in model.parameters())
+    # a tick reads every weight but the embedding table (its 4 rows
+    # aside): the routed experts run on every capacity buffer
+    res["tick_bytes"] = res["param_bytes"] - model.embed.table.nbytes \
+        + sum(t.nbytes for seg in srv.cache.values() for t in seg.values())
+    del srv
+    B, S = MOE_PREFILL
+    tokens = torch.as_tensor(np.random.default_rng(seed + 65).integers(
+        0, cfg.vocab_size, (B, S)), device=model.embed.table.device)
+    step = make_prefill_step(cfg)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    with MoERecorder() as rec:
+        logits, caches = step(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    res["prefill_first_s"] = time.perf_counter() - t0
+    res["prefill_counts"] = read_counts()
+    need(logits.shape == (B, model.embed.table.shape[0])
+         and bool(torch.isfinite(logits).all()),
+         "MoE prefill logits are not finite over the padded vocab")
+    shapes = {g: tuple(c["k"].shape) for g, c in caches.items()}
+    want = {g: (n, B, S, cfg.n_kv_heads, cfg.resolved_head_dim)
+            for g, n in lm.segment_layers(cfg).items()}
+    need(shapes == want and all(c["v"].shape == c["k"].shape
+                                for c in caches.values()),
+         f"MoE prefill caches {shapes}, want {want}")
+    need(res["prefill_counts"]["flash_attention"] == cfg.n_layers,
+         f"MoE prefill did not run the flash kernel once per layer: "
+         f"{res['prefill_counts']}")
+    res["drops"] = [int((~c["keep"]).sum()) for c in rec.calls]
+    res["events"] = int(rec.calls[0]["keep"].numel())
+    del logits, caches, rec
+    res["prefill_ms"] = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step(model, {"tokens": tokens})
+        torch.cuda.synchronize()
+        res["prefill_ms"].append(1e3 * (time.perf_counter() - t0))
+    if profile:
+        profile_window("[profile moe prefill 28L bf16]",
+                       lambda: step(model, {"tokens": tokens}), 1)
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return res
+
+
+def phase_moe(dev, seed: int, zero_counts, read_counts, card: str,
+              profile=False) -> dict:
+    """Phase 22: the MoE family on the card, (a) parity, (b) the full
+    model served and prefilled in bf16, (c) training at full width cut
+    to MOE_TRAIN's layers. Returns the by-path launch counts and what
+    phase 6 and the kernels' line report."""
+    from repro_torch.models.moe import _capacity
+    t0 = time.perf_counter()
+    par = phase_moe_parity(dev, seed, zero_counts, read_counts)
+    torch.cuda.empty_cache()
+    paths = {}
+    if "launches" in par:
+        paths["moe train 3L fp32 (parity)"] = par.pop("launches")
+    full = run_moe_full(seed, zero_counts, read_counts, profile)
+    paths["moe server 28L bf16"] = full.pop("serve_counts")
+    paths["moe prefill 28L bf16"] = full.pop("prefill_counts")
+    pre_ms = float(np.median(full["prefill_ms"]))
+    tick = float(np.median(full["tick_ms"]))
+    bound_tick = full["tick_bytes"] / HBM_BYTES_PER_S
+    log(f"[path moe server] {MOE_ARCH} 28 layers bf16 ({full['n_params']} "
+        f"parameters, {full['param_bytes']} B), weights drawn on the card "
+        f"in {full['draw_s']:.1f} s; {MOE_SERVE[0]} requests (prompt "
+        f"{MOE_SERVE[1]}, max_new {MOE_SERVE[2]}) answered in "
+        f"{full['serve_s']:.1f} s; launches {paths['moe server 28L bf16']}")
+    log(f"[path moe prefill] B={MOE_PREFILL[0]} S={MOE_PREFILL[1]} bf16: "
+        f"{full['prefill_first_s']:.2f} s (first call, routing recorded); "
+        f"dropped events per MoE layer {full['drops']} of {full['events']} "
+        f"(C = {_capacity(MOE_PREFILL[0] * MOE_PREFILL[1], moe_config())}"
+        f"); launches {paths['moe prefill 28L bf16']}")
+    torch.cuda.empty_cache()
+    n_layers, B, S, n_steps = MOE_TRAIN
+    cfg = moe_config(n_layers)
+    nb = cfg.n_layers - cfg.moe.first_k_dense
+    t1 = time.perf_counter()
+    tr = run_lm_train(seed, zero_counts, read_counts, profile, cfg=cfg,
+                      shape=(B, S, n_steps),
+                      watch=("dense_blocks.0.attn.wq",
+                             f"blocks.{nb - 1}.moe.w_out",
+                             f"blocks.{nb - 1}.moe.router", "embed.table"),
+                      tag=f"moe train step {n_layers}L bf16")
+    paths[f"moe train {n_layers}L bf16"] = tr["counts"]
+    log(f"[path moe train] {MOE_ARCH} full width cut to {n_layers} layers "
+        f"(1 dense + {nb} MoE; {tr['n_params']} parameters) bf16, fp32 "
+        f"moments, B={B} S={S}, {n_steps} steps in "
+        f"{time.perf_counter() - t1:.1f} s with the weights' draw: losses "
+        f"{tr['loss']}, grad norms {tr['grad_norm']}, ce {tr['ce']:.6g} aux "
+        f"{tr['aux']:.6g} after them, step ms "
+        f"{[round(x, 2) for x in tr['ms']]}; launches per step "
+        f"{tr['launches']}")
+    need(all(np.isfinite(tr["loss"])) and all(np.isfinite(tr["grad_norm"])),
+         "an MoE training loss or grad norm is not finite")
+    need(all(tr["changed"].values()),
+         f"the MoE parameters did not change: {tr['changed']}")
+    need(0 < tr["aux"] < 0.2 * tr["ce"],
+         f"MoE aux {tr['aux']} not in (0, 0.2 ce = {0.2 * tr['ce']})")
+    for c in tr["launches"]:
+        need(c["flash_fwd_lse"] == 2 * n_layers
+             and c["flash_bwd_dkv"] == n_layers
+             and c["flash_bwd_dq"] == n_layers
+             and c["flash_attention"] == 0,
+             f"an MoE train step's launches are not {2 * n_layers} / "
+             f"{n_layers} / {n_layers} / 0: {c}")
+    step_ms = float(np.median(tr["ms"][1:]))
+    log(f"[time moe] {MOE_ARCH} 28 layers bf16: prefill B={MOE_PREFILL[0]} "
+        f"S={MOE_PREFILL[1]} {pre_ms:.2f} ms (median of 3, host clock, "
+        f"synchronised) = {MOE_PREFILL[0] * MOE_PREFILL[1] / pre_ms * 1e3:.1f}"
+        f" tokens/s; decode {tick:.3f} ms per tick at {MOE_SERVE[0]} slots "
+        f"(median of {len(full['tick_ms'])}, min {min(full['tick_ms']):.3f}; "
+        f"host clock, each tick ends in a host read), weight-read bound "
+        f"{1e3 * bound_tick:.3f} ms ({full['tick_bytes']} B); peak device "
+        f"memory {full['peak_bytes']} B. Training {n_layers} layers: "
+        f"{step_ms:.2f} ms per step (median of steps 2-{n_steps}) = "
+        f"{B * S / step_ms * 1e3:.1f} tokens/s, peak device memory "
+        f"{tr['peak_bytes']} B; phase 22 {time.perf_counter() - t0:.1f} s on "
+        f"{card}")
+    return {"paths": paths, "parity": par, "prefill_ms": pre_ms,
+            "prefill_tokens_per_s": MOE_PREFILL[0] * MOE_PREFILL[1] / pre_ms
+            * 1e3, "decode_ms_per_tick": tick,
+            "decode_bound_ms": 1e3 * bound_tick, "drops": full["drops"],
+            "serve_peak_bytes": full["peak_bytes"], "train_step_ms": step_ms,
+            "train_tokens_per_s": B * S / step_ms * 1e3,
+            "train_peak_bytes": tr["peak_bytes"], "train_layers": n_layers}
 
 
 # ------------------------------------------------------- the serving tier
@@ -4124,6 +4571,15 @@ def main(argv=None) -> int:
     train_tok = LM_TRAIN[0] * LM_TRAIN[1] / (train_ms / 1e3)
     torch.cuda.empty_cache()
 
+    # ---- 22. the MoE family: 3 layers card vs CPU, the full 28-layer
+    # model served and prefilled in bf16, training at full width
+    need(threading.active_count() == 1,
+         f"threads alive before phase 22: {threading.enumerate()}")
+    moe = phase_moe(dev, args.seed, zero_counts, read_counts, card,
+                    args.profile)
+    by_path.update(moe.pop("paths"))
+    torch.cuda.empty_cache()
+
     # ---- 17. the serving tier at full width: the core (fused engine) and
     # the MLP (simulator) resident in one SpikeServer; every server shut
     # down and every thread joined when it returns
@@ -4329,10 +4785,14 @@ def main(argv=None) -> int:
         f"{runs['lane_us_mlp engine fused=True']:.1f} (B=8, host clock) "
         f"on {card}")
 
-    # flash_attention at the prefill shape, bf16 (the path's) and fp32
-    def time_flash(dtype):
+    # flash_attention at the prefill shape, bf16 (the path's) and fp32,
+    # and at DeepSeekMoE-16B's (KV == H = 16) in bf16
+    def mha_tag(KV):
+        return " MHA model shape" if KV == MHA_SHAPE[3] else ""
+
+    def time_flash(dtype, KV=2):
         B, S = LM_PREFILL
-        H, KV, D = 16, 2, 128
+        H, D = 16, 128
         gen = torch.Generator(device=dev)
         gen.manual_seed(args.seed + 31)
         q, k, v = flash_inputs(dev, gen, B, S, H, KV, D, dtype)
@@ -4350,9 +4810,9 @@ def main(argv=None) -> int:
         rate = BF16_TC_FLOPS_PER_S if dtype == torch.bfloat16 \
             else SCALAR_OPS_PER_S
         bnd, by = bound(n_bytes, flops, rate)
-        log(f"[time flash_attention {str(dtype)[6:]}] {ms:.4f} ms at (B, S, "
-            f"H, KV, D) = {(B, S, H, KV, D)} ({flops / ms / 1e9:.1f} "
-            f"TFLOP/s), plain {plain:.4f} ms, bound "
+        log(f"[time flash_attention {str(dtype)[6:]}{mha_tag(KV)}] {ms:.4f} "
+            f"ms at (B, S, H, KV, D) = {(B, S, H, KV, D)} "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, bound "
             f"{1e3 * bnd:.2f} us ({by}: {flops} flops at {rate:.3g}/s, "
             f"{n_bytes} B), {ms / bnd:.2f}x the bound; library "
             f"scaled_dot_product_attention(is_causal=True), KV heads "
@@ -4361,13 +4821,14 @@ def main(argv=None) -> int:
 
     fa16 = time_flash(torch.bfloat16)
     fa32 = time_flash(torch.float32)
+    fa_mha = time_flash(torch.bfloat16, MHA_SHAPE[3])
 
     # the training kernels at the training shape, bf16 (the path's) and
     # fp32: the forward with lse, the backward's two kernels alone and the
     # whole backward (delta and the chunk sums included)
-    def time_flash_train(dtype):
+    def time_flash_train(dtype, KV=2):
         B, S = LM_TRAIN[:2]
-        H, KV, D = 16, 2, 128
+        H, D = 16, 128
         gen = torch.Generator(device=dev)
         gen.manual_seed(args.seed + 37)
         q, k, v = flash_inputs(dev, gen, B, S, H, KV, D, dtype)
@@ -4413,14 +4874,15 @@ def main(argv=None) -> int:
             out, (qe, ke, ve), doe, retain_graph=True), flush=flush)
         res["lib"] = (lib_fwd, lib_bwd)
         f, bw = res["fwd"], res["bwd"]
-        log(f"[time flash_fwd_lse {str(dtype)[6:]}] {f[0]:.4f} ms at (B, S, "
-            f"H, KV, D) = {(B, S, H, KV, D)} ({2 * prod / f[0] / 1e9:.1f} "
-            f"TFLOP/s), plain {f[1]:.4f} ms, bound "
+        log(f"[time flash_fwd_lse {str(dtype)[6:]}{mha_tag(KV)}] {f[0]:.4f} "
+            f"ms at (B, S, H, KV, D) = {(B, S, H, KV, D)} "
+            f"({2 * prod / f[0] / 1e9:.1f} TFLOP/s), plain {f[1]:.4f} ms, "
+            f"bound "
             f"{1e3 * f[2]:.2f} us ({f[3]}: 2 products of {prod} flops), "
             f"{f[0] / f[2]:.2f}x the bound; library SDPA forward "
             f"{lib_fwd:.4f} ms ({f[0] / lib_fwd:.2f}x) on {card}")
-        log(f"[time flash_attention_bwd {str(dtype)[6:]}] {bw[0]:.4f} ms "
-            f"(dK/dV kernel {res['dkv'][0]:.4f} ms, bound "
+        log(f"[time flash_attention_bwd {str(dtype)[6:]}{mha_tag(KV)}] "
+            f"{bw[0]:.4f} ms (dK/dV kernel {res['dkv'][0]:.4f} ms, bound "
             f"{1e3 * res['dkv'][1]:.2f} us for its 4 products; dQ kernel "
             f"{res['dq'][0]:.4f} ms, bound {1e3 * res['dq'][1]:.2f} us for "
             f"its 3), plain {bw[1]:.4f} ms, bound {1e3 * bw[2]:.2f} us "
@@ -4432,6 +4894,7 @@ def main(argv=None) -> int:
 
     ft16 = time_flash_train(torch.bfloat16)
     ft32 = time_flash_train(torch.float32)
+    ft_mha = time_flash_train(torch.bfloat16, MHA_SHAPE[3])
     log(f"[time lm train] {LM_ARCH} 36 layers bf16, fp32 moments, "
         f"B={LM_TRAIN[0]} S={LM_TRAIN[1]}: {train_ms:.2f} ms per step "
         f"(median of steps 2-{LM_TRAIN[2]}, host clock, synchronised) = "
@@ -4529,6 +4992,9 @@ def main(argv=None) -> int:
          "library_ms_fp32": fa32[4], "max_abs_err_by_case": flash_errs,
          "instances": {n: r for n, r in flash_tc.items()
                        if not n.startswith(("dkv", "dq"))},
+         "ms_mha": fa_mha[0], "plain_ms_mha": fa_mha[1],
+         "bound_ms_mha": fa_mha[2], "library_ms_mha": fa_mha[4],
+         "mha_shape": list(MHA_SHAPE), "moe": moe,
          "lm_parity": lm_par, "prefill_ms": pre_ms,
          "prefill_tokens_per_s": n_tok / (pre_ms / 1e3),
          "decode_ms_per_tick": float(np.median(tick_ms))},
@@ -4545,6 +5011,8 @@ def main(argv=None) -> int:
          "library_ms": ft16["lib"][0],
          "ms_fp32": ft32["fwd"][0], "plain_ms_fp32": ft32["fwd"][1],
          "bound_ms_fp32": ft32["fwd"][2], "library_ms_fp32": ft32["lib"][0],
+         "ms_mha": ft_mha["fwd"][0], "plain_ms_mha": ft_mha["fwd"][1],
+         "bound_ms_mha": ft_mha["fwd"][2], "library_ms_mha": ft_mha["lib"][0],
          "errors_by_case": train_errs, "train_parity": train_par,
          "train_step_ms": train_ms, "train_tokens_per_s": train_tok,
          "train_losses": tr["loss"], "train_peak_bytes": tr["peak_bytes"]},
@@ -4574,7 +5042,11 @@ def main(argv=None) -> int:
             "backward_ms_fp32": ft32["bwd"][0],
             "backward_plain_ms_fp32": ft32["bwd"][1],
             "backward_bound_ms_fp32": ft32["bwd"][2],
-            "backward_library_ms_fp32": ft32["lib"][1]})
+            "backward_library_ms_fp32": ft32["lib"][1],
+            "ms_mha": ft_mha[part][0], "bound_ms_mha": ft_mha[part][1],
+            "backward_ms_mha": ft_mha["bwd"][0],
+            "backward_plain_ms_mha": ft_mha["bwd"][1],
+            "backward_library_ms_mha": ft_mha["lib"][1]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,6 +4,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_5_3b \
         --reduced --requests 8 --max-new 16 [--device cpu]
 
+The weights are fp32 with --reduced and bf16 otherwise (DeepSeekMoE-16B's
+are 65.5 GB in fp32, 32.75 GB in bf16).
+
 A request queue feeds fixed slots; each slot tracks its own cache
 position; a slot's prompt runs token by token through the shared decode
 step, then every active slot advances one token per tick (static shapes:
@@ -33,17 +36,19 @@ from repro_torch.serve.queue import BufferFull, SlotPool
 
 
 class Server:
-    """Slots of a dense LM on `device` (the card unless "cpu" is asked
-    for), its weights drawn from `seed` in `dtype`; `params` is the
-    `lm.LM` module (`params.load_state_dict` serves other weights)."""
+    """Slots of an LM on `device` (the card unless "cpu" is asked for),
+    its weights drawn from `seed` in `dtype`, or `params`, an `lm.LM`
+    module already on `device`, served as it is; `self.params` is the
+    module (`params.load_state_dict` serves other weights)."""
 
     def __init__(self, cfg, max_len=128, slots=4, dtype=torch.float32,
-                 seed=0, device=None):
+                 seed=0, device=None, params=None):
         self.cfg = cfg
         self.max_len = max_len
         self.slots = slots
         self.device = resolve(device)
-        self.params = lm.init_params(cfg, seed, dtype, self.device)
+        self.params = params if params is not None else lm.init_params(
+            cfg, seed, dtype, self.device)
         self.cache = lm.init_cache(cfg, slots, max_len, dtype, self.device)
         self.pos = np.zeros((slots,), np.int32)
         # decode slots come from the same SlotPool primitive the spike
@@ -115,8 +120,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     cfg = get_reduced(args.arch) if args.reduced else get_arch(args.arch)
     rng = np.random.default_rng(0)
+    dtype = torch.float32 if args.reduced else torch.bfloat16
     srv = Server(cfg, max_len=args.prompt_len + args.max_new + 2,
-                 slots=args.requests, device=args.device)
+                 slots=args.requests, dtype=dtype, device=args.device)
     t0 = time.time()
     for _ in range(args.requests):
         prompt = rng.integers(1, cfg.vocab_size, args.prompt_len).tolist()

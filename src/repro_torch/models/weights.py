@@ -2,11 +2,14 @@
 
 `params_from_jax(tree, cfg)` takes the tree `repro.models.lm.init_params`
 builds, as numpy arrays (`jax.tree.map(np.asarray, params)`): nested
-dicts whose `blocks` leaves are stacked over the layers. It returns the
+dicts whose segment leaves (`blocks`, and an MoE config's
+`dense_blocks`) are stacked over the segment's layers. It returns the
 state dict of the port's `LM` for the same config — the same names with
-the layer index after `blocks` (`blocks.3.attn.wq` is
+the layer index after the segment (`blocks.3.attn.wq` is
 `tree["blocks"]["attn"]["wq"][3]`), the same layouts (wq (d, H, hd),
-the tied `embed.table` over the padded vocab) and the same dtypes:
+the tied `embed.table` over the padded vocab, `blocks.1.moe.w_in`
+(E, d, F)) and the same dtypes (an MoE router stays fp32 beside bf16
+leaves):
 
     model = lm.init_params(cfg, dtype=..., device=...)
     model.load_state_dict(params_from_jax(tree, cfg))
@@ -25,7 +28,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.models.lm import check_supported
+from repro_torch.models.lm import check_supported, segment_layers
 
 
 def _tensor(a) -> torch.Tensor:
@@ -38,6 +41,7 @@ def _tensor(a) -> torch.Tensor:
 
 def params_from_jax(tree, cfg) -> Dict[str, torch.Tensor]:
     check_supported(cfg)
+    layers = segment_layers(cfg)
     state: Dict[str, torch.Tensor] = {}
 
     def walk(node, path):
@@ -46,15 +50,15 @@ def params_from_jax(tree, cfg) -> Dict[str, torch.Tensor]:
                 walk(val, path + (key,))
                 continue
             t = _tensor(val)
-            if path[:1] != ("blocks",):
+            if not path or path[0] not in layers:
                 state[".".join(path + (key,))] = t
                 continue
-            if t.shape[0] != cfg.n_layers:
+            n = layers[path[0]]
+            if t.shape[0] != n:
                 raise ValueError(f"{'.'.join(path + (key,))}: {t.shape[0]} "
-                                 f"layers stacked, the config has "
-                                 f"{cfg.n_layers}")
-            for i in range(cfg.n_layers):
-                state[".".join(("blocks", str(i)) + path[1:] + (key,))] = \
+                                 f"layers stacked, the config has {n}")
+            for i in range(n):
+                state[".".join((path[0], str(i)) + path[1:] + (key,))] = \
                     t[i].clone()
 
     walk(tree, ())

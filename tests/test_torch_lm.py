@@ -3,10 +3,11 @@ package's, on the CPU: the layer functions; `prefill` (last-token logits
 and the K/V caches) for reduced qwen2_5_3b, qwen2_7b and gemma_7b, at a
 ragged length and past JAX's q_chunk of 1024; `decode_step` from
 `init_cache`; the parameter converter; the families the port does not
-run yet. Both packages compute in fp32 on the same weights (JAX's,
-moved over with `params_from_jax`); the tolerance is 1e-4 absolute on
-logits of magnitude ~4 and on the caches, for reductions of depth up to
-256 summed in another order (the measured gap is ~4e-6)."""
+run yet (the MoE family: `test_torch_moe.py`). Both packages compute in
+fp32 on the same weights (JAX's, moved over with `params_from_jax`);
+the tolerance is 1e-4 absolute on logits of magnitude ~4 and on the
+caches, for reductions of depth up to 256 summed in another order (the
+measured gap is ~4e-6)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -215,13 +216,16 @@ def test_params_from_jax_checks_the_layer_count():
 
 
 # ------------------------------------------------------------------ families
-@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "deepseek_v2_236b",
-                                  "mamba2_780m", "recurrentgemma_2b",
+@pytest.mark.parametrize("arch", ["deepseek_v2_236b", "mamba2_780m",
+                                  "recurrentgemma_2b",
                                   "llava_next_mistral_7b",
                                   "musicgen_medium"])
 def test_unported_families_raise(arch):
+    """deepseek_v2_236b is an MoE config with MLA attention: the MoE
+    family runs, so its message names MLA."""
     cfg = get_reduced(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 10") as e:
         tlm.init_params(cfg, device="cpu")
+    assert ("MLA" in str(e.value)) == (arch == "deepseek_v2_236b")
     with pytest.raises(NotImplementedError):
         tlm.init_cache(cfg, 1, 4, device="cpu")
