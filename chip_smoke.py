@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA card.
 
-    python3 chip_smoke.py            # one card, full width, ~13 minutes
+    python3 chip_smoke.py            # one card, full width, ~14 minutes
 
 Phases, in the order they run (the timing phase 6 runs last, so that it
 can time the shapes the other phases give the kernels); any failure
@@ -162,6 +162,34 @@ raises and the script exits non-zero:
      router among them), 0 < aux < 0.2 ce, and per step the forward with
      lse launched 20 times and each backward kernel 10 times; step ms,
      tokens/s and peak memory;
+ 23. the SSM and hybrid families: (a) kernels 4-6 with a sliding window
+     against their plain versions on the card, fp32 and bf16, with the
+     tolerances of phases 10 and 13: at RecurrentGemma-2B's attention
+     shape (B = 1, S = 4,096, 10 query heads over 1 KV head, D = 256,
+     window 2,048), a ragged S = 3,000 with window 700 (off the key
+     tiles), GQA at D = 128 (window 129), window 1 at D = 64 (dq and dk
+     held against dv's scale, as at phase 13's S = 1), and windows of S
+     and past S, which must give the unwindowed kernels' bits (forward,
+     lse, backward); then for Mamba2-780m and RecurrentGemma-2B each:
+     (c) its published widths cut to 2 layers (Mamba2, chunk 256) or 4
+     (RecurrentGemma: 1 group + 1 tail layer, the window cut to 256 so
+     that it binds), fp32, one seed's weights drawn on the card and
+     copied to the CPU (TF32 off; the CPU prefill on one thread):
+     `prefill` at S = 512, logits within 1e-3 and every cache leaf
+     ({conv, ssd}; {conv, h} and the ring's {k, v}) within 1e-4; 8
+     decode steps from the prefill's caches (the rings wrap), every leaf
+     held each step; the `Server` as in phase 11; the training parity of
+     phase 14 at B = 1, S = 512 (gradients, one `make_train_step`); (d)
+     the full model (48 / 26 layers, 0.78 B / 2.68 B parameters) in bf16,
+     weights drawn on the card: the `Server` with 4 slots, prompt 16,
+     max_new 32 (ms a tick); `prefill` at B = 1, S = 4,096 (finite
+     logits, every cache leaf's shape, the flash kernel once per
+     attention layer: 0 / 8; ms, tokens/s); training with fp32 moments,
+     `make_train_step` on `TokenPipeline` at B = 1, S = 4,096, 3 steps:
+     finite losses and grad norms, weights of the first and last layers
+     changed, per step the forward with lse launched twice and each
+     backward kernel once per attention layer (remat); step ms,
+     tokens/s, peak memory;
  17. the serving tier at full width: one `SpikeServer` (max_batch 8,
      max_wait 2 ms, window 16) holding the core on the fused engine (8
      session lanes) and the MLP on the simulator (4), both deployed by
@@ -289,7 +317,10 @@ raises and the script exits non-zero:
      the training shape in bf16 and fp32, and at the MHA shape in bf16
      (the forward with lse against
      SDPA's forward, the backward against autograd through SDPA, the
-     forward excluded).
+     forward excluded); and kernels 4-6 at phase 23's windowed shape in
+     bf16 and fp32, against their plain versions, SDPA over the band (a
+     boolean mask, the KV head repeated; autograd through it for the
+     backward) and a bound counted from the window's query-key pairs.
 
 Two networks, weights from a numpy seed:
   * the engine's: one HiAER-Spike core at capacity, 125,000 neurons
@@ -300,12 +331,17 @@ Two networks, weights from a numpy seed:
     (benchmarks/table2_vision.py): 784 axons -> 2,000 -> 1,000 -> 10 ANN
     neurons, all-to-all between layers, 3,010 neurons and 3,578,000
     synapses.
-and two LMs, configs/qwen2_5_3b.py (36 layers, d_model 2,048, 16 query
-and 2 KV heads of 128, d_ff 11,008, vocab 151,936) and
+and four LMs, configs/qwen2_5_3b.py (36 layers, d_model 2,048, 16 query
+and 2 KV heads of 128, d_ff 11,008, vocab 151,936),
 configs/deepseek_moe_16b.py (28 layers, d_model 2,048, 16 heads of 128
 with 16 KV heads, layer 0 dense with d_ff 10,944, then 64 routed experts
 of width 1,408 top-6 and 2 shared, capacity factor 1.5, vocab 102,400),
-weights drawn from a torch generator seeded with --seed.
+configs/mamba2_780m.py (48 Mamba-2 layers, d_model 1,536, 48 SSD heads
+of 64, d_state 128, chunk 256, vocab 50,280) and
+configs/recurrentgemma_2b.py (26 layers: 8 (RG-LRU, RG-LRU, local
+attention) groups + 2 RG-LRU layers, d_model 2,560, 10 query heads over
+1 KV head of 256, window 2,048, d_ff 7,680, vocab 256,000), weights drawn
+from a torch generator seeded with --seed.
 
 The last line of standard output is the JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
@@ -1681,14 +1717,18 @@ def phase_train_parity(dev, seed: int, zero_counts, read_counts) -> dict:
                         f"{PARITY_TRAIN}", t0)
 
 
+TRAIN_KERNELS = ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")
+
+
 def train_parity(dev, cfg, models, tokens, zero_counts, read_counts,
-                 tag: str, t0: float) -> dict:
+                 tag: str, t0: float, kernels=TRAIN_KERNELS) -> dict:
     """Phase 14's checks of one model on the card and its copy on the
     CPU (`models`, keyed by device) at `tokens`: every gradient leaf of
     `lm.loss_fn` within LM_TOL of its own max, then one `make_train_step`
     with lr 1e-2 from the first step (the loss, the moments and the step
-    against plain AdamW and the CPU's). Returns the gaps, each side's
-    aux and the card step's kernel launches."""
+    against plain AdamW and the CPU's), the card's step launching each of
+    `kernels` (none for an attention-free model). Returns the gaps, each
+    side's aux and the card step's kernel launches."""
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import lm
     from repro_torch.optim import AdamWConfig, adamw_init
@@ -1781,8 +1821,7 @@ def train_parity(dev, cfg, models, tokens, zero_counts, read_counts,
          f"{errs['cpu']:.3g} (<= {LM_TOL}) of the step's max")
     need(min(controls.values()) > LM_TOL,
          f"a step left out or flipped passes the step checks: {controls}")
-    need(all(counts[n] > 0 for n in ("flash_fwd_lse", "flash_bwd_dkv",
-                                     "flash_bwd_dq")),
+    need(all(counts[n] > 0 for n in kernels),
          f"the card's train step did not launch the training kernels: "
          f"{counts}")
     log(f"[train parity] {tag}, lr {lr:g}: card vs CPU loss "
@@ -2213,6 +2252,511 @@ def phase_moe(dev, seed: int, zero_counts, read_counts, card: str,
             "serve_peak_bytes": full["peak_bytes"], "train_step_ms": step_ms,
             "train_tokens_per_s": B * S / step_ms * 1e3,
             "train_peak_bytes": tr["peak_bytes"], "train_layers": n_layers}
+
+
+# ------------------------------------------- the SSM and hybrid families
+SSM_ARCH = "mamba2_780m"         # configs/mamba2_780m.py, published widths
+HYBRID_ARCH = "recurrentgemma_2b"  # configs/recurrentgemma_2b.py
+# the hybrid's local attention at its prefill and training shape:
+# (B, S, H, KV, D, window), MQA with 10 query heads and D = 256
+WINDOW_SHAPE = (1, 4096, 10, 1, 256, 2048)
+# 23(a)'s cases: name, (B, S, H, KV, D), window; the last two reach past
+# S and must equal window=None bit for bit
+WINDOW_CASES = [
+    ("model shape", WINDOW_SHAPE[:5], WINDOW_SHAPE[5]),
+    ("ragged S, window off the blocks", (1, 3000, 10, 1, 256), 700),
+    ("GQA D = 128", (2, 1000, 16, 2, 128), 129),
+    ("window 1, D = 64", (1, 777, 4, 2, 64), 1),
+    ("window = S", (1, 3000, 10, 1, 256), 3000),
+    ("window > S", (1, 3000, 10, 1, 256), 4096),
+]
+# 23(c): card vs CPU at full width, fp32: layers, prefill length, decode
+# steps after it, the training parity's (B, S); RecurrentGemma's window
+# cut to 256 so that it binds at S = 512 (1 group + 1 tail layer)
+FAMILY_PARITY = {SSM_ARCH: (2, 512, 8, (1, 512)),
+                 HYBRID_ARCH: (4, 512, 8, (1, 512))}
+PARITY_WINDOW = 256
+CACHE_TOL = 1e-4               # 23(c): a cache leaf, of max(1, its max |.|)
+FAMILY_SERVE = (4, 16, 32)     # the full models' Server: slots, prompt, max_new
+FAMILY_PREFILL = (1, 4096)     # their bf16 prefill: B, S
+FAMILY_TRAIN = (1, 4096, 3)    # their bf16 training: B, S, steps
+
+
+def family_config(arch, n_layers=None, window=None):
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if window is not None:
+        cfg = dataclasses.replace(cfg, rglru=dataclasses.replace(
+            cfg.rglru, window=window))
+    return cfg
+
+
+def window_pairs(S: int, W: int) -> int:
+    """Query-key pairs a window-W causal pass over S rows needs:
+    sum over q of min(q + 1, W)."""
+    n = min(S, W)
+    return n * (n + 1) // 2 + (S - n) * W
+
+
+def phase_window_kernels(dev, seed: int) -> dict:
+    """23(a): kernels 4-6 with a sliding window against their plain
+    versions on the card, fp32 and bf16, at WINDOW_CASES (the tolerances
+    of phases 10 and 13); a window reaching past S gives the unwindowed
+    kernels' bits. Returns each case's errors."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd,
+                                                     flash_fwd_lse)
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_attention_ref,
+                                         flash_fwd_lse_ref)
+    need(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 71)
+    errs = {}
+    for name, shape, W in WINDOW_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(dev, gen, *shape, dtype)
+            do = flash_inputs(dev, gen, *shape, dtype)[0]
+            o = flash_attention(q, k, v, window=W)
+            ro, rlse = flash_fwd_lse_ref(q, k, v, True, W)
+            o2, lse = flash_fwd_lse(q, k, v, window=W)
+            got = flash_attention_bwd(q, k, v, ro, rlse, do, window=W)
+            want = flash_attention_bwd_ref(q, k, v, ro, rlse, do, True, W)
+            torch.cuda.synchronize()
+            tag = f"{name} {tuple(shape)} W={W} {str(dtype)[6:]}"
+            # with one key a row (W = 1), p = 1 and ds = dO.v - dO.o is 0
+            # but for rounding, as at phase 13's S = 1: dq and dk are held
+            # against the scale of dv, and only dv cannot vanish
+            floor = want[2].float().abs().max() if W == 1 else 0.0
+            e = {"o": float((o.float() - ro.float()).abs().max()),
+                 "o_lse": float((o2.float() - ro.float()).abs().max()),
+                 "lse": float((lse - rlse).abs().max()),
+                 **{n: rel_err(g, w, floor) for n, g, w in
+                    zip(("dq", "dk", "dv"), got, want)},
+                 **{n + "_max": float(w.float().abs().max())
+                    for n, w in zip(("dq", "dk", "dv"), want)}}
+            if dtype == torch.bfloat16:
+                e["o_fp32"] = float((o.float() - flash_attention_ref(
+                    q.float(), k.float(), v.float(), True, W)).abs().max())
+            tol, gtol = FLASH_TOL[dtype], GRAD_TOL[dtype]
+            need(all(bool(torch.isfinite(t).all())
+                     for t in (o, o2, lse, *got))
+                 and max(e["o"], e["o_lse"], e["lse"],
+                         e.get("o_fp32", 0.0)) <= tol
+                 and all(e[n + "_max"] > 0 for n in
+                         (("dv",) if W == 1 else ("dq", "dk", "dv")))
+                 and max(e["dq"], e["dk"], e["dv"]) <= gtol,
+                 f"windowed flash kernels != plain versions on {tag}: {e} "
+                 f"(tolerances {tol}, {gtol} of max |ref|)")
+            if W >= shape[1]:
+                same = (torch.equal(o, flash_attention(q, k, v))
+                        and all(torch.equal(a, b) for a, b in
+                                zip((o2, lse), flash_fwd_lse(q, k, v)))
+                        and all(torch.equal(a, b) for a, b in zip(
+                            got, flash_attention_bwd(q, k, v, ro, rlse,
+                                                     do))))
+                need(same, f"{tag}: a window past S differs from none")
+                e["same_bits_as_none"] = same
+            errs[tag] = e
+            log(f"[window kernels] kernels == plain on {tag} (B, S, H, KV, "
+                f"D): o {e['o']:.3g}, o with lse {e['o_lse']:.3g}, lse "
+                f"{e['lse']:.3g}"
+                + (f" ({e['o_fp32']:.3g} against fp32)" if "o_fp32" in e
+                   else "") + f" (<= {tol}); dq {e['dq']:.3g}, dk "
+                f"{e['dk']:.3g}, dv {e['dv']:.3g} of max |ref| (<= {gtol})"
+                + ("; the same bits as window=None (forward, lse, "
+                   "backward)" if W >= shape[1] else ""))
+            del q, k, v, do, o, o2, lse, ro, rlse, got, want
+    return errs
+
+
+def time_window_kernels(dev, seed: int, flush, card: str) -> dict:
+    """Kernels 4-6 at WINDOW_SHAPE, bf16 (the path's) and fp32: each
+    kernel, its plain version and a library yardstick (SDPA with the
+    band as a boolean mask and the KV head repeated; autograd through it
+    for the backward), the bound counted from the window's pairs."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_attention_ref,
+                                         flash_fwd_lse_ref)
+    B, S, H, KV, D, W = WINDOW_SHAPE
+    pairs = B * H * window_pairs(S, W)
+    prod = 2 * D * pairs                 # flops of one windowed product
+    out = {"shape": list(WINDOW_SHAPE), "pairs_per_head": window_pairs(S, W)}
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 73)
+        q, k, v = flash_inputs(dev, gen, B, S, H, KV, D, dtype)
+        do = flash_inputs(dev, gen, B, S, H, KV, D, dtype)[0]
+        o, lse = fa.flash_fwd_lse(q, k, v, window=W)
+        delta = (do.float() * o.float()).sum(dim=-1).contiguous()
+        rate = BF16_TC_FLOPS_PER_S if dtype == torch.bfloat16 \
+            else SCALAR_OPS_PER_S
+        r = {"fwd": (time_ms(lambda: fa.flash_attention(q, k, v, window=W),
+                             flush=flush),
+                     time_ms(lambda: flash_attention_ref(q, k, v, True, W),
+                             flush=flush),
+                     *bound(nbytes(q, k, v, q), 2 * prod, rate)),
+             "lse": (time_ms(lambda: fa.flash_fwd_lse(q, k, v, window=W),
+                             flush=flush),
+                     time_ms(lambda: flash_fwd_lse_ref(q, k, v, True, W),
+                             flush=flush),
+                     *bound(nbytes(q, k, v, o, lse), 2 * prod, rate))}
+        bwd_in = nbytes(q, k, v, do, lse, delta)
+        r["dkv"] = (time_ms(lambda: fa._bwd_dkv(q, k, v, do, lse, delta,
+                                                True, W), flush=flush),
+                    *bound(bwd_in + nbytes(k, v), 4 * prod, rate))
+        r["dq"] = (time_ms(lambda: fa._bwd_dq(q, k, v, do, lse, delta, True,
+                                              W), flush=flush),
+                   *bound(bwd_in + nbytes(q), 3 * prod, rate))
+        r["bwd"] = (time_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, o, lse, do, window=W), flush=flush),
+            time_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                    True, W), flush=flush),
+            *bound(nbytes(q, k, v, o, do, lse, q, k, v), 5 * prod, rate))
+        # the yardsticks, never on the path: SDPA over the band, the KV
+        # head repeated, and autograd through it with the forward excluded
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        i = torch.arange(S, device=dev)
+        band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - W)
+        qe = q.contiguous().requires_grad_()
+        ke, ve = (t.repeat_interleave(H // KV, dim=1).contiguous()
+                  .requires_grad_() for t in (k, v))
+        with torch.no_grad():
+            lib_fwd = time_ms(lambda: sdpa(qe, ke, ve, attn_mask=band),
+                              flush=flush)
+        lo = sdpa(qe, ke, ve, attn_mask=band)
+        doe = do.contiguous()
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            lo, (qe, ke, ve), doe, retain_graph=True), flush=flush)
+        r["lib"] = (lib_fwd, lib_bwd)
+        name = str(dtype)[6:]
+        f, fl, bw = r["fwd"], r["lse"], r["bwd"]
+        log(f"[time window {name}] (B, S, H, KV, D, W) = {WINDOW_SHAPE}, "
+            f"{pairs} query-key pairs: flash_attention {f[0]:.4f} ms "
+            f"({2 * prod / f[0] / 1e9:.1f} TFLOP/s), plain {f[1]:.4f} ms, "
+            f"bound {1e3 * f[2]:.2f} us ({f[3]}), {f[0] / f[2]:.2f}x the "
+            f"bound, SDPA with the band {lib_fwd:.4f} ms ({f[0] / lib_fwd:.2f}"
+            f"x); flash_fwd_lse {fl[0]:.4f} ms, plain {fl[1]:.4f} ms, bound "
+            f"{1e3 * fl[2]:.2f} us ({fl[0] / fl[2]:.2f}x); backward "
+            f"{bw[0]:.4f} ms (dK/dV {r['dkv'][0]:.4f} ms, bound "
+            f"{1e3 * r['dkv'][1]:.2f} us for 4 products; dQ {r['dq'][0]:.4f}"
+            f" ms, bound {1e3 * r['dq'][1]:.2f} us for 3), plain "
+            f"{bw[1]:.4f} ms, bound {1e3 * bw[2]:.2f} us (5 products), "
+            f"{bw[0] / bw[2]:.2f}x; autograd through SDPA with the band "
+            f"{lib_bwd:.4f} ms on {card}")
+        out[name] = r
+        del q, k, v, do, o, lse, delta, qe, ke, ve, lo, doe, band
+        torch.cuda.empty_cache()
+    return out
+
+
+def family_watch(cfg) -> tuple:
+    """Weight matrices a training step must change (run_lm_train says
+    why not norms or other leaves near 1): in the first and the last
+    layer of each kind, and the embedding."""
+    if cfg.family == "ssm":
+        return ("blocks.0.ssm.w_in", f"blocks.{cfg.n_layers - 1}.ssm.w_out",
+                "embed.table")
+    from repro_torch.models import lm
+    seg = lm.segment_layers(cfg)
+    g = seg["groups"] - 1
+    watch = ("groups.0.rec1.rec.w_x", f"groups.{g}.attn.attn.wq",
+             f"groups.{g}.rec2.rec.w_i", "embed.table")
+    if "tail" in seg:
+        watch += (f"tail.{seg['tail'] - 1}.mlp.w_out",)
+    return watch
+
+
+def attn_layers(cfg) -> int:
+    """The layers whose attention runs the flash kernels."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // len(cfg.rglru.pattern)
+    return cfg.n_layers
+
+
+def leaf_items(tree, path=()):
+    """(path, tensor) of every leaf of a nested dict of tensors."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from leaf_items(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def leaf_gaps(card, cpu) -> dict:
+    """Per cache leaf (path "a/b"): (max |card - cpu|, max |cpu|)."""
+    ref = dict(leaf_items(cpu))
+    return {"/".join(p): (float((t.cpu() - ref[p]).abs().max()),
+                          float(ref[p].abs().max()))
+            for p, t in leaf_items(card)}
+
+
+def fmt_gaps(gaps) -> dict:
+    return {n: (float(f"{d:.3g}"), float(f"{m:.3g}"))
+            for n, (d, m) in gaps.items()}
+
+
+def leaves_held(gaps) -> bool:
+    """Every leaf within CACHE_TOL of its largest magnitude (at least
+    1): 1e-4 absolute for K/V rows of magnitude ~1, relative for the
+    recurrent states, sums over up to the whole sequence."""
+    return all(d <= CACHE_TOL * max(1.0, m) for d, m in gaps.values())
+
+
+def family_parity(dev, arch: str, seed: int, zero_counts,
+                  read_counts) -> dict:
+    """23(c): one family at its published widths cut to FAMILY_PARITY's
+    layers (RecurrentGemma's window cut to PARITY_WINDOW), fp32, one
+    seed's weights drawn on the card and copied to the CPU (TF32 off; the
+    CPU prefill on one thread): prefill logits within LM_TOL and every
+    cache leaf within CACHE_TOL of its largest magnitude (at least 1,
+    `leaves_held`); decode steps from the prefill's caches (the
+    ring wraps: S is a multiple of the window) with every leaf held each
+    step; the `Server`'s greedy tokens as in phase 11; the training
+    parity of phase 14 (gradients, one `make_train_step`)."""
+    import copy
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import lm
+    need(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    n_layers, S, n_decode, train_shape = FAMILY_PARITY[arch]
+    cfg = family_config(arch, n_layers, PARITY_WINDOW
+                        if arch == HYBRID_ARCH else None)
+    t0 = time.perf_counter()
+    models = {dev: lm.init_params(cfg, seed, torch.float32, dev)}
+    models["cpu"] = copy.deepcopy(models[dev]).cpu()
+    rng = np.random.default_rng(seed + 81)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, S)))
+    out, ref_s = {}, 0.0
+    for where in ("cpu", dev):
+        threads = torch.get_num_threads()
+        if where == "cpu":      # one fixed order of the CPU's reductions
+            torch.set_num_threads(1)
+        try:
+            t1 = time.perf_counter()
+            out[where] = lm.prefill(models[where], cfg,
+                                    {"tokens": tokens.to(where)})
+            if where == "cpu":
+                ref_s = time.perf_counter() - t1
+        finally:
+            torch.set_num_threads(threads)
+    (lg_h, c_h), (lg_c, c_c) = out["cpu"], out[dev]
+    e_lg = float((lg_c.cpu() - lg_h).abs().max())
+    e_kv = leaf_gaps(c_c, c_h)
+    need(set(e_kv) == {"/".join(p) for p, _ in leaf_items(c_h)},
+         f"{arch} prefill cache leaves differ: {sorted(e_kv)}")
+    need(e_lg <= LM_TOL and leaves_held(e_kv),
+         f"{arch} prefill card vs CPU: logits {e_lg:.3g}, caches (max |d|, "
+         f"max |ref|) {e_kv}")
+    shapes = {"/".join(p): tuple(t.shape) for p, t in leaf_items(c_c)}
+    # decode on from the prefill's caches, both sides fed the CPU's
+    # greedy tokens
+    dec_lg, dec_kv = 0.0, {}
+    tok = lg_h[:, :cfg.vocab_size].argmax(dim=1, keepdim=True)
+    caches = {"cpu": c_h, dev: c_c}
+    for i in range(n_decode):
+        lg = {}
+        for where in ("cpu", dev):
+            lg[where], caches[where] = lm.decode_step(
+                models[where], cfg, tok.to(where), caches[where], S + i)
+        dec_lg = max(dec_lg, float((lg[dev].cpu() - lg["cpu"]).abs().max()))
+        gaps = leaf_gaps(caches[dev], caches["cpu"])
+        need(dec_lg <= LM_TOL and leaves_held(gaps),
+             f"{arch} decode step {i} card vs CPU: logits {dec_lg:.3g}, "
+             f"caches (max |d|, max |ref|) {gaps}")
+        dec_kv = {n: max(g, dec_kv.get(n, g)) for n, g in gaps.items()}
+        tok = lg["cpu"][:, :cfg.vocab_size].argmax(dim=1, keepdim=True)
+    window = cfg.rglru.window if cfg.rglru else None
+    log(f"[family parity {arch}] {n_layers} layers full width fp32"
+        + (f", window cut to {window}" if window else "")
+        + f": prefill S={S} logits {e_lg:.3g} (<= {LM_TOL}), cache leaves "
+        f"(max |d|, max |ref|) {fmt_gaps(e_kv)} (each <= {CACHE_TOL} x max("
+        f"1, max |ref|); shapes {shapes}); {n_decode} decode steps from "
+        f"the prefill's caches at positions {S}..{S + n_decode - 1}"
+        + (f" (the {window}-slot rings wrap)" if window else "")
+        + f": logits {dec_lg:.3g}, leaves over the steps "
+        f"{fmt_gaps(dec_kv)}; the CPU prefill on 1 thread in {ref_s:.1f} s")
+    del out, caches, c_h, c_c
+    slots_n, plen, max_new = PARITY_SERVE
+    prompts = prompts_for(cfg, slots_n, plen, seed + 82)
+    runs = {}
+    for where in (dev, "cpu"):
+        srv = Server(cfg, max_len=plen + max_new + 2, slots=slots_n,
+                     device=where, params=models[where])
+        calls = record_decisions(srv)
+        runs[where] = (calls,) + serve(srv, prompts, max_new)[:2]
+        del srv
+    need(runs[dev][1:] == runs["cpu"][1:], "the servers' slots differ")
+    compared, ties, _ = greedy_agreement(runs[dev][0], runs["cpu"][0],
+                                         prompts, *runs["cpu"][1:])
+    log(f"[family parity {arch}] Server, {slots_n} requests (prompt {plen}"
+        f", max_new {max_new}): {compared} greedy decisions compared, card "
+        f"== CPU on all but {ties} near-tie(s) (CPU top-2 margin < "
+        f"{LM_TOL})")
+    train_tokens = rng.integers(0, cfg.vocab_size, train_shape)
+    tp = train_parity(dev, cfg, models, train_tokens, zero_counts,
+                      read_counts, f"{n_layers}-layer {arch} full width "
+                      f"fp32, B, S = {train_shape}", t0,
+                      kernels=TRAIN_KERNELS if attn_layers(cfg) else ())
+    return {"logits_err": e_lg, "cache_err": e_kv, "decode_logits_err":
+            dec_lg, "decode_cache_err": dec_kv, "server_compared": compared,
+            "server_near_ties": ties, **tp}
+
+
+def run_family_full(arch: str, seed: int, zero_counts, read_counts,
+                    profile=False) -> dict:
+    """23(d) serving: the full model in bf16, weights drawn on the card:
+    the `Server` answering FAMILY_SERVE's requests (ms a tick), then
+    `prefill` at FAMILY_PREFILL (finite logits, every cache leaf's shape,
+    the flash kernel once per attention layer), timed."""
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import lm
+    cfg = family_config(arch)
+    slots_n, plen, max_new = FAMILY_SERVE
+    torch.cuda.reset_peak_memory_stats()
+    srv = Server(cfg, max_len=plen + max_new + 2, slots=slots_n,
+                 dtype=torch.bfloat16, seed=seed)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    _, _, tick_ms = serve(srv, prompts_for(cfg, slots_n, plen, seed + 83),
+                          max_new)
+    res = {"serve_s": time.perf_counter() - t0, "tick_ms": tick_ms,
+           "serve_counts": read_counts()}
+    need(all(len(o) == max_new and all(0 <= t < cfg.vocab_size for t in o)
+             for o in srv.outputs),
+         f"{arch}: not every request was answered: "
+         f"{[len(o) for o in srv.outputs]}")
+    if profile:
+        profile_window(f"[profile {arch} decode tick bf16]", srv.tick, 1)
+    model = srv.params
+    res["n_params"] = sum(p.numel() for p in model.parameters())
+    res["param_bytes"] = sum(p.nbytes for p in model.parameters())
+    del srv
+    B, S = FAMILY_PREFILL
+    tokens = torch.as_tensor(np.random.default_rng(seed + 84).integers(
+        0, cfg.vocab_size, (B, S)), device=model.embed.table.device)
+    step = make_prefill_step(cfg)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    logits, caches = step(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    res["prefill_first_s"] = time.perf_counter() - t0
+    res["prefill_counts"] = read_counts()
+    need(logits.shape == (B, model.embed.table.shape[0])
+         and bool(torch.isfinite(logits).all()),
+         f"{arch} prefill logits are not finite over the padded vocab")
+    res["cache_shapes"] = {"/".join(p): tuple(t.shape)
+                           for p, t in leaf_items(caches)}
+    want = {"/".join(p): tuple(t.shape) for p, t in leaf_items(
+        lm.init_cache(cfg, B, S, torch.bfloat16, torch.device("meta")))}
+    need(res["cache_shapes"] == want,
+         f"{arch} prefill caches {res['cache_shapes']}, want {want}")
+    need(res["prefill_counts"]["flash_attention"] == attn_layers(cfg),
+         f"{arch} prefill did not run the flash kernel once per attention "
+         f"layer: {res['prefill_counts']}")
+    del logits, caches
+    res["prefill_ms"] = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step(model, {"tokens": tokens})
+        torch.cuda.synchronize()
+        res["prefill_ms"].append(1e3 * (time.perf_counter() - t0))
+    if profile:
+        profile_window(f"[profile {arch} prefill bf16]",
+                       lambda: step(model, {"tokens": tokens}), 1)
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return res
+
+
+def phase_families(dev, seed: int, zero_counts, read_counts, card: str,
+                   profile=False) -> dict:
+    """Phase 23: the SSM (Mamba2-780m) and hybrid (RecurrentGemma-2B)
+    families on the card: (a) kernels 4-6 with the hybrid's window
+    against their plain versions, then per family (c) card vs CPU at a
+    cut depth and (d) the full model served, prefilled and trained in
+    bf16. Returns the by-path launch counts and what the kernels' line
+    reports."""
+    t0 = time.perf_counter()
+    res = {"paths": {}, "window_errors": phase_window_kernels(dev, seed)}
+    torch.cuda.empty_cache()
+    for arch, tag in ((SSM_ARCH, "ssm"), (HYBRID_ARCH, "hybrid")):
+        t1 = time.perf_counter()
+        par = family_parity(dev, arch, seed, zero_counts, read_counts)
+        res["paths"][f"{tag} train {FAMILY_PARITY[arch][0]}L fp32 "
+                     f"(parity)"] = par.pop("launches")
+        torch.cuda.empty_cache()
+        full = run_family_full(arch, seed, zero_counts, read_counts,
+                               profile)
+        cfg = family_config(arch)
+        res["paths"][f"{tag} server {cfg.n_layers}L bf16"] = \
+            full.pop("serve_counts")
+        res["paths"][f"{tag} prefill {cfg.n_layers}L bf16"] = \
+            full.pop("prefill_counts")
+        torch.cuda.empty_cache()
+        B, S, n_steps = FAMILY_TRAIN
+        tr = run_lm_train(seed, zero_counts, read_counts, profile, cfg=cfg,
+                          shape=(B, S, n_steps), watch=family_watch(cfg),
+                          tag=f"{arch} train step bf16")
+        res["paths"][f"{tag} train {cfg.n_layers}L bf16"] = tr["counts"]
+        need(all(np.isfinite(tr["loss"]))
+             and all(np.isfinite(tr["grad_norm"])),
+             f"{arch}: a training loss or grad norm is not finite")
+        need(all(tr["changed"].values()),
+             f"{arch}: the parameters did not change: {tr['changed']}")
+        n_attn = attn_layers(cfg)
+        for c in tr["launches"]:
+            need(c["flash_fwd_lse"] == 2 * n_attn
+                 and c["flash_bwd_dkv"] == n_attn
+                 and c["flash_bwd_dq"] == n_attn
+                 and c["flash_attention"] == 0,
+                 f"an {arch} train step's launches are not {2 * n_attn} / "
+                 f"{n_attn} / {n_attn} / 0: {c}")
+        pre_ms = float(np.median(full["prefill_ms"]))
+        tick = float(np.median(full["tick_ms"]))
+        step_ms = float(np.median(tr["ms"][1:]))
+        log(f"[path {tag}] {arch} {cfg.n_layers} layers bf16 "
+            f"({full['n_params']} parameters, {full['param_bytes']} B): "
+            f"{FAMILY_SERVE[0]} requests (prompt {FAMILY_SERVE[1]}, "
+            f"max_new {FAMILY_SERVE[2]}) answered in {full['serve_s']:.1f} "
+            f"s; prefill caches {full['cache_shapes']}; training "
+            f"({tr['n_params']} parameters, fp32 moments) losses "
+            f"{tr['loss']}, grad norms {tr['grad_norm']}, step ms "
+            f"{[round(x, 2) for x in tr['ms']]}; launches: server "
+            f"{res['paths'][f'{tag} server {cfg.n_layers}L bf16']}, "
+            f"prefill {res['paths'][f'{tag} prefill {cfg.n_layers}L bf16']}"
+            f", per train step {tr['launches'][0]}")
+        log(f"[time {tag}] {arch} {cfg.n_layers} layers bf16: prefill "
+            f"B={FAMILY_PREFILL[0]} S={FAMILY_PREFILL[1]} {pre_ms:.2f} ms "
+            f"(median of 3, host clock, synchronised) = "
+            f"{FAMILY_PREFILL[0] * FAMILY_PREFILL[1] / pre_ms * 1e3:.1f} "
+            f"tokens/s; decode {tick:.3f} ms per tick at {FAMILY_SERVE[0]} "
+            f"slots (median of {len(full['tick_ms'])}, min "
+            f"{min(full['tick_ms']):.3f}; host clock, each tick ends in a "
+            f"host read); serving peak {full['peak_bytes']} B; training "
+            f"B={B} S={S}: {step_ms:.2f} ms per step (median of steps "
+            f"2-{n_steps}) = {B * S / step_ms * 1e3:.1f} tokens/s, peak "
+            f"device memory {tr['peak_bytes']} B; {arch}'s part of phase 23 "
+            f"{time.perf_counter() - t1:.1f} s on {card}")
+        res[tag] = {"parity": par, "prefill_ms": pre_ms,
+                    "prefill_tokens_per_s": B * S / pre_ms * 1e3,
+                    "decode_ms_per_tick": tick,
+                    "serve_peak_bytes": full["peak_bytes"],
+                    "train_step_ms": step_ms,
+                    "train_tokens_per_s": B * S / step_ms * 1e3,
+                    "train_peak_bytes": tr["peak_bytes"],
+                    "n_params": full["n_params"]}
+        del tr, full
+        torch.cuda.empty_cache()
+    log(f"[phase 23] {time.perf_counter() - t0:.1f} s on {card}")
+    return res
 
 
 # ------------------------------------------------------- the serving tier
@@ -4270,7 +4814,7 @@ def main(argv=None) -> int:
                     help="also profile one run_lanes window per path "
                          "on both networks and on the hiaer tier, one "
                          "served batch, one decode tick, one "
-                         "prefill and one train step of the full LM "
+                         "prefill and one train step of each full LM "
                          "(torch.profiler: device busy share, launches, "
                          "top kernels)")
     args = ap.parse_args(argv)
@@ -4578,6 +5122,18 @@ def main(argv=None) -> int:
     moe = phase_moe(dev, args.seed, zero_counts, read_counts, card,
                     args.profile)
     by_path.update(moe.pop("paths"))
+    torch.cuda.empty_cache()
+
+    # ---- 23. the SSM and hybrid families: kernels 4-6 with the hybrid's
+    # window against their plain versions, card vs CPU at a cut depth,
+    # the full Mamba2-780m and RecurrentGemma-2B served, prefilled and
+    # trained in bf16
+    need(threading.active_count() == 1,
+         f"threads alive before phase 23: {threading.enumerate()}")
+    fam = phase_families(dev, args.seed, zero_counts, read_counts, card,
+                         args.profile)
+    by_path.update(fam.pop("paths"))
+    window_errs_by_case = fam.pop("window_errors")
     torch.cuda.empty_cache()
 
     # ---- 17. the serving tier at full width: the core (fused engine) and
@@ -4895,6 +5451,14 @@ def main(argv=None) -> int:
     ft16 = time_flash_train(torch.bfloat16)
     ft32 = time_flash_train(torch.float32)
     ft_mha = time_flash_train(torch.bfloat16, MHA_SHAPE[3])
+    # and kernels 4-6 at the hybrid's windowed shape (phase 23)
+    win = time_window_kernels(dev, args.seed, flush, card)
+    w16, w32 = win["bfloat16"], win["float32"]
+
+    def window_errs(kind):
+        return max(e[kind] for t, e in window_errs_by_case.items()
+                   if t.startswith("model shape") and t.endswith("bfloat16"))
+
     log(f"[time lm train] {LM_ARCH} 36 layers bf16, fp32 moments, "
         f"B={LM_TRAIN[0]} S={LM_TRAIN[1]}: {train_ms:.2f} ms per step "
         f"(median of steps 2-{LM_TRAIN[2]}, host clock, synchronised) = "
@@ -4995,6 +5559,17 @@ def main(argv=None) -> int:
          "ms_mha": fa_mha[0], "plain_ms_mha": fa_mha[1],
          "bound_ms_mha": fa_mha[2], "library_ms_mha": fa_mha[4],
          "mha_shape": list(MHA_SHAPE), "moe": moe,
+         "window_shape": win["shape"],
+         "window_pairs_per_head": win["pairs_per_head"],
+         "max_abs_err_window": window_errs("o"),
+         "ms_window": w16["fwd"][0], "plain_ms_window": w16["fwd"][1],
+         "bound_ms_window": w16["fwd"][2],
+         "library_ms_window": w16["lib"][0],
+         "ms_window_fp32": w32["fwd"][0],
+         "plain_ms_window_fp32": w32["fwd"][1],
+         "bound_ms_window_fp32": w32["fwd"][2],
+         "library_ms_window_fp32": w32["lib"][0],
+         "window_errors_by_case": window_errs_by_case, "families": fam,
          "lm_parity": lm_par, "prefill_ms": pre_ms,
          "prefill_tokens_per_s": n_tok / (pre_ms / 1e3),
          "decode_ms_per_tick": float(np.median(tick_ms))},
@@ -5013,6 +5588,13 @@ def main(argv=None) -> int:
          "bound_ms_fp32": ft32["fwd"][2], "library_ms_fp32": ft32["lib"][0],
          "ms_mha": ft_mha["fwd"][0], "plain_ms_mha": ft_mha["fwd"][1],
          "bound_ms_mha": ft_mha["fwd"][2], "library_ms_mha": ft_mha["lib"][0],
+         "max_abs_err_window": max(window_errs("o_lse"), window_errs("lse")),
+         "ms_window": w16["lse"][0], "plain_ms_window": w16["lse"][1],
+         "bound_ms_window": w16["lse"][2],
+         "library_ms_window": w16["lib"][0],
+         "ms_window_fp32": w32["lse"][0],
+         "plain_ms_window_fp32": w32["lse"][1],
+         "bound_ms_window_fp32": w32["lse"][2],
          "errors_by_case": train_errs, "train_parity": train_par,
          "train_step_ms": train_ms, "train_tokens_per_s": train_tok,
          "train_losses": tr["loss"], "train_peak_bytes": tr["peak_bytes"]},
@@ -5046,7 +5628,19 @@ def main(argv=None) -> int:
             "ms_mha": ft_mha[part][0], "bound_ms_mha": ft_mha[part][1],
             "backward_ms_mha": ft_mha["bwd"][0],
             "backward_plain_ms_mha": ft_mha["bwd"][1],
-            "backward_library_ms_mha": ft_mha["lib"][1]})
+            "backward_library_ms_mha": ft_mha["lib"][1],
+            "ms_window": w16[part][0], "bound_ms_window": w16[part][1],
+            "ms_window_fp32": w32[part][0],
+            "max_rel_err_window": max(
+                window_errs(n) for n in (("dk", "dv") if part == "dkv"
+                                         else ("dq",))),
+            "backward_ms_window": w16["bwd"][0],
+            "backward_plain_ms_window": w16["bwd"][1],
+            "backward_bound_ms_window": w16["bwd"][2],
+            "backward_library_ms_window": w16["lib"][1],
+            "backward_ms_window_fp32": w32["bwd"][0],
+            "backward_plain_ms_window_fp32": w32["bwd"][1],
+            "backward_library_ms_window_fp32": w32["lib"][1]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,9 @@
 // full, fp32 or bf16 in and out:
 //   o[b, h, i] = sum_j softmax_j(scale * q[b, h, i] . k[b, g, j]) v[b, g, j]
 // over j <= i when causal, with g = h / (H / KV) (grouped-query heads;
-// KV == H is the TPU kernel's contract) and scale = D**-0.5.
+// KV == H is the TPU kernel's contract) and scale = D**-0.5. A sliding
+// window W (causal only; 0 for none) also masks j <= i - W: the local
+// attention of `repro.models.attention._sdpa` (RecurrentGemma's layers).
 //
 // Replaces the Pallas kernel `_kernel` of src/repro/kernels/flash_attention.py
 // (function `flash_attention`, reached through
@@ -37,13 +39,18 @@
 //     and V have `full` and `empty` mbarriers of their own, since a K
 //     tile is free once its scores are in and a V tile only one step
 //     later. TMA zero-fills rows past S. Causal key tiles in a block's
-//     future are never loaded;
+//     future are never loaded, nor, with a window, those wholly before
+//     the window of the block's first row (the walk starts at tile
+//     (q0 - W + 1) / BK);
 //   - S = Q K^T with wgmma m64nBKk16, both operands K-major in swizzled
 //     shared memory, fp32 accumulators; the scale is applied to the fp32
 //     scores, not to a bf16 Q (which would add a rounding);
 //   - the online softmax runs on the accumulator fragment in registers:
 //     a row's columns lie in the 4 threads of a quad (two shuffles for the
-//     row max); the diagonal tile and the ragged tail are masked to -1e30;
+//     row max); the diagonal tile and the ragged tail are masked to -1e30,
+//     keys before a row's window to -inf (a row whose every key in a tile
+//     is before its window keeps p = 0 there: its running max stays -1e30
+//     and exp2 of -inf is 0);
 //     exp2f of s * (scale * log2 e) - m, with m kept in log2 units (the
 //     lse is turned back to natural log at the end);
 //   - O += P V with wgmma m64nDk16: P is fed from registers as the A
@@ -90,8 +97,10 @@
 //     in registers, kept the same in the 16 threads of a row through
 //     shuffles;
 //   - causal key blocks in a query block's future are never loaded (the TPU
-//     kernel's `@pl.when`); the diagonal block, and the ragged tail past S
-//     in place of the TPU wrapper's padding, are masked with -1e30;
+//     kernel's `@pl.when`), nor, with a window, the blocks wholly before
+//     the window of the block's first row; the diagonal block, and the
+//     ragged tail past S in place of the TPU wrapper's padding, are masked
+//     with -1e30, keys before a row's window with -inf;
 //   - the finish divides by max(l, 1e-30), as the TPU kernel's `_done`
 //     does, and with LSE the first thread of each row writes the row's
 //     lse, as `_kernel_lse`'s `_emit` does.
@@ -101,6 +110,7 @@
 #include <cuda_bf16.h>
 #include <cudaTypedefs.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
@@ -144,7 +154,7 @@ flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ v, float* __restrict__ o,
                        float* __restrict__ lse, Strides qs, Strides ks,
                        Strides vs, Strides os, int S,
-                       int rep, int causal, float scale) {
+                       int rep, int causal, int window, float scale) {
   constexpr int LD = D + 4;        // padded row of the Q and K/V tiles
   constexpr int LP = kBK + 4;      // padded row of the P tile
   constexpr int NJ = D / 64;       // float4 column groups of O per thread
@@ -176,7 +186,8 @@ flash_attention_kernel(const float* __restrict__ q,
 
   const int n_all = (S + kBK - 1) / kBK;
   const int n_kb = causal ? min(n_all, (q0 + kBQ - 1) / kBK + 1) : n_all;
-  for (int kb = 0; kb < n_kb; ++kb) {
+  const int kb0 = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+  for (int kb = kb0; kb < n_kb; ++kb) {
     const int k0 = kb * kBK;
     __syncthreads();               // Qs is written; KVs and Ps are free
     load_tile<D>(KVs, kp, ks.s, k0, S, 1.f);
@@ -219,6 +230,8 @@ flash_attention_kernel(const float* __restrict__ q,
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
         if (kpos >= S || (causal && kpos > qpos)) s[i][j] = kNeg;
+        else if (window > 0 && kpos <= qpos - window)
+          s[i][j] = -CUDART_INF_F;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -342,24 +355,28 @@ __device__ __forceinline__ void start_pv(float (&acc)[D / 2],
 
 // the online softmax of one key tile on this thread's two rows (row0 and
 // row0 + 8, columns k0 + 8 i + col and the next one), across its quad:
-// masks the diagonal tile and the ragged tail to -1e30, updates the
+// masks the diagonal tile and the ragged tail to -1e30 and keys before a
+// row's window (window > 0) to -inf, updates the
 // running max m (log2 units) and the denominator l (the fp32 sum of p),
 // returns each row's rescale alpha and leaves p = exp2(s * scale * log2 e
 // - m) in sc, in the accumulator's layout
 template <int BK>
 __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], int k0,
                                              int row0, int col, int S,
-                                             int causal, int wq0,
+                                             int causal, int window, int wq0,
                                              float scale_log2, float (&m)[2],
                                              float (&l)[2],
                                              float (&alpha)[2]) {
-  if (k0 + BK > S || (causal && k0 + BK - 1 > wq0)) {
+  if (k0 + BK > S || (causal && k0 + BK - 1 > wq0) ||
+      (window > 0 && k0 <= wq0 + 63 - window)) {
 #pragma unroll
     for (int i = 0; i < BK / 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int row = row0 + 8 * (e >> 1), key = k0 + 8 * i + col + (e & 1);
         if (key >= S || (causal && key > row)) sc[4 * i + e] = kNeg;
+        else if (window > 0 && key <= row - window)
+          sc[4 * i + e] = -CUDART_INF_F;
       }
   }
   float mx[2] = {kNeg, kNeg};
@@ -404,7 +421,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                              const __grid_constant__ CUtensorMap vmap,
                              __nv_bfloat16* __restrict__ o,
                              float* __restrict__ lse, Strides os, int S,
-                             int rep, int causal, float scale_log2) {
+                             int rep, int causal, int window,
+                             float scale_log2) {
   using namespace hopper;
   using C = Wg<D>;
   constexpr int BQ = C::kBQ, BK = C::kBK, NS = C::kStages;
@@ -422,7 +440,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int h = blockIdx.x, b = blockIdx.z, g = h / rep;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest first
   const int n_all = (S + BK - 1) / BK;
-  const int n_kb = causal ? min(n_all, (q0 + BQ - 1) / BK + 1) : n_all;
+  // key tiles kb0 .. kb0 + n_kb - 1: from the window of the block's first
+  // row (0 without a window) to its diagonal (all when not causal)
+  const int kb0 = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  const int n_kb =
+      (causal ? min(n_all, (q0 + BQ - 1) / BK + 1) : n_all) - kb0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -454,13 +476,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         if (t >= NS) mbar_wait(&empty_k[s], parity);
         mbar_expect_tx(&full_k[s], C::kTileBytes);
         for (int c = 0; c < C::kCols; ++c)
-          tma_load_4d(Ks + c * BK * 128, &kmap, &full_k[s], 64 * c, t * BK,
-                      g, b);
+          tma_load_4d(Ks + c * BK * 128, &kmap, &full_k[s], 64 * c,
+                      (kb0 + t) * BK, g, b);
         if (t >= NS) mbar_wait(&empty_v[s], parity);
         mbar_expect_tx(&full_v[s], C::kTileBytes);
         for (int c = 0; c < C::kCols; ++c)
-          tma_load_4d(Vs + c * BK * 128, &vmap, &full_v[s], 64 * c, t * BK,
-                      g, b);
+          tma_load_4d(Vs + c * BK * 128, &vmap, &full_v[s], 64 * c,
+                      (kb0 + t) * BK, g, b);
       }
     }
     return;
@@ -495,7 +517,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   fence_operands(sc);
   __syncwarp();
   if (lane == 0) mbar_arrive(&empty_k[0]);
-  softmax_tile<BK>(sc, 0, row0, col, S, causal, wq0, scale_log2, m, l, alpha);
+  softmax_tile<BK>(sc, kb0 * BK, row0, col, S, causal, window, wq0,
+                   scale_log2, m, l, alpha);
   split_p<BK>(sc, hi, lo);
 
   // tile t's scores and tile t - 1's P V run on the tensor cores while the
@@ -517,8 +540,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     fence_operands(sc);
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty_k[t % NS]);
-    softmax_tile<BK>(sc, t * BK, row0, col, S, causal, wq0, scale_log2, m, l,
-                     alpha);
+    softmax_tile<BK>(sc, (kb0 + t) * BK, row0, col, S, causal, window, wq0,
+                     scale_log2, m, l, alpha);
     wgmma_wait<0>();                   // P V of tile t - 1 is in
     fence_operands(acc);
     __syncwarp();
@@ -580,8 +603,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 template <int D, bool LSE>
 int launch_fma(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int H, int KV, int S, int causal,
-               float scale, Strides qs, Strides ks, Strides vs, Strides os,
-               cudaStream_t st) {
+               int window, float scale, Strides qs, Strides ks, Strides vs,
+               Strides os, cudaStream_t st) {
   auto kernel = flash_attention_kernel<D, LSE>;
   constexpr int bytes = smem_bytes<D>();
   cudaError_t err = allow_smem<flash_attention_kernel<D, LSE>>(bytes);
@@ -589,15 +612,15 @@ int launch_fma(const void* q, const void* k, const void* v, void* o,
   dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, bytes, st>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, qs,
-      ks, vs, os, S, H / KV, causal, scale);
+      ks, vs, os, S, H / KV, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D, bool LSE>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  float* lse, int B, int H, int KV, int S, int causal,
-                 float scale, Strides qs, Strides ks, Strides vs, Strides os,
-                 cudaStream_t st) {
+                 int window, float scale, Strides qs, Strides ks, Strides vs,
+                 Strides os, cudaStream_t st) {
   using C = Wg<D>;
   CUtensorMap qm, km, vm;
   int err = make_map(&qm, q, D, S, H, B, qs, C::kBQ);
@@ -609,7 +632,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   if (err) return err;
   dim3 grid(H, (S + C::kBQ - 1) / C::kBQ, B);
   kernel<<<grid, C::kThreads, C::kSmem, st>>>(
-      qm, km, vm, (__nv_bfloat16*)o, lse, os, S, H / KV, causal,
+      qm, km, vm, (__nv_bfloat16*)o, lse, os, S, H / KV, causal, window,
       (float)(scale * 1.4426950408889634));
   return (int)cudaGetLastError();
 }
@@ -618,13 +641,13 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
 template <bool LSE>
 int launch_d(int bf16, const void* q, const void* k, const void* v, void* o,
              float* lse, int B, int H, int KV, int S, int D, int causal,
-             float scale, Strides qs, Strides ks, Strides vs, Strides os,
-             cudaStream_t st) {
+             int window, float scale, Strides qs, Strides ks, Strides vs,
+             Strides os, cudaStream_t st) {
 #define FLASH_LAUNCH(DIM)                                                    \
   return bf16 ? launch_wgmma<DIM, LSE>(q, k, v, o, lse, B, H, KV, S, causal, \
-                                       scale, qs, ks, vs, os, st)            \
+                                       window, scale, qs, ks, vs, os, st)    \
               : launch_fma<DIM, LSE>(q, k, v, o, lse, B, H, KV, S, causal,   \
-                                     scale, qs, ks, vs, os, st)
+                                     window, scale, qs, ks, vs, os, st)
   switch (D) {
     case 64: FLASH_LAUNCH(64);
     case 128: FLASH_LAUNCH(128);
@@ -642,25 +665,29 @@ int launch_d(int bf16, const void* q, const void* k, const void* v, void* o,
 // elements, its last axis dense; for bf16 every base 16-byte aligned and
 // every stride of an axis longer than 1 a multiple of 8. lse: null (the
 // forward alone, kernel 4) or a dense fp32 (B, H, S) array for the rows'
-// logsumexp (kernel 5). Launches on `stream` and returns a cudaError_t
-// (cudaErrorInvalidValue for a head dimension it has no instance for).
+// logsumexp (kernel 5). window: the sliding window W >= 1 (causal only)
+// or 0 for none. Launches on `stream` and returns a cudaError_t
+// (cudaErrorInvalidValue for a head dimension it has no instance for, or a
+// window without causal).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, void* lse,
-    int bf16, int B, int H, int KV, int S, int D, int causal, float scale,
+    int bf16, int B, int H, int KV, int S, int D, int causal, int window,
+    float scale,
     long long q_sb,
     long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0) return (int)cudaSuccess;
-  if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  if (KV <= 0 || H % KV != 0 || window < 0 || (window > 0 && !causal))
+    return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   cudaStream_t st = (cudaStream_t)stream;
   float* l = (float*)lse;
   return l ? launch_d<true>(bf16, q, k, v, o, l, B, H, KV, S, D, causal,
-                            scale, qs, ks, vs, os, st)
+                            window, scale, qs, ks, vs, os, st)
            : launch_d<false>(bf16, q, k, v, o, l, B, H, KV, S, D, causal,
-                             scale, qs, ks, vs, os, st);
+                             window, scale, qs, ks, vs, os, st);
 }
 
 // dynamic shared memory of one block of the kernel for (bf16, D), in bytes

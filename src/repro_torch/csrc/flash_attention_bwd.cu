@@ -4,7 +4,11 @@
 //   ds = p * (dO . v - delta),  delta = rowsum(dO * o)
 //   dV = p^T dO,  dK = ds^T q_hat,  dQ = D**-0.5 * ds K
 // Query head h reads KV head g = h / (H / KV) (grouped-query heads; KV == H
-// is the TPU kernel's contract).
+// is the TPU kernel's contract). A sliding window W (causal only; 0 for
+// none) also masks the keys j <= i - W of query i (local attention): the
+// dK/dV walks stop at the last query tile that sees their keys, the dQ
+// walks start at the first key tile in their window, and the tiles on the
+// window's edge set p = 0 there.
 //
 // Replaces the two Pallas kernels of `flash_attention_bwd` in
 // src/repro/kernels/flash_attention.py: `_bwd_dkv_kernel` (dK and dV, one
@@ -211,17 +215,19 @@ __device__ __forceinline__ void acc_product(float (&acc)[4][D / 16],
 }
 
 // p[i][j] = exp(s[i][j] - lse of row i), or 0 where the pair is masked:
-// query or key at or past S, or (causal) the key after the query
+// query or key at or past S, (causal) the key after the query, or (window
+// > 0) the key before the query's window
 __device__ __forceinline__ void probs(float (&s)[4][4], const float* L,
                                       int q0, int k0, int S, int causal,
-                                      int tx, int ty) {
+                                      int window, int tx, int ty) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + 4 * ty + i;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int kpos = k0 + tx + 16 * j;
-      const bool live = qpos < S && kpos < S && (!causal || kpos <= qpos);
+      const bool live = qpos < S && kpos < S && (!causal || kpos <= qpos) &&
+                        (window <= 0 || kpos > qpos - window);
       s[i][j] = live ? expf(s[i][j] - L[i]) : 0.f;
     }
   }
@@ -243,7 +249,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, Strides qs, Strides ks,
                      Strides vs, Strides dos, int S, int rep, int causal,
-                     float scale) {
+                     int window, float scale) {
   constexpr int LD = D + 4;
   constexpr int NJ = D / 64;
   extern __shared__ float4 smem4[];
@@ -275,7 +281,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < 4 * NJ; ++c) dka[i][c] = dva[i][c] = 0.f;
 
   const int nq = (S + kB - 1) / kB;
-  for (int qb = causal ? kb : 0; qb < nq; ++qb) {
+  // the q tiles that see the key tile: from its diagonal (all when not
+  // causal) to the last row of its keys' window
+  const int nq_end = window > 0 ? min(nq, (k0 + kB + window - 2) / kB + 1)
+                                : nq;
+  for (int qb = causal ? kb : 0; qb < nq_end; ++qb) {
     const int q0 = qb * kB;
     __syncthreads();               // the last tile's reads are done
     load_tile<T, D>(Xs, qp, qs.s, q0, S, scale);
@@ -290,7 +300,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     row_dots<D>(p, Xs, Ks, tx, ty);
 #pragma unroll
     for (int i = 0; i < 4; ++i) L[i] = Lrow[4 * ty + i];
-    probs(p, L, q0, k0, S, causal, tx, ty);
+    probs(p, L, q0, k0, S, causal, window, tx, ty);
     __syncthreads();               // every read of q_hat is done
     load_tile<T, D>(Xs, dop, dos.s, q0, S, 1.f);
     put_tile(Ps, p, tx, ty);
@@ -338,7 +348,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     Strides qs, Strides ks, Strides vs, Strides dos,
-                    Strides dqs, int S, int rep, int causal, float scale) {
+                    Strides dqs, int S, int rep, int causal, int window,
+                    float scale) {
   constexpr int LD = D + 4;
   constexpr int NJ = D / 64;
   extern __shared__ float4 smem4[];
@@ -374,7 +385,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int n_all = (S + kB - 1) / kB;
   const int n_kb = causal ? min(n_all, qb + 1) : n_all;
-  for (int kb = 0; kb < n_kb; ++kb) {
+  const int kb0 = window > 0 ? max(0, q0 - window + 1) / kB : 0;
+  for (int kb = kb0; kb < n_kb; ++kb) {
     const int k0 = kb * kB;
     __syncthreads();               // Qs, DOs written; the last K read done
     load_tile<T, D>(Xs, vp, vs.s, k0, S, 1.f);
@@ -386,7 +398,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     float p[4][4];
     row_dots<D>(p, Qs, Xs, tx, ty);                  // s = q_hat K^T
-    probs(p, L, q0, k0, S, causal, tx, ty);
+    probs(p, L, q0, k0, S, causal, window, tx, ty);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -413,8 +425,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, float* dk, float* dv,
-               int B, int H, int KV, int S, int causal, float scale,
-               Strides qs, Strides ks, Strides vs, Strides dos,
+               int B, int H, int KV, int S, int causal, int window,
+               float scale, Strides qs, Strides ks, Strides vs, Strides dos,
                cudaStream_t st) {
   auto kernel = flash_bwd_dkv_kernel<T, D>;
   constexpr int bytes = smem_bytes<D>();
@@ -424,15 +436,16 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   dim3 grid((S + kB - 1) / kB, H, B);
   kernel<<<grid, kThreads, bytes, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, dk,
-      dv, qs, ks, vs, dos, S, H / KV, causal, scale);
+      dv, qs, ks, vs, dos, S, H / KV, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int B, int H,
-              int KV, int S, int causal, float scale, Strides qs, Strides ks,
-              Strides vs, Strides dos, Strides dqs, cudaStream_t st) {
+              int KV, int S, int causal, int window, float scale, Strides qs,
+              Strides ks, Strides vs, Strides dos, Strides dqs,
+              cudaStream_t st) {
   auto kernel = flash_bwd_dq_kernel<T, D>;
   constexpr int bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -441,7 +454,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   dim3 grid((S + kB - 1) / kB, H, B);
   kernel<<<grid, kThreads, bytes, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dq, qs, ks, vs, dos, dqs, S, H / KV, causal, scale);
+      (T*)dq, qs, ks, vs, dos, dqs, S, H / KV, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -494,14 +507,15 @@ struct Dq {                          // the dQ tensor-core kernel's shape
 
 // one consumer warpgroup of the dK/dV kernel: keys wk0 .. wk0 + 63 against
 // each of the block's n_it (Q, dO) tiles (head it / nt, q tile t0 + it %
-// nt); DV / DK: which of the two accumulators it holds. Writes its rows of
-// the chunk's fp32 partials (dK scaled).
+// nt); DV / DK: which of the two accumulators it holds; window: the
+// sliding window (0 for none). Writes its rows of the chunk's fp32
+// partials (dK scaled).
 template <int D, bool DV, bool DK>
 __device__ __forceinline__ void dkv_consumer(
     const uint8_t* ring, const float* rows, uint64_t* full, uint64_t* empty,
     uint32_t k_addr, uint32_t v_addr, float* __restrict__ dk,
     float* __restrict__ dv, int wk0, int t0, int nt, int n_it, int S,
-    int causal, float scale, float scale_log2) {
+    int causal, int window, float scale, float scale_log2) {
   using namespace hopper;
   using C = Dkv<D>;
   constexpr int NS = C::kStages, BQ = C::kBQ;
@@ -520,7 +534,10 @@ __device__ __forceinline__ void dkv_consumer(
     const int s = it % NS;
     const int q0 = (t0 + it % nt) * BQ;
     mbar_wait(&full[s], (it / NS) & 1);
-    if (wk0 < S && !(causal && wk0 > q0 + BQ - 1)) {
+    // the tile is skipped when its queries see none of the keys: all
+    // in their future, or (window) all before their windows
+    if (wk0 < S && !(causal && wk0 > q0 + BQ - 1) &&
+        !(window > 0 && wk0 + 63 <= q0 - window)) {
       const uint32_t q_addr = smem_addr(ring + s * 2 * C::kTileBytes);
       const uint32_t do_addr = q_addr + C::kTileBytes;
       const float* lrow = rows + s * 2 * BQ;  // lse * log2 e, then delta
@@ -539,18 +556,28 @@ __device__ __forceinline__ void dkv_consumer(
       }
       fence_operands(st);
       // P^T = exp2(S^T scale log2 e - lse log2 e), one lse per column; on
-      // the diagonal the keys after their query are 0
-      const bool diag = causal && wk0 + 63 > q0;
+      // the diagonal the keys after their query are 0, on the window's
+      // edge the keys before their query's window: a pair of such a tile
+      // lives iff d = query - key lies in [0, window) (one unsigned
+      // compare; without a window, [0, INT_MAX) is the diagonal's test)
 #pragma unroll
       for (int i = 0; i < BQ / 8; ++i) {
         const float2 l = *reinterpret_cast<const float2*>(lrow + 8 * i + col);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float p = exp2f(fmaf(st[4 * i + e], scale_log2, -((e & 1) ? l.y : l.x)));
-          if (diag && wk0 + r_in + 8 * (e >> 1) > q0 + 8 * i + col + (e & 1))
-            p = 0.f;
-          st[4 * i + e] = p;
-        }
+        for (int e = 0; e < 4; ++e)
+          st[4 * i + e] = exp2f(fmaf(st[4 * i + e], scale_log2,
+                                     -((e & 1) ? l.y : l.x)));
+      }
+      if ((causal && wk0 + 63 > q0) ||
+          (window > 0 && wk0 <= q0 + BQ - 1 - window)) {
+        const unsigned span = window > 0 ? (unsigned)window : 0x7fffffffu;
+        const int d0 = q0 + col - wk0 - r_in;
+#pragma unroll
+        for (int i = 0; i < BQ / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if ((unsigned)(d0 + 8 * i + (e & 1) - 8 * (e >> 1)) >= span)
+              st[4 * i + e] = 0.f;
       }
       if constexpr (DV) {
         pack_a<BQ>(st, ab);
@@ -617,7 +644,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                            const float* __restrict__ delta,
                            float* __restrict__ dk, float* __restrict__ dv,
                            int S, int H, int rep, int chunks, int causal,
-                           float scale, float scale_log2) {
+                           int window, float scale, float scale_log2) {
   using namespace hopper;
   using C = Dkv<D>;
   constexpr int NS = C::kStages, BQ = C::kBQ;
@@ -638,7 +665,10 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int h0 = g * rep + chunk * per;
   const int nq = (S + BQ - 1) / BQ;
   const int t0 = causal ? k0 / BQ : 0;     // the first q tile seeing a key
-  const int nt = nq - t0, n_it = per * nt;
+  // one past the last: the tile of the last row in the last key's window
+  const int t_end =
+      window > 0 ? min(nq, (k0 + C::kKeys + window - 2) / BQ + 1) : nq;
+  const int nt = t_end - t0, n_it = per * nt;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -702,15 +732,15 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     if (wg == 0)
       dkv_consumer<D, true, false>(ring, rows, full, empty, k_addr, v_addr,
                                    dk + out0, dv + out0, k0, t0, nt, n_it, S,
-                                   causal, scale, scale_log2);
+                                   causal, window, scale, scale_log2);
     else
       dkv_consumer<D, false, true>(ring, rows, full, empty, k_addr, v_addr,
                                    dk + out0, dv + out0, k0, t0, nt, n_it, S,
-                                   causal, scale, scale_log2);
+                                   causal, window, scale, scale_log2);
   } else {
     dkv_consumer<D, true, true>(ring, rows, full, empty, k_addr, v_addr,
                                 dk + out0, dv + out0, k0 + off, t0, nt, n_it,
-                                S, causal, scale, scale_log2);
+                                S, causal, window, scale, scale_log2);
   }
 }
 
@@ -724,7 +754,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
                           __nv_bfloat16* __restrict__ dq, Strides dqs, int S,
-                          int rep, int causal, float scale,
+                          int rep, int causal, int window, float scale,
                           float scale_log2) {
   using namespace hopper;
   using C = Dq<D>;
@@ -743,7 +773,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int h = blockIdx.x, b = blockIdx.z, g = h / rep, H = gridDim.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest first
   const int n_all = (S + BK - 1) / BK;
-  const int n_kb = causal ? min(n_all, (q0 + BQ - 1) / BK + 1) : n_all;
+  // key tiles kb0 .. kb0 + n_kb - 1: from the window of the block's first
+  // row (0 without a window) to its diagonal (all when not causal)
+  const int kb0 = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  const int n_kb =
+      (causal ? min(n_all, (q0 + BQ - 1) / BK + 1) : n_all) - kb0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -776,13 +810,13 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         if (t >= NS) mbar_wait(&empty_k[s], parity);
         mbar_expect_tx(&full_k[s], C::kTileBytes);
         for (int c = 0; c < C::kCols; ++c)
-          tma_load_4d(Ks + c * BK * 128, &kmap, &full_k[s], 64 * c, t * BK,
-                      g, b);
+          tma_load_4d(Ks + c * BK * 128, &kmap, &full_k[s], 64 * c,
+                      (kb0 + t) * BK, g, b);
         if (t >= NS) mbar_wait(&empty_v[s], parity);
         mbar_expect_tx(&full_v[s], C::kTileBytes);
         for (int c = 0; c < C::kCols; ++c)
-          tma_load_4d(Vs + c * BK * 128, &vmap, &full_v[s], 64 * c, t * BK,
-                      g, b);
+          tma_load_4d(Vs + c * BK * 128, &vmap, &full_v[s], 64 * c,
+                      (kb0 + t) * BK, g, b);
       }
     }
     return;
@@ -814,7 +848,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
   mbar_wait(qbar, 0);
   for (int t = 0; t < n_kb; ++t) {
-    const int s = t % NS, k0 = t * BK;
+    const int s = t % NS, k0 = (kb0 + t) * BK;
     const uint32_t parity = (t / NS) & 1;
     const uint32_t k_addr = kv_addr + s * 2 * C::kTileBytes;
     const uint32_t v_addr = k_addr + C::kTileBytes;
@@ -830,20 +864,27 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     wgmma_commit();
     wgmma_wait<1>();                   // S is in
     fence_operands(sc);
-    // P = exp2(S scale log2 e - lse log2 e); the diagonal tile and the
-    // ragged tail masked to 0
-    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > wq0);
+    // P = exp2(S scale log2 e - lse log2 e); then, on the diagonal tile,
+    // the ragged tail and the window's edge only (one test a tile), the
+    // masked pairs set to 0: keys at or past S, and (causal) pairs whose
+    // d = row - key is not in [0, window) ([0, INT_MAX) without a window;
+    // one unsigned compare)
 #pragma unroll
-    for (int i = 0; i < BK / 8; ++i)
+    for (int i = 0; i < BK / 2; ++i)
+      sc[i] = exp2f(fmaf(sc[i], scale_log2, -l2[(i >> 1) & 1]));
+    if (k0 + BK > S || (causal && k0 + BK - 1 > wq0) ||
+        (window > 0 && k0 <= wq0 + 63 - window)) {
+      const unsigned span = window > 0 ? (unsigned)window : 0x7fffffffu;
+      const int d0 = row0 - k0 - col;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = exp2f(fmaf(sc[4 * i + e], scale_log2, -l2[e >> 1]));
-        if (edge) {
+      for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
           const int key = k0 + 8 * i + col + (e & 1);
-          if (key >= S || (causal && key > row0 + 8 * (e >> 1))) p = 0.f;
+          const int d = d0 + 8 * (e >> 1) - 8 * i - (e & 1);
+          if (key >= S || (causal && (unsigned)d >= span)) sc[4 * i + e] = 0.f;
         }
-        sc[4 * i + e] = p;
-      }
+    }
     wgmma_wait<0>();                   // dP is in: the V tile is free
     fence_operands(dp);
     __syncwarp();
@@ -906,8 +947,9 @@ template <int D>
 int launch_dkv_wgmma(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
                      float* dk, float* dv, int B, int H, int KV, int S,
-                     int causal, int chunks, float scale, Strides qs,
-                     Strides ks, Strides vs, Strides dos, cudaStream_t st) {
+                     int causal, int window, int chunks, float scale,
+                     Strides qs, Strides ks, Strides vs, Strides dos,
+                     cudaStream_t st) {
   using C = Dkv<D>;
   CUtensorMap qm, km, vm, dm;
   int err = make_map(&qm, q, D, S, H, B, qs, C::kBQ);
@@ -919,8 +961,8 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v,
   if (err) return err;
   dim3 grid(KV * chunks, (S + C::kKeys - 1) / C::kKeys, B);
   flash_bwd_dkv_wgmma_kernel<D><<<grid, C::kThreads, C::kSmem, st>>>(
-      qm, km, vm, dm, lse, delta, dk, dv, S, H, H / KV, chunks, causal, scale,
-      scale * kLog2e);
+      qm, km, vm, dm, lse, delta, dk, dv, S, H, H / KV, chunks, causal,
+      window, scale, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -928,8 +970,8 @@ template <int D>
 int launch_dq_wgmma(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,
                     void* dq, int B, int H, int KV, int S, int causal,
-                    float scale, Strides qs, Strides ks, Strides vs,
-                    Strides dos, Strides dqs, cudaStream_t st) {
+                    int window, float scale, Strides qs, Strides ks,
+                    Strides vs, Strides dos, Strides dqs, cudaStream_t st) {
   using C = Dq<D>;
   CUtensorMap qm, km, vm, dm;
   int err = make_map(&qm, q, D, S, H, B, qs, C::kBQ);
@@ -942,7 +984,7 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
   dim3 grid(H, (S + C::kBQ - 1) / C::kBQ, B);
   flash_bwd_dq_wgmma_kernel<D><<<grid, C::kThreads, C::kSmem, st>>>(
       qm, km, vm, dm, lse, delta, (__nv_bfloat16*)dq, dqs, S, H / KV, causal,
-      scale, scale * kLog2e);
+      window, scale, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -953,9 +995,10 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
 // with its batch, head and sequence strides in elements and a dense last
 // axis (for bf16 every base 16-byte aligned and every stride of an axis
 // longer than 1 a multiple of 8); lse and delta dense fp32 (B, H, S); D in
-// {64, 128, 256}; H % KV == 0. Each launches on `stream` and returns a
-// cudaError_t (cudaErrorInvalidValue for a head dimension or chunk count
-// it has no instance for).
+// {64, 128, 256}; H % KV == 0; window the sliding window W >= 1 (causal
+// only) or 0 for none. Each launches on `stream` and returns a cudaError_t
+// (cudaErrorInvalidValue for a head dimension or chunk count it has no
+// instance for, or a window without causal).
 
 // the chunk count the dK/dV entry wants for these shapes
 extern "C" int flash_bwd_dkv_chunks(int bf16, int B, int H, int KV, int S,
@@ -970,13 +1013,15 @@ extern "C" int flash_bwd_dkv_chunks(int bf16, int B, int H, int KV, int S,
 extern "C" int flash_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int bf16, int B,
-    int H, int KV, int S, int D, int causal, int chunks, float scale,
+    int H, int KV, int S, int D, int causal, int window, int chunks,
+    float scale,
     long long q_sb, long long q_sh, long long q_ss, long long k_sb,
     long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long d_sb, long long d_sh, long long d_ss,
     void* stream) {
   if (B <= 0 || H <= 0 || S <= 0) return (int)cudaSuccess;
-  if (KV <= 0 || H % KV != 0 || chunks != dkv_chunks(bf16, B, H, KV, S, D))
+  if (KV <= 0 || H % KV != 0 || chunks != dkv_chunks(bf16, B, H, KV, S, D) ||
+      window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss}, dos{d_sb, d_sh, d_ss};
@@ -987,11 +1032,11 @@ extern "C" int flash_bwd_dkv_launch(
   float* dvf = (float*)dv;
 #define DKV_LAUNCH(DIM)                                                      \
   return bf16 ? launch_dkv_wgmma<DIM>(q, k, v, dout, l, dl, dkf, dvf, B, H,  \
-                                      KV, S, causal, chunks, scale, qs, ks,  \
-                                      vs, dos, st)                           \
+                                      KV, S, causal, window, chunks, scale,  \
+                                      qs, ks, vs, dos, st)                   \
               : launch_dkv<float, DIM>(q, k, v, dout, l, dl, dkf, dvf, B, H, \
-                                       KV, S, causal, scale, qs, ks, vs, dos,\
-                                       st)
+                                       KV, S, causal, window, scale, qs, ks, \
+                                       vs, dos, st)
   switch (D) {
     case 64: DKV_LAUNCH(64);
     case 128: DKV_LAUNCH(128);
@@ -1005,13 +1050,15 @@ extern "C" int flash_bwd_dkv_launch(
 extern "C" int flash_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int bf16, int B, int H,
-    int KV, int S, int D, int causal, float scale, long long q_sb,
+    int KV, int S, int D, int causal, int window, float scale,
+    long long q_sb,
     long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss,
     long long d_sb, long long d_sh, long long d_ss, long long o_sb,
     long long o_sh, long long o_ss, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0) return (int)cudaSuccess;
-  if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  if (KV <= 0 || H % KV != 0 || window < 0 || (window > 0 && !causal))
+    return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss}, dos{d_sb, d_sh, d_ss}, dqs{o_sb, o_sh, o_ss};
   cudaStream_t st = (cudaStream_t)stream;
@@ -1019,10 +1066,11 @@ extern "C" int flash_bwd_dq_launch(
   const float* dl = (const float*)delta;
 #define DQ_LAUNCH(DIM)                                                       \
   return bf16 ? launch_dq_wgmma<DIM>(q, k, v, dout, l, dl, dq, B, H, KV, S,  \
-                                     causal, scale, qs, ks, vs, dos, dqs, st)\
+                                     causal, window, scale, qs, ks, vs, dos, \
+                                     dqs, st)                                \
               : launch_dq<float, DIM>(q, k, v, dout, l, dl, dq, B, H, KV, S, \
-                                      causal, scale, qs, ks, vs, dos, dqs,   \
-                                      st)
+                                      causal, window, scale, qs, ks, vs, dos,\
+                                      dqs, st)
   switch (D) {
     case 64: DQ_LAUNCH(64);
     case 128: DQ_LAUNCH(128);

@@ -3,13 +3,14 @@
 the three entries of `repro/kernels/flash_attention.py` (with the
 any-length interface of `repro.kernels.ops.flash_attention`):
 
-  * `flash_attention(q, k, v, causal)` -> o, the forward (Pallas `_kernel`;
-    the prefill's attention);
-  * `flash_fwd_lse(q, k, v, causal)` -> (o, lse), the same forward with
-    each row's logsumexp (Pallas `_kernel_lse`, JAX's `_flash_fwd_lse`);
-  * `flash_attention_bwd(q, k, v, o, lse, do, causal)` -> (dq, dk, dv),
-    two kernels as in JAX (`_bwd_dkv_kernel`, `_bwd_dq_kernel`);
-  * `flash_attention_trainable(q, k, v, causal)`, the differentiable
+  * `flash_attention(q, k, v, causal, window)` -> o, the forward (Pallas
+    `_kernel`; the prefill's attention);
+  * `flash_fwd_lse(q, k, v, causal, window)` -> (o, lse), the same forward
+    with each row's logsumexp (Pallas `_kernel_lse`, JAX's
+    `_flash_fwd_lse`);
+  * `flash_attention_bwd(q, k, v, o, lse, do, causal, window)` -> (dq, dk,
+    dv), two kernels as in JAX (`_bwd_dkv_kernel`, `_bwd_dq_kernel`);
+  * `flash_attention_trainable(q, k, v, causal, window)`, the differentiable
     attention of the training path: a `torch.autograd.Function` whose
     forward is `flash_fwd_lse` and whose backward is
     `flash_attention_bwd`, saving (q, k, v, o, lse) as JAX's `_fat_fwd`.
@@ -24,6 +25,15 @@ dense last axis: the model passes its (B, S, H, D) projections through
 `.transpose(1, 2)`, and o and dq keep q's strides. Any S >= 1: the
 kernels mask their ragged tail where the TPU wrapper padded S. D in
 {64, 128, 256}, fp32 or bf16.
+
+`window` (an int >= 1, causal only; None for none) is the sliding window
+of `repro.models.attention._sdpa`: query i sees keys i - window < j <= i
+(RecurrentGemma's local attention). It reaches the kernels as a runtime
+int (0 for none), so it adds no instance: the forward's walks start at
+the first key tile in their window, the dK/dV walks stop at the last
+query tile that sees their keys, and the tiles on the window's edge mask
+the keys before it. The TPU kernels take no window; JAX's local
+attention runs in XLA (`attend`), and the port runs it on these kernels.
 
 The forward has one kernel per input type. fp32 runs every operation in
 fp32 FMAs on the CUDA cores (the TPU kernel's contract; TF32 would break
@@ -123,7 +133,20 @@ def _check_aligned(name, **tensors):
                 f"16 = {t.data_ptr() % 16}, strides {t.stride()}")
 
 
-def _forward(name, q, k, v, causal, lse):
+def _window(name, causal, window) -> int:
+    """The kernels' window argument: 0 for None, else window (an int
+    >= 1, with causal) or ValueError."""
+    if window is None:
+        return 0
+    if isinstance(window, bool) or not isinstance(window, int) \
+            or window < 1 or not causal:
+        raise ValueError(f"{name}: window must be an int >= 1 with "
+                         f"causal=True, got window={window!r}, "
+                         f"causal={causal}")
+    return window
+
+
+def _forward(name, q, k, v, causal, window, lse):
     B, H, KV, S, D = _check(name, q, k, v)
     out = torch.empty_like(q)
     if out.stride(3) != 1:
@@ -135,38 +158,41 @@ def _forward(name, q, k, v, causal, lse):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
             int(q.dtype == torch.bfloat16), B, H, KV, S, D, int(causal),
-            D ** -0.5, *_strides(q, k, v, out), _stream(q))
+            window, D ** -0.5, *_strides(q, k, v, out), _stream(q))
         _build.check(err, name)
     return out
 
 
-def flash_attention(q, k, v, causal: bool = True):
-    """Attention with an online fp32 softmax; returns (B, H, S, D) in
-    q's dtype. CPU tensors take the plain version; CUDA tensors launch
-    the kernel (fp32 or bf16, D in HEAD_DIMS) or raise."""
+def flash_attention(q, k, v, causal: bool = True, window=None):
+    """Attention with an online fp32 softmax, over the keys of each
+    query's `window` when one is given; returns (B, H, S, D) in q's
+    dtype. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (fp32 or bf16, D in HEAD_DIMS) or raise."""
+    w = _window("flash_attention", causal, window)
     if _on_cpu("flash_attention", q, k, v):
-        return flash_attention_ref(q, k, v, causal)
-    out = _forward("flash_attention", q, k, v, causal, None)
+        return flash_attention_ref(q, k, v, causal, window)
+    out = _forward("flash_attention", q, k, v, causal, w, None)
     if q.shape[2]:
         flash_attention.launches += 1
     return out
 
 
-def flash_fwd_lse(q, k, v, causal: bool = True):
+def flash_fwd_lse(q, k, v, causal: bool = True, window=None):
     """`flash_attention` plus each row's logsumexp: returns (o in q's
     dtype (B, H, S, D), lse dense fp32 (B, H, S)). CPU tensors take the
     plain version; CUDA tensors launch the kernel or raise."""
+    w = _window("flash_fwd_lse", causal, window)
     if _on_cpu("flash_fwd_lse", q, k, v):
-        return flash_fwd_lse_ref(q, k, v, causal)
+        return flash_fwd_lse_ref(q, k, v, causal, window)
     B, H, S = q.shape[:3]
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    out = _forward("flash_fwd_lse", q, k, v, causal, lse)
+    out = _forward("flash_fwd_lse", q, k, v, causal, w, lse)
     if S:
         flash_fwd_lse.launches += 1
     return out, lse
 
 
-def _bwd_dkv(q, k, v, do, lse, delta, causal):
+def _bwd_dkv(q, k, v, do, lse, delta, causal, window=0):
     """dK and dV as dense fp32 partials (B, KV, chunks, S, D), chunk c
     summing its share of each group's query heads (the first of the
     backward's two kernels); the caller sums the chunks."""
@@ -181,14 +207,14 @@ def _bwd_dkv(q, k, v, do, lse, delta, causal):
     err = _build.load("flash_attention_bwd", "flash_bwd_dkv_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        bf16, B, H, KV, S, D, int(causal), chunks, D ** -0.5,
+        bf16, B, H, KV, S, D, int(causal), window, chunks, D ** -0.5,
         *_strides(q, k, v, do), _stream(q))
     _build.check(err, "flash_bwd_dkv")
     _bwd_dkv.launches += 1
     return dk, dv
 
 
-def _bwd_dq(q, k, v, do, lse, delta, causal):
+def _bwd_dq(q, k, v, do, lse, delta, causal, window=0):
     """dQ in q's dtype and strides (the second of the backward's two
     kernels)."""
     B, H, S, D = q.shape
@@ -202,13 +228,14 @@ def _bwd_dq(q, k, v, do, lse, delta, causal):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         int(q.dtype == torch.bfloat16), B, H, k.shape[1], S, D, int(causal),
-        D ** -0.5, *_strides(q, k, v, do, dq), _stream(q))
+        window, D ** -0.5, *_strides(q, k, v, do, dq), _stream(q))
     _build.check(err, "flash_bwd_dq")
     _bwd_dq.launches += 1
     return dq
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
+                        window=None):
     """The flash backward: (dq, dk, dv) in the dtypes of q, k and v, from
     the forward's o and lse and the output gradient do (B, H, S, D).
     delta = rowsum(do * o) in fp32 is a torch op, as JAX computes it
@@ -216,8 +243,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
     summed over the chunks in order (deterministic, no float atomics).
     CPU tensors take the plain version; CUDA tensors launch both kernels
     or raise."""
+    w = _window("flash_attention_bwd", causal, window)
     if _on_cpu("flash_attention_bwd", q, k, v, o, lse, do):
-        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal, window)
     B, H, KV, S, D = _check("flash_attention_bwd", q, k, v)
     if o.shape != q.shape or do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"flash_attention_bwd: o and do must be q's shape "
@@ -236,17 +264,17 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
     if S == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     delta = (do.float() * o.float()).sum(dim=-1).contiguous()
-    dk, dv = _bwd_dkv(q, k, v, do, lse, delta, causal)
-    dq = _bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = _bwd_dkv(q, k, v, do, lse, delta, causal, w)
+    dq = _bwd_dq(q, k, v, do, lse, delta, causal, w)
     return dq, dk.sum(dim=2).to(k.dtype), dv.sum(dim=2).to(v.dtype)
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        o, lse = flash_fwd_lse(q, k, v, causal)
+    def forward(ctx, q, k, v, causal, window):
+        o, lse = flash_fwd_lse(q, k, v, causal, window)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.window = causal, window
         return o
 
     @staticmethod
@@ -254,15 +282,17 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         if do.stride(3) != 1:
             do = do.contiguous()
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal)
-        return dq, dk, dv, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal,
+                                         ctx.window)
+        return dq, dk, dv, None, None
 
 
-def flash_attention_trainable(q, k, v, causal: bool = True):
+def flash_attention_trainable(q, k, v, causal: bool = True, window=None):
     """Differentiable flash attention: `flash_fwd_lse` forward,
     `flash_attention_bwd` backward (both kernels on the card, both plain
     versions on the CPU). Returns o (B, H, S, D) in q's dtype."""
-    return _FlashAttention.apply(q, k, v, causal)
+    _window("flash_attention_trainable", causal, window)
+    return _FlashAttention.apply(q, k, v, causal, window)
 
 
 flash_attention.launches = 0

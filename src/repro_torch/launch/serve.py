@@ -5,7 +5,10 @@
         --reduced --requests 8 --max-new 16 [--device cpu]
 
 The weights are fp32 with --reduced and bf16 otherwise (DeepSeekMoE-16B's
-are 65.5 GB in fp32, 32.75 GB in bf16).
+are 65.5 GB in fp32, 32.75 GB in bf16). Every family the port runs
+serves here: dense, MoE, SSM (mamba2_780m) and hybrid
+(recurrentgemma_2b, whose local attention keeps a ring of
+min(window, max_len) K/V slots).
 
 A request queue feeds fixed slots; each slot tracks its own cache
 position; a slot's prompt runs token by token through the shared decode
@@ -17,7 +20,9 @@ servers give the same tokens:
   * `admit` runs the prompt through the batched decode step with every
     other slot's token set to 0, and the step writes every slot's K/V at
     the admitted slot's position, so admitting a slot overwrites the
-    first len(prompt) cache rows of the slots admitted before it;
+    first len(prompt) cache rows of the slots admitted before it, and
+    steps every other slot's recurrent state (SSM, RG-LRU) with token 0
+    once a prompt token;
   * `tick` decodes all slots at one position, the first active slot's.
 """
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Grouped-query attention — the port of the GQA half of
-`repro/models/attention.py`.
+"""Grouped-query attention, full and sliding-window (local) — the port
+of the GQA half of `repro/models/attention.py`.
 
 A pass over a whole sequence runs the flash kernels: the training path
 (grad enabled and an input that requires grad) through
@@ -7,19 +7,23 @@ A pass over a whole sequence runs the flash kernels: the training path
 backward is `flash_attention_bwd`; prefill through `flash_attention`
 alone. On the card these are the CUDA kernels, on the CPU their plain
 versions; the narrow (B, KV, S, hd) K/V go in as they are, never
-repeated. JAX's training loss computes the same function in XLA
+repeated, and a window (RecurrentGemma's local attention) goes in as the
+kernels' `window`. JAX's training loss computes the same function in XLA
 (`attend`, q-chunked and rematerialized).
 
 Decode (one token against a cache) stays in torch ops, a softmax over
-the cache masked to `k_idx <= q_idx` and `k_idx < kv_len`, as JAX
-computes it in XLA outside any Pallas kernel.
-The decode step writes the new K/V row into the cache in place (JAX
-returns an updated copy); like JAX's `dynamic_update_slice` it writes
-every batch row at `cache_pos`, clamped into the cache.
+the cache masked to `k_idx <= q_idx` and `k_idx < kv_len` (`attend`), or
+for a window over the ring's slots masked by the absolute position each
+holds (`_masked_decode_attend`), as JAX computes them in XLA outside any
+Pallas kernel. The decode step writes the new K/V row into the cache in
+place (JAX returns an updated copy); like JAX's `dynamic_update_slice`
+it writes every batch row at `cache_pos`, clamped into the cache, or
+with a window at the ring slot `cache_pos % T`. A windowed prefill
+returns the last min(window, S) rows of K/V, in order, as JAX does.
 
 JAX's sharding hints (`constrain`, `_seq_shard`) have no counterpart on
-one device. MLA, the sliding-window ring buffer and the shard-mapped
-sequence-parallel attention come with later slices.
+one device. MLA and the shard-mapped sequence-parallel attention come
+with later slices.
 """
 from __future__ import annotations
 
@@ -68,10 +72,11 @@ def _qkv(p, x, cfg, positions):
     return q, k, v
 
 
-def attend(q, k, v, q_start, kv_len):
+def attend(q, k, v, q_start, kv_len, window=None):
     """Causal attention of q (B, c, H, hd) at positions q_start.. against
-    k/v (B, T, KV, hd), keys at kv_len and past masked: JAX's `_sdpa`
-    without a window. Returns (B, c, H, hd) in q's dtype."""
+    k/v (B, T, KV, hd), keys at kv_len and past masked, and with a
+    window the keys at or before q_idx - window: JAX's `_sdpa`. Returns
+    (B, c, H, hd) in q's dtype."""
     B, c, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     qg = q.reshape(B, c, KV, H // KV, hd)
@@ -80,39 +85,73 @@ def attend(q, k, v, q_start, kv_len):
     q_idx = q_start + torch.arange(c, device=q.device)
     k_idx = torch.arange(T, device=q.device)
     mask = (k_idx[None, :] <= q_idx[:, None]) & (k_idx < kv_len)[None, :]
+    if window is not None:
+        mask &= k_idx[None, :] > q_idx[:, None] - window
     s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
     a = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrct,btgk->bcgrk", a, v.float())
     return o.reshape(B, c, H, hd).to(q.dtype)
 
 
-def gqa_apply(p, x, cfg, positions, cache=None, cache_pos=None):
-    """Full causal GQA. Returns (out, kv). Decode — a cache and one token
-    (S == 1) at cache_pos — updates the cache in place and returns it;
-    otherwise attention runs over the sequence itself (the flash
-    kernels) and kv is its {k, v} (B, S, KV, hd), the prefill's cache."""
+def _masked_decode_attend(q, k, v, mask):
+    """q (B, 1, H, hd) against k/v (B, T, KV, hd), mask (T,) bool: JAX's
+    `_masked_decode_attend`. Returns (B, 1, H, hd) in q's dtype."""
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, KV, H // KV, hd)
+    s = torch.einsum("bgrk,btgk->bgrt", qg.float() * hd ** -0.5, k.float())
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+    a = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgrt,btgk->bgrk", a, v.float())
+    return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def gqa_apply(p, x, cfg, positions, window=None, cache=None,
+              cache_pos=None):
+    """Causal GQA, over each query's last `window` keys when given.
+    Returns (out, kv). Decode — a cache and one token (S == 1) at
+    cache_pos — updates the cache in place and returns it (a window's
+    cache is a ring of T = min(window, max_len) slots); otherwise
+    attention runs over the sequence itself (the flash kernels) and kv
+    is its {k, v} (B, S, KV, hd), or with a window its last min(window,
+    S) rows, the prefill's cache."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
     if cache is not None and S == 1:
-        slot = min(max(cache_pos, 0), cache["k"].shape[1] - 1)
+        T = cache["k"].shape[1]
+        slot = cache_pos % T if window is not None \
+            else min(max(cache_pos, 0), T - 1)
         cache["k"][:, slot] = k[:, 0]
         cache["v"][:, slot] = v[:, 0]
+        if window is not None:
+            # the absolute position each ring slot holds, masked to the
+            # ones written, causal and inside the window
+            slots = torch.arange(T, device=x.device)
+            abs_pos = cache_pos - torch.remainder(slot - slots, T)
+            mask = (abs_pos >= 0) & (abs_pos <= cache_pos) \
+                & (abs_pos > cache_pos - window)
+            out = _masked_decode_attend(q, cache["k"], cache["v"], mask)
+        else:
+            out = attend(q, cache["k"], cache["v"], q_start=cache_pos,
+                         kv_len=cache_pos + 1)
         kv = cache
-        out = attend(q, cache["k"], cache["v"], q_start=cache_pos,
-                     kv_len=cache_pos + 1)
     else:
         kv = {"k": k, "v": v}
+        if window is not None:
+            kv = {n: t[:, S - min(window, S):] for n, t in kv.items()}
         qkv = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
         train = torch.is_grad_enabled() and any(t.requires_grad
                                                 for t in qkv)
         fn = flash_attention_trainable if train else flash_attention
-        out = fn(*qkv).transpose(1, 2)
+        out = fn(*qkv, window=window).transpose(1, 2)
     return out.flatten(2) @ p.wo.flatten(0, 1), kv
 
 
-def gqa_cache_shape(cfg, batch, max_len, dtype=torch.bfloat16, device=None):
+def gqa_cache_shape(cfg, batch, max_len, dtype=torch.bfloat16, device=None,
+                    window=None):
+    """Zero K/V {k, v} (batch, T, KV, hd): T = max_len, or min(window,
+    max_len) for a windowed layer's ring."""
+    T = min(window, max_len) if window else max_len
     kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    return {"k": torch.zeros((batch, max_len, kv, hd), dtype=dtype,
-                             device=device),
-            "v": torch.zeros((batch, max_len, kv, hd), dtype=dtype,
-                             device=device)}
+    return {n: torch.zeros((batch, T, kv, hd), dtype=dtype, device=device)
+            for n in ("k", "v")}

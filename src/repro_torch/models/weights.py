@@ -2,13 +2,17 @@
 
 `params_from_jax(tree, cfg)` takes the tree `repro.models.lm.init_params`
 builds, as numpy arrays (`jax.tree.map(np.asarray, params)`): nested
-dicts whose segment leaves (`blocks`, and an MoE config's
-`dense_blocks`) are stacked over the segment's layers. It returns the
-state dict of the port's `LM` for the same config — the same names with
-the layer index after the segment (`blocks.3.attn.wq` is
-`tree["blocks"]["attn"]["wq"][3]`), the same layouts (wq (d, H, hd),
-the tied `embed.table` over the padded vocab, `blocks.1.moe.w_in`
-(E, d, F)) and the same dtypes (an MoE router stays fp32 beside bf16
+dicts whose segment leaves (`blocks`; an MoE config's `dense_blocks`;
+the hybrid's `groups` and `tail`) are stacked over the segment's layers,
+each segment's count checked against the config's
+(`lm.segment_layers`). It returns the state dict of the port's `LM` for
+the same config — the same names with the layer index after the segment
+(`blocks.3.attn.wq` is `tree["blocks"]["attn"]["wq"][3]`,
+`groups.2.rec1.rec.w_i` is `tree["groups"]["rec1"]["rec"]["w_i"][2]`),
+the same layouts (wq (d, H, hd), the tied `embed.table` over the padded
+vocab, `blocks.1.moe.w_in` (E, d, F), `blocks.0.ssm.w_in` (d, 2 d_in +
+2 N + H)) and the same dtypes (an MoE router, the SSM's `a_log`,
+`dt_bias`, `d_skip` and the RG-LRU's `lam` stay fp32 beside bf16
 leaves):
 
     model = lm.init_params(cfg, dtype=..., device=...)

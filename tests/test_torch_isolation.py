@@ -45,7 +45,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
             "repro_torch.core.spiking", "repro_torch.core.rl",
             "repro_torch.core.learning", "repro_torch.core.mesh_runtime",
             "repro_torch.core.distributed_engine",
-            "repro_torch.distributed.mesh"} <= set(names)
+            "repro_torch.distributed.mesh", "repro_torch.models.ssm",
+            "repro_torch.models.rglru"} <= set(names)
 
 
 def test_no_source_imports_jax_or_repro():

@@ -3,7 +3,8 @@ package's, on the CPU: the layer functions; `prefill` (last-token logits
 and the K/V caches) for reduced qwen2_5_3b, qwen2_7b and gemma_7b, at a
 ragged length and past JAX's q_chunk of 1024; `decode_step` from
 `init_cache`; the parameter converter; the families the port does not
-run yet (the MoE family: `test_torch_moe.py`). Both packages compute in
+run yet (the MoE family: `test_torch_moe.py`; the SSM and hybrid
+families: `test_torch_ssm.py`, `test_torch_hybrid.py`). Both packages compute in
 fp32 on the same weights (JAX's, moved over with `params_from_jax`);
 the tolerance is 1e-4 absolute on logits of magnitude ~4 and on the
 caches, for reductions of depth up to 256 summed in another order (the
@@ -216,8 +217,7 @@ def test_params_from_jax_checks_the_layer_count():
 
 
 # ------------------------------------------------------------------ families
-@pytest.mark.parametrize("arch", ["deepseek_v2_236b", "mamba2_780m",
-                                  "recurrentgemma_2b",
+@pytest.mark.parametrize("arch", ["deepseek_v2_236b",
                                   "llava_next_mistral_7b",
                                   "musicgen_medium"])
 def test_unported_families_raise(arch):
