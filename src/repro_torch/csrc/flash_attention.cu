@@ -26,15 +26,16 @@
 //
 // bf16 (`flash_attention_wgmma_kernel`, the path's; Hopper tensor cores):
 //   - one block per (128 query rows, query head, batch row): two consumer
-//     warpgroups of 64 rows each share every K/V tile (at D = 256 one
-//     consumer warpgroup and 64 rows: its O accumulator alone is 128
-//     registers a thread), plus a producer warpgroup, which hands its
+//     warpgroups of 64 rows each share every K/V tile (above D = 128 one
+//     consumer warpgroup and 64 rows: its O accumulator alone is 96
+//     registers a thread at D = 192, 128 at D = 256), plus a producer
+//     warpgroup, which hands its
 //     registers to the consumers (setmaxnreg: 24 and 240 of the 168 a
 //     thread the block starts with); the blocks with the most key tiles
 //     launch first (heads vary fastest in the grid, so this holds across
 //     heads);
 //   - one producer thread loads Q once and K and V tiles of BK keys (128
-//     at D <= 128, 64 at D = 256) into a 2-stage ring with TMA (128-byte
+//     at D <= 128, 64 above) into a 2-stage ring with TMA (128-byte
 //     swizzle, tensor maps over the model's (B, S, heads, D) strides); K
 //     and V have `full` and `empty` mbarriers of their own, since a K
 //     tile is free once its scores are in and a V tile only one step
@@ -53,7 +54,9 @@
 //     and exp2 of -inf is 0);
 //     exp2f of s * (scale * log2 e) - m, with m kept in log2 units (the
 //     lse is turned back to natural log at the end);
-//   - O += P V with wgmma m64nDk16: P is fed from registers as the A
+//   - O += P V with wgmma m64nDk16 (N = 192, DeepSeek-V2's MLA head dim
+//     with V padded to it, is an instance of its own in hopper.cuh): P is
+//     fed from registers as the A
 //     operand (the accumulator layout, packed in bf16 pairs, is the
 //     A-fragment layout), V as an MN-major B operand from shared memory
 //     (the transpose-B bit); O is rescaled by each row's alpha first;
@@ -298,8 +301,9 @@ flash_attention_kernel(const float* __restrict__ q,
 // ------------------------------------------- bf16: wgmma, TMA, mbarriers
 template <int D>
 struct Wg {                          // the tensor-core kernel's shape at D
-  // consumer warpgroups, 64 query rows each: one at D = 256, where the O
-  // accumulator alone is 128 registers a thread
+  // consumer warpgroups, 64 query rows each: one above D = 128, where the
+  // O accumulator alone is 96 (D = 192) or 128 (D = 256) registers a
+  // thread
   static constexpr int kWGs = D <= 128 ? 2 : 1;
   static constexpr int kBQ = 64 * kWGs;             // query rows per block
   static constexpr int kBK = D <= 128 ? 128 : 64;   // keys per K/V tile
@@ -651,6 +655,7 @@ int launch_d(int bf16, const void* q, const void* k, const void* v, void* o,
   switch (D) {
     case 64: FLASH_LAUNCH(64);
     case 128: FLASH_LAUNCH(128);
+    case 192: FLASH_LAUNCH(192);
     case 256: FLASH_LAUNCH(256);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -661,7 +666,7 @@ int launch_d(int bf16, const void* q, const void* k, const void* v, void* o,
 
 // q, o: (B, H, S, D); k, v: (B, KV, S, D); fp32 (bf16 == 0, the FMA
 // kernel) or bf16 (bf16 == 1, the tensor-core kernel); D in {64, 128,
-// 256}; H % KV == 0; each tensor's batch, head and sequence strides in
+// 192, 256}; H % KV == 0; each tensor's batch, head and sequence strides in
 // elements, its last axis dense; for bf16 every base 16-byte aligned and
 // every stride of an axis longer than 1 a multiple of 8. lse: null (the
 // forward alone, kernel 4) or a dense fp32 (B, H, S) array for the rows'
@@ -696,6 +701,7 @@ extern "C" int flash_attention_smem_bytes(int bf16, int D) {
   switch (D) {
     case 64: return bf16 ? Wg<64>::kSmem : smem_bytes<64>();
     case 128: return bf16 ? Wg<128>::kSmem : smem_bytes<128>();
+    case 192: return bf16 ? Wg<192>::kSmem : smem_bytes<192>();
     case 256: return bf16 ? Wg<256>::kSmem : smem_bytes<256>();
     default: return 0;
   }

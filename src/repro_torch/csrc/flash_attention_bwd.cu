@@ -40,8 +40,8 @@
 //   - P and dS enter their products rounded to bf16 once: the tolerance is
 //     2e-2 of each gradient's largest magnitude, and a CPU emulation of
 //     this arithmetic (tests/test_torch_flash_attention.py) stays within
-//     about 0.004 of it on the training-shape, peaky, flat, ragged, full
-//     and D = 256 cases;
+//     about 0.004 of it on the training-shape, peaky, flat, ragged, full,
+//     D = 192 and D = 256 cases;
 //   - dK/dV: one block per (key tile, KV head, batch row, chunk of the
 //     group's H / KV query heads). Each consumer warpgroup owns 64 keys
 //     (a block 128); K and V stay in shared memory while the producer
@@ -52,11 +52,12 @@
 //     (both operands K-major), P^T with each column's lse, dV += P^T dO
 //     (P^T from registers, dO MN-major), dS^T = P^T (dP^T - delta), dK +=
 //     dS^T Q (Q MN-major). dK + dV take 128 registers a thread at D = 128,
-//     S^T and dP^T 64 more. At D = 256, where dK + dV alone would be 256,
-//     the two warpgroups share one tile of 64 keys: one holds dV (S^T, P^T,
-//     P^T dO), the other dK (S^T and dP^T, dS^T, dS^T Q); each computes S^T
-//     itself, one product more than passing P^T through shared memory but
-//     no barrier between them;
+//     S^T and dP^T 64 more. Above D = 128, where dK + dV alone would be
+//     192 (D = 192, DeepSeek-V2's MLA) or 256 registers a thread against
+//     a budget of 240, the two warpgroups share one tile of 64 keys: one
+//     holds dV (S^T, P^T, P^T dO), the other dK (S^T and dP^T, dS^T, dS^T
+//     Q); each computes S^T itself, one product more than passing P^T
+//     through shared memory but no barrier between them;
 //   - the GQA chunks: the fewest chunks of the group's query heads (a
 //     divisor of H / KV) that give at least 256 blocks, two per SM of the
 //     H100's 132 (causal walks differ in length, so one wave would leave
@@ -66,9 +67,9 @@
 //     head took. The count depends on the shape only, so two calls give
 //     the same bits;
 //   - dQ: one block per (128 query rows in two consumer warpgroups, query
-//     head, batch row; 64 rows and one warpgroup at D = 256); Q, dO and
+//     head, batch row; 64 rows and one warpgroup above D = 128); Q, dO and
 //     each thread's two rows of lse and delta stay resident while K and V
-//     tiles of 128 keys (64 at D = 256) stream through a 2-stage ring up to
+//     tiles of 128 keys (64 above D = 128) stream through a 2-stage ring up to
 //     the diagonal, K and V with full and empty barriers of their own (a V
 //     tile is free once dP is in). Per tile: S = Q K^T, dP = dO V^T, P and
 //     dS per row, dQ += dS K (dS from registers, K MN-major). The finish
@@ -103,8 +104,8 @@
 //     exp is 0); rows past S load as zeros and are never written.
 //   Padded rows (+4 floats) keep the shared-memory reads free of bank
 //   conflicts. Shared memory is 3 (64, D + 4) tiles, the (64, 68) tile and
-//   two 64-float rows: 70 KB at D = 64, 119 KB at D = 128, 218 KB at
-//   D = 256. No fast-math: expf.
+//   two 64-float rows: 70 KB at D = 64, 119 KB at D = 128, 168 KB at
+//   D = 192, 218 KB at D = 256. No fast-math: expf.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -470,9 +471,10 @@ constexpr long long kMinBlocks = 256;
 
 template <int D>
 struct Dkv {                         // the dK/dV tensor-core kernel's shape
-  // at D = 256 the two consumer warpgroups share 64 keys, one holding dV
-  // and one dK; below, each owns 64 keys and both
-  static constexpr bool kSplit = D == 256;
+  // above D = 128 the two consumer warpgroups share 64 keys, one holding
+  // dV and one dK (both would be D registers a thread); at and below, each
+  // owns 64 keys and both
+  static constexpr bool kSplit = D > 128;
   static constexpr int kKeys = kSplit ? 64 : 128;   // keys per block
   static constexpr int kBQ = 64;                    // rows per Q / dO tile
   static constexpr int kCols = D / 64;              // 128-byte column blocks
@@ -488,8 +490,8 @@ struct Dkv {                         // the dK/dV tensor-core kernel's shape
 
 template <int D>
 struct Dq {                          // the dQ tensor-core kernel's shape
-  // consumer warpgroups, 64 query rows each: one at D = 256, where dQ
-  // alone is 128 registers a thread
+  // consumer warpgroups, 64 query rows each: one above D = 128, where dQ
+  // alone is 96 (D = 192) or 128 (D = 256) registers a thread
   static constexpr int kWGs = D <= 128 ? 2 : 1;
   static constexpr int kBQ = 64 * kWGs;             // query rows per block
   static constexpr int kBK = D <= 128 ? 128 : 64;   // keys per K/V tile
@@ -936,7 +938,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 int dkv_chunks(int bf16, int B, int H, int KV, int S, int D) {
   const int rep = H / KV;
   if (!bf16) return rep;
-  const int keys = D == 256 ? Dkv<256>::kKeys : Dkv<128>::kKeys;
+  const int keys = D > 128 ? Dkv<256>::kKeys : Dkv<128>::kKeys;
   const long long base = (long long)B * KV * ((S + keys - 1) / keys);
   for (int c = 1; c < rep; ++c)
     if (rep % c == 0 && base * c >= kMinBlocks) return c;
@@ -995,7 +997,7 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
 // with its batch, head and sequence strides in elements and a dense last
 // axis (for bf16 every base 16-byte aligned and every stride of an axis
 // longer than 1 a multiple of 8); lse and delta dense fp32 (B, H, S); D in
-// {64, 128, 256}; H % KV == 0; window the sliding window W >= 1 (causal
+// {64, 128, 192, 256}; H % KV == 0; window the sliding window W >= 1 (causal
 // only) or 0 for none. Each launches on `stream` and returns a cudaError_t
 // (cudaErrorInvalidValue for a head dimension or chunk count it has no
 // instance for, or a window without causal).
@@ -1040,6 +1042,7 @@ extern "C" int flash_bwd_dkv_launch(
   switch (D) {
     case 64: DKV_LAUNCH(64);
     case 128: DKV_LAUNCH(128);
+    case 192: DKV_LAUNCH(192);
     case 256: DKV_LAUNCH(256);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -1074,6 +1077,7 @@ extern "C" int flash_bwd_dq_launch(
   switch (D) {
     case 64: DQ_LAUNCH(64);
     case 128: DQ_LAUNCH(128);
+    case 192: DQ_LAUNCH(192);
     case 256: DQ_LAUNCH(256);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -1090,6 +1094,7 @@ extern "C" int flash_bwd_smem_bytes(int kernel, int bf16, int D) {
   switch (D) {
     case 64: BWD_SMEM(64);
     case 128: BWD_SMEM(128);
+    case 192: BWD_SMEM(192);
     case 256: BWD_SMEM(256);
     default: return 0;
   }

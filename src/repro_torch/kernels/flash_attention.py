@@ -24,7 +24,8 @@ is dense fp32 (B, H, S) (JAX keeps it as (B*H, S)). Any strides with a
 dense last axis: the model passes its (B, S, H, D) projections through
 `.transpose(1, 2)`, and o and dq keep q's strides. Any S >= 1: the
 kernels mask their ragged tail where the TPU wrapper padded S. D in
-{64, 128, 256}, fp32 or bf16.
+{64, 128, 192, 256} (192: DeepSeek-V2's MLA, 128 + 64 with V padded),
+fp32 or bf16.
 
 `window` (an int >= 1, causal only; None for none) is the sliding window
 of `repro.models.attention._sdpa`: query i sees keys i - window < j <= i
@@ -69,7 +70,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                      flash_attention_ref, flash_fwd_lse_ref)
 
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 128, 192, 256)
 
 
 def _on_cpu(name, *tensors) -> bool:

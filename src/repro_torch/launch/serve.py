@@ -5,10 +5,14 @@
         --reduced --requests 8 --max-new 16 [--device cpu]
 
 The weights are fp32 with --reduced and bf16 otherwise (DeepSeekMoE-16B's
-are 65.5 GB in fp32, 32.75 GB in bf16). Every family the port runs
-serves here: dense, MoE, SSM (mamba2_780m) and hybrid
-(recurrentgemma_2b, whose local attention keeps a ring of
-min(window, max_len) K/V slots).
+are 65.5 GB in fp32, 32.75 GB in bf16). Every config of the registry
+serves here: dense, MoE, SSM (mamba2_780m), hybrid (recurrentgemma_2b,
+whose local attention keeps a ring of min(window, max_len) K/V slots),
+MLA (deepseek_v2_236b, whose decode attends in the absorbed form over
+the compressed {c_kv, k_rope} cache) and the frontends'
+(llava_next_mistral_7b, musicgen_medium), on tokens: as JAX's server,
+this one feeds no patch embeddings. DeepSeek-V2-236B does not fit one
+card whole at any precision here (472 GB in bf16).
 
 A request queue feeds fixed slots; each slot tracks its own cache
 position; a slot's prompt runs token by token through the shared decode
@@ -22,7 +26,8 @@ servers give the same tokens:
     the admitted slot's position, so admitting a slot overwrites the
     first len(prompt) cache rows of the slots admitted before it, and
     steps every other slot's recurrent state (SSM, RG-LRU) with token 0
-    once a prompt token;
+    once a prompt token (MLA's compressed rows are overwritten as K/V
+    rows are);
   * `tick` decodes all slots at one position, the first active slot's.
 """
 from __future__ import annotations

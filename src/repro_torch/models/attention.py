@@ -1,5 +1,6 @@
-"""Grouped-query attention, full and sliding-window (local) — the port
-of the GQA half of `repro/models/attention.py`.
+"""Grouped-query attention, full and sliding-window (local), and
+DeepSeek-V2's multi-head latent attention (MLA) — the port of
+`repro/models/attention.py`.
 
 A pass over a whole sequence runs the flash kernels: the training path
 (grad enabled and an input that requires grad) through
@@ -21,18 +22,32 @@ it writes every batch row at `cache_pos`, clamped into the cache, or
 with a window at the ring slot `cache_pos % T`. A windowed prefill
 returns the last min(window, S) rows of K/V, in order, as JAX does.
 
+MLA (`mla_apply`) keeps JAX's two forms. Over a sequence (training,
+prefill) the naive form decompresses K and V from the latent c_kv,
+concatenates k_nope with k_rope broadcast over the heads, pads V with
+zeros to the query/key head dim (128 + 64 = 192 at DeepSeek-V2's
+widths, JAX's `_pad_last`) and runs the same flash kernels at that head
+dim with KV == H, then slices the output back to v_head_dim; the
+prefill's cache is the compressed {c_kv, k_rope}. Decode runs the
+absorbed form on that cache in torch ops, as JAX computes it in XLA:
+q_nope through w_uk into the latent space, fp32 scores against c_kv and
+k_rope, the output back through w_uv. Its new row is written in place
+at `cache_pos`, clamped into the cache as the GQA decode writes.
+
 JAX's sharding hints (`constrain`, `_seq_shard`) have no counterpart on
-one device. MLA and the shard-mapped sequence-parallel attention come
-with later slices.
+one device. The shard-mapped sequence-parallel attention comes with the
+distribution slice.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_trainable)
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import (Norm, apply_norm, apply_rope,
+                                       dense_init)
 
 NEG_INF = -1e30
 
@@ -139,12 +154,19 @@ def gqa_apply(p, x, cfg, positions, window=None, cache=None,
         kv = {"k": k, "v": v}
         if window is not None:
             kv = {n: t[:, S - min(window, S):] for n, t in kv.items()}
-        qkv = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
-        train = torch.is_grad_enabled() and any(t.requires_grad
-                                                for t in qkv)
-        fn = flash_attention_trainable if train else flash_attention
-        out = fn(*qkv, window=window).transpose(1, 2)
+        out = _flash(q, k, v, window)
     return out.flatten(2) @ p.wo.flatten(0, 1), kv
+
+
+def _flash(q, k, v, window=None):
+    """Causal attention of a whole sequence, q (B, S, H, hd) and k, v
+    (B, S, KV, hd), on the flash kernels: the trainable one (forward with
+    lse, the backward kernels) when grad is on and an input requires it,
+    the forward alone otherwise. Returns (B, S, H, hd)."""
+    qkv = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    train = torch.is_grad_enabled() and any(t.requires_grad for t in qkv)
+    fn = flash_attention_trainable if train else flash_attention
+    return fn(*qkv, window=window).transpose(1, 2)
 
 
 def gqa_cache_shape(cfg, batch, max_len, dtype=torch.bfloat16, device=None,
@@ -155,3 +177,95 @@ def gqa_cache_shape(cfg, batch, max_len, dtype=torch.bfloat16, device=None,
     kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     return {n: torch.zeros((batch, T, kv, hd), dtype=dtype, device=device)
             for n in ("k", "v")}
+
+
+# ===================================================================== MLA
+class MLA(nn.Module):
+    """`w_dq` (d, q_lora), `w_uq` (q_lora, H, nope + rope), `w_dkv` (d,
+    kv_lora + rope), `w_uk` (kv_lora, H, nope), `w_uv` (kv_lora, H, v),
+    `w_o` (H, v, d) and the RMSNorm scales `q_norm`, `kv_norm`: JAX's
+    `mla_init`."""
+
+    def __init__(self, cfg, gen: torch.Generator, dtype):
+        super().__init__()
+        m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        self.w_dq = dense_init(gen, (d, m.q_lora_rank), dtype)
+        self.w_uq = dense_init(gen, (m.q_lora_rank, H, qk), dtype,
+                               fan_in=m.q_lora_rank)
+        self.w_dkv = dense_init(gen, (d, m.kv_lora_rank
+                                      + m.qk_rope_head_dim), dtype)
+        self.w_uk = dense_init(gen, (m.kv_lora_rank, H, m.qk_nope_head_dim),
+                               dtype, fan_in=m.kv_lora_rank)
+        self.w_uv = dense_init(gen, (m.kv_lora_rank, H, m.v_head_dim), dtype,
+                               fan_in=m.kv_lora_rank)
+        self.w_o = dense_init(gen, (H, m.v_head_dim, d), dtype,
+                              fan_in=H * m.v_head_dim)
+        self.q_norm = Norm(m.q_lora_rank, dtype, device=gen.device)
+        self.kv_norm = Norm(m.kv_lora_rank, dtype, device=gen.device)
+
+
+def _mla_compress(p, x, cfg, positions):
+    """The down-projections every MLA form shares: (cq, c_kv, k_rope),
+    (B, S, q_lora), (B, S, kv_lora) and (B, S, rope)."""
+    m = cfg.mla
+    cq = apply_norm(p.q_norm, x @ p.w_dq)
+    dkv = x @ p.w_dkv
+    c_kv = apply_norm(p.kv_norm, dkv[..., :m.kv_lora_rank])
+    k_rope = apply_rope(dkv[..., m.kv_lora_rank:], positions, cfg.rope_theta)
+    return cq, c_kv, k_rope
+
+
+def mla_apply(p, x, cfg, positions, cache=None, cache_pos=None):
+    """MLA. Returns (out, kv). Decode — a cache {c_kv, k_rope} and one
+    token (S == 1) at cache_pos — writes the token's row in place (at
+    cache_pos clamped into the cache) and attends in the absorbed form
+    over the rows up to cache_pos; kv is the cache. Otherwise the naive
+    form runs the flash kernels at head dim nope + rope over K and V
+    decompressed, V zero-padded to that dim, and kv is the sequence's
+    {c_kv, k_rope}, the prefill's cache."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    nope = m.qk_nope_head_dim
+    cq, c_kv, k_rope = _mla_compress(p, x, cfg, positions)
+    q = _proj(cq, p.w_uq)
+    q_nope = q[..., :nope]
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    if cache is not None and S == 1:
+        ck, cr = cache["c_kv"], cache["k_rope"]
+        T = ck.shape[1]
+        slot = min(max(cache_pos, 0), T - 1)
+        ck[:, slot] = c_kv[:, 0]
+        cr[:, slot] = k_rope[:, 0]
+        scale = (nope + m.qk_rope_head_dim) ** -0.5
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p.w_uk)
+        s = (torch.einsum("bshr,btr->bhst", q_lat.float(), ck.float())
+             + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                            cr.float())) * scale
+        t_idx = torch.arange(T, device=x.device)
+        s = torch.where(t_idx <= cache_pos, s,
+                        torch.full((), NEG_INF, device=x.device))
+        a = torch.softmax(s, dim=-1)
+        o_lat = torch.einsum("bhst,btr->bshr", a, ck.float())
+        o = torch.einsum("bshr,rhk->bshk", o_lat.to(x.dtype), p.w_uv)
+        return o.flatten(2) @ p.w_o.flatten(0, 1), cache
+    k_nope = _proj(c_kv, p.w_uk)
+    v = _proj(c_kv, p.w_uv)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, cfg.n_heads, m.qk_rope_head_dim)], dim=-1)
+    qq = torch.cat([q_nope, q_rope], dim=-1)
+    if v.shape[-1] != qq.shape[-1]:
+        v = F.pad(v, (0, qq.shape[-1] - v.shape[-1]))
+    out = _flash(qq, k, v)[..., :m.v_head_dim]
+    return (out.flatten(2) @ p.w_o.flatten(0, 1),
+            {"c_kv": c_kv, "k_rope": k_rope})
+
+
+def mla_cache_shape(cfg, batch, max_len, dtype=torch.bfloat16, device=None):
+    """Zero compressed caches {c_kv (batch, max_len, kv_lora), k_rope
+    (batch, max_len, rope)}."""
+    m = cfg.mla
+    return {"c_kv": torch.zeros((batch, max_len, m.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_len, m.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}

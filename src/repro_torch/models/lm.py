@@ -1,13 +1,15 @@
-"""LM assembly, dense, MoE, SSM and hybrid families — the port of
-`repro/models/lm.py` but for MLA and the frontends.
+"""LM assembly, every family of the registry — the port of
+`repro/models/lm.py`.
 
 The model is an `nn.Module` (`LM`) with the JAX parameter tree's names:
 `embed`, `final_norm`, and the layers by segment (`segment_layers`), the
 layer index after the segment name:
-  * dense: `blocks.<i>`, each block `ln1`, `attn`, `ln2`, `mlp`;
+  * dense, audio (MusicGen) and VLM (LLaVA-NeXT): `blocks.<i>`, each
+    block `ln1`, `attn`, `ln2`, `mlp`;
   * MoE: JAX's `dense_blocks.<i>` (`first_k_dense` blocks with an MLP of
     width `moe.d_ff_dense or d_ff`) then `blocks.<i>` (`moe` in place of
-    `mlp`);
+    `mlp`); DeepSeek-V2's `attn` is MLA (`attn_kind` "mla": `w_dq`,
+    `w_uq`, `w_dkv`, `w_uk`, `w_uv`, `w_o`, `q_norm`, `kv_norm`);
   * SSM (Mamba-2): `blocks.<i>`, each norm + mixer only: `ln1`, `ssm`;
   * hybrid (RecurrentGemma): `groups.<i>.{rec1, rec2, attn}` for the
     n_layers // 3 (rglru, rglru, local_attn) groups, then `tail.<i>`
@@ -15,10 +17,20 @@ layer index after the segment name:
     `ln2`, `mlp`, a local_attn block GQA over `cfg.rglru.window` keys.
 The backbone is a Python loop over each segment's layers where JAX scans
 it; caches keep JAX's layer-stacked layout: {segment: {"k", "v": (L, B,
-T, KV, hd)}}, {"blocks": {"conv", "ssd"}} for the SSM family and
-{"groups": {"rec1": {"conv", "h"}, "rec2": ..., "attn": {"k", "v"}},
-"tail": {"conv", "h"}} for the hybrid, each leaf stacked over its
+T, KV, hd)}}, MLA's compressed {segment: {"c_kv": (L, B, T, kv_lora),
+"k_rope": (L, B, T, rope)}}, {"blocks": {"conv", "ssd"}} for the SSM
+family and {"groups": {"rec1": {"conv", "h"}, "rec2": ..., "attn": {"k",
+"v"}}, "tail": {"conv", "h"}} for the hybrid, each leaf stacked over its
 segment's layers.
+
+The frontends are JAX's stubs (`_embed_input`): a `vision_patches`
+config (LLaVA-NeXT) takes batch["patch_embeds"] (B, n_patch_tokens, d),
+cast and put before the token embeddings, so that positions run over
+n_patch_tokens + S and the loss reads the text positions only; an
+`audio_tokens` config (MusicGen) takes token ids, with sinusoidal
+positions added to the embeddings (`cfg.pos`). Neither JAX's launchers
+nor the port's feed patches: the serving and training CLIs run on
+tokens.
 
 Entry points: `init_params`, `loss_fn` (the training loss, ce + the MoE
 router's aux loss, with each layer of a segment rematerialized when
@@ -27,8 +39,6 @@ and per tail block, and for `remat_policy` "dots" the outputs of mm, bmm
 and addmm saved, after JAX's `dots_with_no_batch_dims_saveable`),
 `init_cache`, `prefill` and `decode_step`. They run on the card unless
 the caller asks for the CPU (`device="cpu"`, or a model already there).
-MLA and frontend configs raise NotImplementedError; they are ROADMAP
-item 10's later slices.
 """
 from __future__ import annotations
 
@@ -46,32 +56,21 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (MLP, Embed, Norm, chunked_ce_loss,
-                                       embed_lookup, unembed)
-
-
-def check_supported(cfg) -> None:
-    """Raise for the families the port does not run yet."""
-    if cfg.mla is not None or cfg.attn_kind == "mla":
-        what = "MLA attention"
-    elif cfg.frontend is not None:
-        what = f"the {cfg.frontend} frontend"
-    else:
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: {what} is not ported yet; repro_torch runs the dense, "
-        f"MoE, SSM and hybrid families (ROADMAP item 10, the LM stack, "
-        f"ports the rest in later slices)")
+                                       embed_lookup, sinusoidal_positions,
+                                       unembed)
 
 
 def _mix_kind(cfg) -> str:
-    return "ssm" if cfg.family == "ssm" else "attn"
+    if cfg.family == "ssm":
+        return "ssm"
+    return "mla" if cfg.attn_kind == "mla" else "attn"
 
 
 class Block(nn.Module):
     """One pre-norm residual block of `kind` (JAX's `init_block`): "attn"
-    and "local_attn" (GQA), "rglru" (`rec`), each followed by `ln2` and
-    the MLP or, with `use_moe`, the MoE layer; "ssm" is `ln1` and the
-    mixer only."""
+    and "local_attn" (GQA), "mla", "rglru" (`rec`), each followed by
+    `ln2` and the MLP or, with `use_moe`, the MoE layer; "ssm" is `ln1`
+    and the mixer only."""
 
     def __init__(self, cfg, gen: torch.Generator, dtype, kind="attn",
                  use_moe=False):
@@ -83,6 +82,8 @@ class Block(nn.Module):
             return
         if kind == "rglru":
             self.rec = rglru_mod.RGLRU(cfg, gen, dtype)
+        elif kind == "mla":
+            self.attn = attn.MLA(cfg, gen, dtype)
         else:
             self.attn = attn.GQA(cfg, gen, dtype)
         self.ln2 = Norm(cfg.d_model, dtype, cfg.norm, device=dev)
@@ -135,7 +136,6 @@ def layer_blocks(cfg, segment: str) -> Tuple[Tuple[Any, str], ...]:
 class LM(nn.Module):
     def __init__(self, cfg, gen: torch.Generator, dtype):
         super().__init__()
-        check_supported(cfg)
         self.embed = Embed(cfg, gen, dtype)
         self.final_norm = Norm(cfg.d_model, dtype, cfg.norm,
                                device=gen.device)
@@ -178,6 +178,9 @@ def block_apply(p, x, cfg, positions, cache=None, cache_pos=None,
         return x + y, new, None
     if kind == "rglru":
         y, new = rglru_mod.rglru_apply(p.rec, h, cfg, cache=cache)
+    elif kind == "mla":
+        y, new = attn.mla_apply(p.attn, h, cfg, positions, cache=cache,
+                                cache_pos=cache_pos)
     else:
         window = cfg.rglru.window if kind == "local_attn" else None
         y, new = attn.gqa_apply(p.attn, h, cfg, positions, window=window,
@@ -249,14 +252,35 @@ def _stack(trees):
     return torch.stack(trees)
 
 
+def _n_patch(cfg, batch) -> int:
+    """The patch positions before the text: cfg.n_patch_tokens when a
+    vision_patches config is given batch["patch_embeds"], else 0."""
+    return cfg.n_patch_tokens if cfg.frontend == "vision_patches" \
+        and "patch_embeds" in batch else 0
+
+
+def _embed_input(params, cfg, batch, positions):
+    """The token embeddings, after the patch embeddings (cast to their
+    dtype) when `_n_patch` has any, plus the sinusoidal positions for a
+    `pos` "sinusoidal" config: JAX's `_embed_input`."""
+    h = embed_lookup(params.embed, batch["tokens"])
+    if _n_patch(cfg, batch):
+        h = torch.cat([batch["patch_embeds"].to(h.dtype), h], dim=1)
+    if cfg.pos == "sinusoidal":
+        h = h + sinusoidal_positions(positions, cfg.d_model).to(h.dtype)
+    return h
+
+
 def backbone(params, cfg, batch, positions=None, caches=None,
              cache_pos=None, with_cache=False, remat=None):
-    """Returns (h, aux, caches): aux the sum of the MoE layers' router
-    losses (a zero for the other families). Decode passes `caches` and
-    `cache_pos` and gets them back, updated in place; a full-sequence
-    pass with `with_cache` gets each segment's cache stacked over its
-    layers (K/V, or the recurrent layers' final state); otherwise caches
-    is None. With `remat` (default `cfg.remat`) and grad enabled, each
+    """Returns (h, aux, caches): h over the patch positions (when
+    `_n_patch` has any) then the tokens', at positions 0.. unless given;
+    aux the sum of the MoE layers' router losses (a zero for the other
+    families). Decode passes `caches` and `cache_pos` and gets them
+    back, updated in place; a full-sequence pass with `with_cache` gets
+    each segment's cache stacked over its layers (K/V, MLA's {c_kv,
+    k_rope}, or the recurrent layers' final state); otherwise caches is
+    None. With `remat` (default `cfg.remat`) and grad enabled, each
     layer of a segment (a block, or a hybrid group) runs under
     `torch.utils.checkpoint` (`_remat_kwargs`) and is recomputed in the
     backward."""
@@ -265,8 +289,9 @@ def backbone(params, cfg, batch, positions=None, caches=None,
         and not with_cache
     tokens = batch["tokens"]
     if positions is None:
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
-    h = embed_lookup(params.embed, tokens)
+        positions = torch.arange(tokens.shape[1] + _n_patch(cfg, batch),
+                                 device=tokens.device)
+    h = _embed_input(params, cfg, batch, positions)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     new = {}
     for name in segment_layers(cfg):
@@ -300,12 +325,13 @@ def loss_fn(params, cfg, batch):
     """The training loss of batch["tokens"] (B, S): next-token cross
     entropy (labels are the tokens rolled by one, the last position
     masked, times batch["loss_mask"] when given) through
-    `chunked_ce_loss`. Returns (ce + aux, {"ce", "aux"}); aux, the MoE
-    layers' router loss, is 0 for the other families."""
-    check_supported(cfg)
+    `chunked_ce_loss`, over the text positions only (after any patches).
+    Returns (ce + aux, {"ce", "aux"}); aux, the MoE layers' router loss,
+    is 0 for the other families."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     h, aux, _ = backbone(params, cfg, batch)
+    h = h[:, h.shape[1] - S:]
     labels = torch.roll(tokens, -1, dims=1)
     mask = torch.ones((B, S), dtype=torch.float32, device=tokens.device)
     mask[:, -1] = 0.0
@@ -320,6 +346,8 @@ def _layer_cache(cfg, kind, batch_size, max_len, dtype, device):
         return ssm_mod.ssm_cache_shape(cfg, batch_size, dtype, device)
     if kind == "rglru":
         return rglru_mod.rglru_cache_shape(cfg, batch_size, dtype, device)
+    if kind == "mla":
+        return attn.mla_cache_shape(cfg, batch_size, max_len, dtype, device)
     window = cfg.rglru.window if kind == "local_attn" else None
     return attn.gqa_cache_shape(cfg, batch_size, max_len, dtype, device,
                                 window=window)
@@ -327,9 +355,9 @@ def _layer_cache(cfg, kind, batch_size, max_len, dtype, device):
 
 def init_cache(cfg, batch_size, max_len, dtype=torch.bfloat16, device=None):
     """Zero caches in JAX's layer-stacked layout (module docstring): K/V
-    (L, B, max_len, KV, hd), a windowed layer's ring (L, B, min(window,
-    max_len), KV, hd), the recurrent layers' states (L, B, ...)."""
-    check_supported(cfg)
+    (L, B, max_len, KV, hd), MLA's {c_kv, k_rope} (L, B, max_len, .), a
+    windowed layer's ring (L, B, min(window, max_len), KV, hd), the
+    recurrent layers' states (L, B, ...)."""
     dev = resolve(device)
     out = {}
     for name, L in segment_layers(cfg).items():
@@ -348,11 +376,12 @@ def _expand(tree, L):
 
 @torch.no_grad()
 def prefill(params, cfg, batch) -> tuple:
-    """Full-sequence forward of batch["tokens"] (B, S); returns (the last
+    """Full-sequence forward of batch["tokens"] (B, S), after
+    batch["patch_embeds"] for a vision_patches config; returns (the last
     token's fp32 logits over the padded vocab, caches). The caches'
-    sequence length is S (extend them before decoding further); a
-    windowed layer's holds the last min(window, S) positions."""
-    check_supported(cfg)
+    sequence length is S plus the patches (extend them before decoding
+    further); a windowed layer's holds the last min(window, S)
+    positions."""
     h, _, caches = backbone(params, cfg, batch, with_cache=True)
     logits = unembed(params.embed, h[:, -1], cfg)
     return logits.float(), caches
@@ -363,7 +392,6 @@ def decode_step(params, cfg, token, cache: Dict[str, Any], cache_pos: int):
     """token (B, 1) integer tensor; cache from init_cache(cfg, B,
     max_len), updated in place and returned; cache_pos = the number of
     tokens already in the cache. Returns (fp32 logits (B, Vp), cache)."""
-    check_supported(cfg)
     cache_pos = int(cache_pos)
     positions = cache_pos + torch.arange(1, device=token.device)
     h, _, cache = backbone(params, cfg, {"tokens": token},

@@ -8,10 +8,12 @@ each segment's count checked against the config's
 (`lm.segment_layers`). It returns the state dict of the port's `LM` for
 the same config — the same names with the layer index after the segment
 (`blocks.3.attn.wq` is `tree["blocks"]["attn"]["wq"][3]`,
-`groups.2.rec1.rec.w_i` is `tree["groups"]["rec1"]["rec"]["w_i"][2]`),
-the same layouts (wq (d, H, hd), the tied `embed.table` over the padded
-vocab, `blocks.1.moe.w_in` (E, d, F), `blocks.0.ssm.w_in` (d, 2 d_in +
-2 N + H)) and the same dtypes (an MoE router, the SSM's `a_log`,
+`groups.2.rec1.rec.w_i` is `tree["groups"]["rec1"]["rec"]["w_i"][2]`,
+MLA's `dense_blocks.0.attn.q_norm.scale` is `tree["dense_blocks"]
+["attn"]["q_norm"]["scale"][0]`), the same layouts (wq (d, H, hd), the
+tied `embed.table` over the padded vocab, `blocks.1.moe.w_in` (E, d,
+F), `blocks.0.ssm.w_in` (d, 2 d_in + 2 N + H), MLA's `w_uq` (q_lora, H,
+nope + rope)) and the same dtypes (an MoE router, the SSM's `a_log`,
 `dt_bias`, `d_skip` and the RG-LRU's `lam` stay fp32 beside bf16
 leaves):
 
@@ -32,7 +34,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.models.lm import check_supported, segment_layers
+from repro_torch.models.lm import segment_layers
 
 
 def _tensor(a) -> torch.Tensor:
@@ -44,7 +46,6 @@ def _tensor(a) -> torch.Tensor:
 
 
 def params_from_jax(tree, cfg) -> Dict[str, torch.Tensor]:
-    check_supported(cfg)
     layers = segment_layers(cfg)
     state: Dict[str, torch.Tensor] = {}
 

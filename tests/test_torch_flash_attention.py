@@ -4,7 +4,9 @@ the forward through `repro.kernels.ops`, `_flash_fwd_lse`,
 `flash_attention_bwd` and the custom_vjp `flash_attention_trainable` —
 and the jnp oracle `ref.flash_attention_ref`, at the shapes of
 tests/test_kernels.py plus ragged lengths; the grouped (GQA) form against
-repeated heads and against `models.attention._sdpa`; causality. Torch
+repeated heads and against `models.attention._sdpa`; causality; the
+head dim 192 of DeepSeek-V2's MLA (128 + 64, V padded), MHA and GQA.
+Torch
 emulations of the bf16 tensor-core kernels' arithmetic (the forward's P
 split into two bf16 parts before P V; the backward's P and dS rounded to
 bf16 once, its tile and chunk order of summation) are held against the
@@ -268,7 +270,7 @@ def tensor_core_emulation(q, k, v, causal=True):
     `flash_attention_wgmma_kernel`) written out in torch on the CPU: fp32
     scores of the bf16 inputs, the scale applied to them after the product
     (folded with log2 e into exp2), an online softmax over key tiles of BK
-    (128 at D <= 128, 64 at D = 256) with the running max in log2 units, P
+    (128 at D <= 128, 64 above) with the running max in log2 units, P
     taken under that running max as P_hi + P_lo, both bf16 (p rounded, and
     the rest rounded), for P V while the denominator sums the unrounded p,
     and the output rounded to bf16 once. Returns (o in bf16, lse in
@@ -307,7 +309,7 @@ def tensor_core_emulation(q, k, v, causal=True):
 # most keys the CPU affords, where the rounding of P adds up over most terms
 TC_CASES = [((1, 1, 128, 64), 1.0, 1.0), ((2, 3, 256, 64), 1.0, 1.0),
             ((1, 2, 512, 128), 1.0, 1.0), ((1, 2, 256, 128), 4.0, 4.0),
-            ((1, 1, 1024, 128), 0.05, 1.0)]
+            ((1, 1, 1024, 128), 0.05, 1.0), ((1, 2, 320, 192), 1.0, 1.0)]
 
 
 @pytest.mark.parametrize("shape,qmul,kmul", TC_CASES)
@@ -371,8 +373,9 @@ def test_tensor_core_numerics_ragged_and_full(S, causal):
 def dkv_chunks(B, H, KV, S, D):
     """The bf16 dK/dV kernel's chunk count (csrc/flash_attention_bwd.cu,
     `dkv_chunks`): the fewest chunks of a group's H / KV query heads (a
-    divisor) that give at least 256 blocks of 128 keys (64 at D = 256)."""
-    rep, keys = H // KV, 64 if D == 256 else 128
+    divisor) that give at least 256 blocks of 128 keys (64 above D =
+    128)."""
+    rep, keys = H // KV, 64 if D > 128 else 128
     base = B * KV * -(-S // keys)
     return next((c for c in range(1, rep) if rep % c == 0
                  and base * c >= 256), rep)
@@ -387,7 +390,8 @@ def backward_tensor_core_emulation(q, k, v, o, lse, do, causal=True,
     dS rounded to bf16 once before the products that take them; dK/dV
     summed per chunk of each group's query heads, head after head and q
     tile (64 rows) after q tile, dK scaled at the end, the chunks summed
-    in order; dQ summed key tile (128 keys, 64 at D = 256) after key tile
+    in order; dQ summed key tile (128 keys, 64 above D = 128) after key
+    tile
     and scaled at the end; delta = rowsum(do * o) in fp32; each gradient
     rounded to bf16 once. Returns (dq, dk, dv) in bf16."""
     B, H, S, D = q.shape
@@ -468,6 +472,7 @@ BWD_TC_CASES = [
     ((1, 2, 2, 200, 64), True, (1.0, 1.0), None),   # KV == H, ragged S
     ((1, 4, 2, 130, 128), False, (1.0, 1.0), None),  # full, ragged S
     ((1, 2, 1, 160, 256), True, (1.0, 1.0), None),  # D = 256, ragged S
+    ((1, 4, 4, 200, 192), True, (1.0, 1.0), None),  # MLA's D = 192, MHA
     ((1, 8, 1, 256, 128), True, (4.0, 4.0), 2),     # peaky softmax
     ((1, 2, 1, 512, 128), True, (0.05, 1.0), None),  # flat softmax
 ]
@@ -523,3 +528,51 @@ def test_backward_tensor_core_numerics_match_pallas_kernels(shape, causal,
                           group(jdv))):
         assert np.abs(w).max() > 0
         assert rel(to_np(g), w) <= EMU_TOL
+
+
+# ------------------------------------------- head dim 192 (DeepSeek-V2's MLA)
+@pytest.mark.parametrize("H,KV", [(2, 2), (4, 2)])
+def test_head_dim_192_matches_pallas_kernels(H, KV):
+    """D = 192, the MLA naive form's query/key head dim (128 + 64, V
+    padded to it), at S = 128: the plain forward, forward with lse and
+    backward against JAX's Pallas kernels in interpret mode (bq = bk =
+    64), MHA as they take it and GQA against them fed the KV heads
+    repeated, dK/dV summed over each group."""
+    B, S, D = 1, 128, 192
+    rep = H // KV
+    q, k, v = qkv(H + 192, B, H, KV, S, D)
+    do = np.random.default_rng(H).standard_normal((B, H, S, D)) \
+        .astype(np.float32)
+    kr, vr = np.repeat(k, rep, axis=1), np.repeat(v, rep, axis=1)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o = flash_attention(tq, tk, tv)
+    assert err(to_np(o), ops.flash_attention(
+        *map(jnp.asarray, (q, kr, vr)), bq=64, bk=64)) < TOL["float32"]
+    jo, jlse = jax_fwd_lse(q, kr, vr)
+    o2, lse = flash_fwd_lse(tq, tk, tv)
+    assert err(to_np(o2), jo) < TOL["float32"]
+    assert err(lse.reshape(B * H, S).numpy(), jlse) < 2e-5
+    want = jfa.flash_attention_bwd(
+        *map(jnp.asarray, (q, kr, vr, jo, jlse, do)), causal=True, bq=64,
+        bk=64, interpret=True)
+    got = flash_attention_bwd(tq, tk, tv, torch.from_numpy(np.array(jo)),
+                              torch.from_numpy(np.array(jlse)).reshape(
+                                  B, H, S), tdo)
+    groups = [np.asarray(w, np.float32) for w in want]
+    groups[1:] = [w.reshape(B, KV, rep, S, D).sum(2) for w in groups[1:]]
+    for g, w in zip(got, groups):
+        assert g.shape == w.shape and np.abs(w).max() > 0
+        assert err(to_np(g), w) < 1e-4
+
+
+def test_kernel_interface_takes_the_head_dims_it_has_instances_for():
+    """The wrapper's check (run before a launch) takes D in HEAD_DIMS,
+    192 among them, and names the tuple when it refuses one."""
+    assert tfa.HEAD_DIMS == (64, 128, 192, 256)
+    for D in tfa.HEAD_DIMS:
+        q, k, v = map(torch.from_numpy, qkv(D, 1, 2, 1, 8, D))
+        assert tfa._check("flash_attention", q, k, v) == (1, 2, 1, 8, D)
+    q, k, v = map(torch.from_numpy, qkv(0, 1, 2, 1, 8, 96))
+    with pytest.raises(ValueError, match=r"head dim 96 not in \(64, 128, "
+                                         r"192, 256\)"):
+        tfa._check("flash_attention", q, k, v)

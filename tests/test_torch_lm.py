@@ -2,13 +2,14 @@
 package's, on the CPU: the layer functions; `prefill` (last-token logits
 and the K/V caches) for reduced qwen2_5_3b, qwen2_7b and gemma_7b, at a
 ragged length and past JAX's q_chunk of 1024; `decode_step` from
-`init_cache`; the parameter converter; the families the port does not
-run yet (the MoE family: `test_torch_moe.py`; the SSM and hybrid
-families: `test_torch_ssm.py`, `test_torch_hybrid.py`). Both packages compute in
-fp32 on the same weights (JAX's, moved over with `params_from_jax`);
-the tolerance is 1e-4 absolute on logits of magnitude ~4 and on the
-caches, for reductions of depth up to 256 summed in another order (the
-measured gap is ~4e-6)."""
+`init_cache`; the parameter converter; every config of the registry
+run through the port at its reduced size against JAX's shapes (the
+families' own files: `test_torch_moe.py`, `test_torch_ssm.py`,
+`test_torch_hybrid.py`, `test_torch_mla.py`, `test_torch_frontends.py`).
+Both packages compute in fp32 on the same weights (JAX's, moved over
+with `params_from_jax`); the tolerance is 1e-4 absolute on logits of
+magnitude ~4 and on the caches, for reductions of depth up to 256
+summed in another order (the measured gap is ~4e-6)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +19,7 @@ import torch
 from _torch_pair import lm_pair
 from repro.distributed.context import mesh_context
 from repro.launch.mesh import make_local_mesh
+from repro import configs as jcfgs
 from repro.models import layers as jl
 from repro.models import lm as jlm
 from repro_torch.configs import get_reduced
@@ -217,15 +219,67 @@ def test_params_from_jax_checks_the_layer_count():
 
 
 # ------------------------------------------------------------------ families
-@pytest.mark.parametrize("arch", ["deepseek_v2_236b",
-                                  "llava_next_mistral_7b",
-                                  "musicgen_medium"])
-def test_unported_families_raise(arch):
-    """deepseek_v2_236b is an MoE config with MLA attention: the MoE
-    family runs, so its message names MLA."""
-    cfg = get_reduced(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10") as e:
-        tlm.init_params(cfg, device="cpu")
-    assert ("MLA" in str(e.value)) == (arch == "deepseek_v2_236b")
-    with pytest.raises(NotImplementedError):
-        tlm.init_cache(cfg, 1, 4, device="cpu")
+def shape_tree(tree, path=()):
+    """{"a/b": shape} of every leaf of a nested dict of arrays."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(shape_tree(v, path + (k,)))
+        else:
+            out["/".join(path + (k,))] = tuple(v.shape)
+    return out
+
+
+@pytest.mark.parametrize("arch", jcfgs.ARCH_IDS + jcfgs.EXTRA_ARCH_IDS)
+def test_every_config_runs_with_jax_shapes(arch):
+    """Every id of the registry: for an LM config (all of ARCH_IDS), the
+    port's init_params, prefill (with seeded patch_embeds for a
+    vision_patches config), init_cache, decode_step and loss_fn run on
+    the CPU at the reduced config and give JAX's parameter leaves and
+    shapes, output shapes and cache trees (JAX's traced by
+    jax.eval_shape). `hiaer_snn_40b` (EXTRA_ARCH_IDS) names the SNN
+    step the dry-run lowers, no LM config in either package."""
+    if arch not in jcfgs.ARCH_IDS:
+        for get in (jcfgs.get_reduced, get_reduced):
+            with pytest.raises(ModuleNotFoundError):
+                get(arch)
+        return
+    jcfg, tcfg = jcfgs.get_reduced(arch), get_reduced(arch)
+    B, S, T = 2, 12, 20
+    rng = np.random.default_rng(len(arch))
+    batch = {"tokens": rng.integers(0, jcfg.vocab_size, (B, S))}
+    if jcfg.frontend == "vision_patches":
+        batch["patch_embeds"] = rng.normal(
+            0, 1, (B, jcfg.n_patch_tokens, jcfg.d_model)).astype(np.float32)
+    tok = batch["tokens"][:, :1]
+    with mesh_context(make_local_mesh()):
+        jp = jax.eval_shape(lambda: jlm.init_params(
+            jcfg, jax.random.PRNGKey(0), jnp.float32))
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        jl, jc = jax.eval_shape(lambda p: jlm.prefill(p, jcfg, jb), jp)
+        jdl, jdc = jax.eval_shape(
+            lambda p: jlm.decode_step(p, jcfg, jnp.asarray(tok),
+                                      jlm.init_cache(jcfg, B, T, jnp.float32),
+                                      jnp.int32(3)), jp)
+        jloss = jax.eval_shape(lambda p: jlm.loss_fn(p, jcfg, jb)[0], jp)
+    model = tlm.init_params(tcfg, dtype=torch.float32, device="cpu")
+    layers = tlm.segment_layers(tcfg)
+    want = {}
+    for name, shape in shape_tree(jp).items():
+        seg, *rest = name.split("/")
+        names = ([".".join([seg, str(i)] + rest) for i in range(shape[0])]
+                 if seg in layers else [".".join([seg] + rest)])
+        want.update({n: shape[1:] if seg in layers else shape
+                     for n in names})
+    assert {n: tuple(t.shape) for n, t in model.state_dict().items()} \
+        == want
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    lt, ct = tlm.prefill(model, tcfg, tb)
+    assert lt.shape == jl.shape and bool(torch.isfinite(lt).all())
+    assert shape_tree(ct) == shape_tree(jc)
+    cache = tlm.init_cache(tcfg, B, T, torch.float32, device="cpu")
+    assert shape_tree(cache) == shape_tree(jdc)
+    dl, dc = tlm.decode_step(model, tcfg, torch.from_numpy(tok), cache, 3)
+    assert dl.shape == jdl.shape and shape_tree(dc) == shape_tree(jdc)
+    loss, _ = tlm.loss_fn(model, tcfg, tb)
+    assert loss.shape == jloss.shape and bool(torch.isfinite(loss))
