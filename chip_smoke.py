@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA card.
 
-    python3 chip_smoke.py            # one card, full width, ~17 minutes
+    python3 chip_smoke.py            # one card, full width, ~15 minutes
 
 Phases, in the order they run (the timing phase 6 runs last, so that it
 can time the shapes the other phases give the kernels); any failure
@@ -77,7 +77,10 @@ raises and the script exits non-zero:
      for bit, both kernels' launch counters are > 0 and split_randint
      launched once a step (128);
   5. the card against the CPU port (the plain versions) on the first
-     window (B = 2, T = 4), bit for bit;
+     window (B = 2, T = 4), bit for bit: the CPU port's side runs in a
+     process of its own (`cpu_window_worker`), started after the
+     network's compile beside phases 3-9 (it took 111.5 s of the
+     critical path in PR 26), and is compared after phase 9;
   7. the `spike_matmul` kernel against its plain version on the card,
      exact equality: bool x int16 at 300 x 77 and 3,010 x 3,010; the
      simulator's form on the MLP network's stacked W (3,794 x 3,010)
@@ -219,6 +222,42 @@ raises and the script exits non-zero:
      (bf16 moments, its config's), LLaVA-NeXT whole served (7.24 B) and
      trained at 28 layers, the most that fit (fp32 moments), MusicGen
      whole (1.36 B); ms a tick, prefill ms and tokens/s, step ms, peaks;
+ 25. the distribution slice, on DIST_RANKS = 4 gloo ranks sharing the
+     card (`dist_rank`; NCCL refuses two ranks on one card): (a) one MoE
+     layer at published widths (each routed expert drawn from a
+     generator of its own, so that a rank draws only its experts) in
+     fp32 through `moe.apply_with_keep` on every rank of each
+     EP_CASES mesh, every rank's rows and aux within 1e-5 of max |ref|
+     of `moe_apply_sharded_ref` (the whole layer in one process on the
+     card) and its dropped events equal: DeepSeekMoE-16B's layer (E =
+     64, top-6, d 2,048, F 1,408, 2 shared) sequence-sharded at tp = 2
+     and tp = 4 (B = 1, S = 4,096), decoding 4 slots at tp = 4, through
+     `_hiaer_exchange` on a (pod 2, data 1, model 2) mesh (B = 2), and
+     DeepSeek-V2's layer (E = 160, d 5,120, F 1,536) through
+     `_decode_moe_2d` on (data 2, model 2), a quarter of its experts on
+     each rank, also within 1e-5 of max |y| of the whole layer on one
+     rank and the whole batch (shared experts included), and the tp = 2
+     case again at capacity factor 0.5, where events must drop on every
+     shard; then each rank's layer in bf16 timed (host clock,
+     synchronised) with its exchange's collective alone (bytes and ms);
+     (b) on ranks 0 and 1 as a (data 2, model 1) mesh, MusicGen-Medium
+     cut to DP_PARITY's 2 layers in fp32, one row a rank, held to world
+     size 1 at the whole batch (rank 0): loss within 1e-5, gradients
+     within 1e-4, moments and the well-conditioned parameters within
+     1e-5 (lr 1e-2); then MusicGen-Medium whole in bf16 with ZeRO-1
+     moments, a row of S = 4,096 a rank, three steps with the int8
+     compressor and one with top-k (each compressor's first call held
+     bit for bit to its CPU run on the same gradients and residual,
+     the embedding and LayerNorm leaves), per step the forward with lse
+     96 times and each backward kernel 48 times on each rank; step ms,
+     the all-reduce's and all-gather's bytes and ms (the step's own
+     `train_step.wire`, CUDA events), peak memory a rank;
+     (c) the 2-layer state after (b)'s step saved in JAX's layout (each
+     rank its ZeRO-1 blocks as shards, rank 0 the index), restored by
+     both ranks (their blocks bit for bit) and by rank 0 onto world
+     size 1 through `reshard_tree` (the moments within 1e-5 of world
+     size 1's), whose next step is held to the ranks' next step; bytes
+     written, seconds to save and restore. `[dist*]` lines;
  17. the serving tier at full width: one `SpikeServer` (max_batch 8,
      max_wait 2 ms, window 16) holding the core on the fused engine (8
      session lanes) and the MLP on the simulator (4), both deployed by
@@ -3039,6 +3078,582 @@ def phase_last_families(dev, seed: int, zero_counts, read_counts, card: str,
     return res
 
 
+# ------------------------------------------- the distribution slice (25)
+DIST_RANKS = 4                 # gloo ranks sharing the card in phase 25
+DM, PDM = ("data", "model"), ("pod", "data", "model")
+# 25(a): name, arch, mesh shape, axis names, B, S, MoE config changes
+EP_CASES = (
+    ("seq tp=2", MOE_ARCH, (1, 2), DM, 1, 4096, {}),
+    ("seq tp=4", MOE_ARCH, (1, 4), DM, 1, 4096, {}),
+    ("decode tp=4", MOE_ARCH, (1, 4), DM, 4, 1, {}),
+    ("hiaer (2,1,2)", MOE_ARCH, (2, 1, 2), PDM, 2, 4096,
+     {"hierarchical_a2a": True}),
+    ("decode 2d (2,2)", MLA_ARCH, (2, 2), DM, 4, 1, {}),
+    # the capacity binds (the CPU tests' factor): events drop on every
+    # shard, so the overflow path runs at tp > 1 on the card
+    ("seq tp=2 capacity 0.5", MOE_ARCH, (1, 2), DM, 1, 4096,
+     {"capacity_factor": 0.5}),
+)
+EP_TOL = 1e-5                  # of max |ref|, fp32, ranks vs the reference
+EP_REPS = 3                    # timed bf16 calls of each case's layer
+DP_PARITY = (2, 2, 1024)       # 25(b) fp32 parity: layers, B, S
+DP_TRAIN = (2, 4096)           # 25(b) bf16 MusicGen: global B, S
+DP_STEPS = (("int8", 3), ("topk", 1))   # compressor, steps
+PARITY_OC = dict(lr=1e-2, warmup_steps=2, total_steps=10)
+ILL = 1e-6                     # sqrt(nu_hat) under it: ill-conditioned
+
+
+def ep_layer(cfg, seed: int, dev, mesh_shape=None, coords=None,
+             decode=False, dtype=torch.float32):
+    """One MoE layer at cfg's widths, JAX's `moe_init` scales: each
+    routed expert drawn from a generator seeded by (seed, expert) on the
+    card, the router and shared experts from (seed, E), so that a rank
+    draws only its experts. With `coords` the rank's blocks
+    (`moe.expert_specs` on a mesh of `mesh_shape`), else the whole
+    layer."""
+    from torch import nn
+    from repro_torch.distributed.context import Mesh
+    from repro_torch.launch.sharding import local_slice
+    from repro_torch.models import moe
+    mo, d = cfg.moe, cfg.d_model
+    E, F_ = mo.n_routed, mo.d_ff_expert
+    specs, mesh = {}, None
+    if coords is not None:
+        names = DM if len(mesh_shape) == 2 else PDM
+        mesh = Mesh(mesh_shape, names)
+        specs = moe.expert_specs(cfg, mesh, decode)
+
+    def gen(i):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed * 100_003 + i)
+        return g
+
+    def draw(g, shape, fan_in):
+        return torch.randn(shape, generator=g, device=dev) / math.sqrt(
+            fan_in)
+
+    def cut(name, w):
+        spec = specs.get(name)
+        if spec is None:
+            return w
+        if name.startswith("w_"):     # one expert: the E dim is done
+            spec = spec[1:]
+        return w[local_slice(spec, w.shape, mesh, coords)]
+
+    experts = range(E)
+    if "w_in" in specs:
+        tp = mesh.shape["model"]
+        j = coords["model"]
+        experts = range(j * E // tp, (j + 1) * E // tp)
+    blocks = {"w_in": [], "w_gate": [], "w_out": []}
+    for e in experts:
+        g = gen(e)
+        for n, shape, fan in (("w_in", (d, F_), d), ("w_gate", (d, F_), d),
+                              ("w_out", (F_, d), F_)):
+            blocks[n].append(cut(n, draw(g, shape, fan)).to(dtype))
+    layer = moe.MoE.__new__(moe.MoE)
+    nn.Module.__init__(layer)
+    g = gen(E)
+    layer.router = nn.Parameter(draw(g, (d, E), d))
+    for n, ws in blocks.items():
+        setattr(layer, n, nn.Parameter(torch.stack(ws)))
+    if mo.n_shared:
+        fs = mo.n_shared * F_
+        sh = nn.Module()
+        for n, shape, fan in (("w_in", (d, fs), d), ("w_gate", (d, fs), d),
+                              ("w_out", (fs, d), fs)):
+            w = cut("shared." + n, draw(g, shape, fan))
+            setattr(sh, n, nn.Parameter(w.to(dtype).contiguous()))
+        layer.shared = sh
+    return layer
+
+
+def ep_case(rank, world, work: Path, seed: int, case, dev) -> dict:
+    """25(a), one case on every rank: the mesh over the first
+    prod(shape) ranks; rank 0 also runs `moe_apply_sharded_ref` on the
+    whole layer. fp32 rows and aux of every member against the
+    reference, then bf16 timing of the rank's layer and of its
+    exchange's collective."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.context import Mesh, mesh_context
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    name, arch, shape, names, B, S, change = case
+    import dataclasses
+    cfg = get_arch(arch)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           **change))
+    n = int(np.prod(shape))
+    mesh = make_mesh(shape, names, ranks=list(range(n)))
+    decode = S == 1
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 250 + EP_CASES.index(case))
+    x = torch.randn((B, S, cfg.d_model), generator=g, device=dev)
+    tag = name.replace(" ", "_").replace("(", "").replace(")", "") \
+        .replace(",", "").replace("=", "")
+    out, y_one = {}, None
+    if rank == 0:
+        full = ep_layer(cfg, seed, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y_ref, aux_ref, dropped = moe.moe_apply_sharded_ref(full, x, cfg,
+                                                           shape)
+        torch.cuda.synchronize()
+        out.update(ref_s=time.perf_counter() - t0, dropped=dropped,
+                   experts_bytes=sum(
+                       getattr(full, k).numel() * 2
+                       for k in ("w_in", "w_gate", "w_out")))
+        if moe._two_d(cfg, Mesh(shape, names)) and decode:
+            # the whole layer on one rank and the whole batch: the 2-D
+            # layout must not change what a row gets (no event drops at
+            # 2 slots a shard, so the routed experts see the same tokens)
+            with torch.no_grad():
+                y_one = moe.moe_apply(full, x, cfg)[0]
+        del full
+        torch.cuda.empty_cache()
+    if mesh is not None:
+        layer = ep_layer(cfg, seed, dev, shape, mesh.coords, decode)
+        baxes = ("pod", "data") if "pod" in names else ("data",)
+        b, nb = mesh.index(baxes), mesh.axis_size(baxes)
+        rows = x[b * B // nb:(b + 1) * B // nb]
+        with mesh_context(mesh), torch.no_grad():
+            y, aux, keep = moe.apply_with_keep(layer, rows, cfg)
+            torch.save({"y": y.cpu(), "aux": float(aux),
+                        "dropped": int((~keep).sum()), "rows": (b, nb)},
+                       work / f"ep_{tag}_{rank}.pt")
+            # bf16: the timed layer and its collective alone
+            for n_, p in layer.named_parameters():
+                if n_ != "router":            # fp32 in every dtype
+                    p.data = p.data.to(torch.bfloat16)
+            xb = rows.to(torch.bfloat16)
+            ms = []
+            for i in range(EP_REPS + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                moe.moe_apply(layer, xb, cfg)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+            T = rows.shape[0] * (S // mesh.shape["model"] if not decode
+                                 else S)
+            C = moe._capacity(T, cfg)
+            tp, E = mesh.shape["model"], cfg.moe.n_routed
+            if decode:
+                # the slices gathered over 'model': (E_loc, C, d) a rank
+                buf = torch.zeros((E // tp, C, cfg.d_model),
+                                  dtype=torch.bfloat16, device=dev)
+                wire = lambda: mesh.all_gather(buf, "model")  # noqa: E731
+                what = "all_gather (E_loc, C, d)"
+                nbytes_ = buf.numel() * 2 * (tp - 1)
+            else:
+                buf = torch.zeros((tp, E // tp * C, cfg.d_model),
+                                  dtype=torch.bfloat16, device=dev)
+                wire = lambda: mesh.all_to_all(buf, "model")  # noqa: E731
+                what = "all_to_all (tp, E_loc C, d)"
+                nbytes_ = buf.numel() * 2 * (tp - 1) // tp
+            wms = []
+            for i in range(EP_REPS + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                wire()
+                torch.cuda.synchronize()
+                wms.append(1e3 * (time.perf_counter() - t0))
+        out.update(layer_ms=float(np.median(ms[1:])), C=C, T=T,
+                   wire=what, wire_bytes_sent=int(nbytes_),
+                   wire_ms=float(np.median(wms[1:])),
+                   held_bytes=sum(p.numel() * p.element_size()
+                                  for p in layer.parameters()))
+        del layer
+    dist.barrier()
+    if rank == 0:
+        ym = float(y_ref.abs().max())
+        errs, auxe, got_dropped, one = [], [], [], []
+        for r in range(n):
+            got = torch.load(work / f"ep_{tag}_{r}.pt")
+            b, nb = got["rows"]
+            rows = slice(b * B // nb, (b + 1) * B // nb)
+            errs.append(float((got["y"] - y_ref[rows].cpu()).abs().max())
+                        / ym)
+            auxe.append(abs(got["aux"] - float(aux_ref))
+                        / max(abs(float(aux_ref)), 1e-30))
+            got_dropped.append(got["dropped"])
+            if y_one is not None:
+                one.append(float((got["y"] - y_one[rows].cpu()).abs().max())
+                           / float(y_one.abs().max()))
+        need(max(errs) <= EP_TOL and max(auxe) <= EP_TOL,
+             f"25(a) {name}: ranks vs moe_apply_sharded_ref {errs} of max "
+             f"|ref|, aux {auxe}")
+        need(got_dropped == dropped,
+             f"25(a) {name}: dropped events {got_dropped} vs the "
+             f"reference's {dropped}")
+        if change.get("capacity_factor", cfg.moe.capacity_factor) < 1:
+            need(min(dropped) > 0,
+                 f"25(a) {name}: no event dropped a shard ({dropped})")
+        out.update(err=max(errs), aux_err=max(auxe), max_ref=ym)
+        if one:
+            need(max(one) <= EP_TOL,
+                 f"25(a) {name}: ranks vs the one-rank layer on the whole "
+                 f"batch {one} of max |y|")
+            out.update(one_rank_err=max(one))
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_parity(rank, work: Path, seed: int, dev, mesh, kernels) -> dict:
+    """25(b)'s fp32 parity and 25(c): MusicGen at its widths cut to
+    DP_PARITY's layers, one step on the (data 2, model 1) mesh (one row a
+    rank) against world size 1 at the whole batch (rank 0); the state
+    saved in JAX's layout (each rank its ZeRO-1 blocks), restored by
+    both ranks (their blocks bit for bit) and by rank 0 onto world size
+    1, whose next step is held to the ranks' next step."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.store import restore_tree
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.context import Mesh, mesh_context
+    from repro_torch.distributed.elastic import reshard_tree
+    from repro_torch.launch.sharding import ShardingRules, local_slice
+    from repro_torch.launch.steps import (held_specs, init_opt_state,
+                                          make_train_step, reduced_grads)
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig
+    L, B, S = DP_PARITY
+    cfg = dataclasses.replace(get_arch(AUDIO_ARCH), n_layers=L)
+    oc = AdamWConfig(**PARITY_OC)
+    rng = np.random.default_rng(seed + 251)
+    batches = [{"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (B, S)), device=dev)} for _ in range(2)]
+    one = Mesh((1, 1), DM)
+    res = {}
+
+    def fresh():
+        return lm.init_params(cfg, seed, torch.float32, dev)
+
+    def gaps(got, want):
+        return float((got - want).abs().max())
+
+    def held(p_got, p_want, nu, t, lr_sum):
+        """Parameters within 1e-5 where Adam's step is well-conditioned
+        (sqrt(nu_hat) >= 1e-6), within 2 lr elsewhere. Returns the worst
+        well-conditioned gap and the count of the others (those are a
+        property of the gradients: at full width ~2.6 % of the elements
+        after one step, where the reduced CPU tests see under 1 %)."""
+        worst, n_ill, n_all = 0.0, 0, 0
+        for n, w in p_want.items():
+            gap = (p_got[n] - w).abs()
+            well = (nu[n] == 0) | ((nu[n] / (1 - 0.95 ** t)).sqrt() >= ILL)
+            worst = max(worst, float(torch.where(well, gap, 0.0).max()))
+            need(float(gap.max()) <= 2 * lr_sum,
+                 f"25(b) parity: {n} off by {float(gap.max())}")
+            n_ill += int((~well).sum())
+            n_all += gap.numel()
+        need(worst < 1e-5,
+             f"25(b) parity: parameters off by {worst} ({n_ill} of {n_all} "
+             f"ill-conditioned)")
+        return worst, n_ill / n_all
+
+    with mesh_context(mesh):
+        model = fresh()
+        opt = init_opt_state(model, oc, cfg, mesh)
+        loss_dp, g_dp, _ = reduced_grads(model, cfg, batches[0], mesh)
+        step = make_train_step(cfg, oc)
+        for k in kernels.values():
+            k.launches = 0
+        model, opt, m = step(model, opt, batches[0])
+        res["launches"] = {n: k.launches for n, k in kernels.items()}
+    mine = {n: p.detach().clone() for n, p in model.state_dict().items()}
+    rules = ShardingRules(cfg, mesh, "heads")
+
+    def own(n, full):
+        """This rank's ZeRO-1 block of a whole moment leaf."""
+        return full[local_slice(rules.held_moment_spec(n, full.shape),
+                                full.shape, mesh)]
+    o1_step1 = None
+    if rank == 0:
+        with mesh_context(one):
+            m1 = fresh()
+            loss_1, g_1, _ = reduced_grads(m1, cfg, batches[0], one)
+            need(abs(float(loss_dp) - float(loss_1)) < 1e-5,
+                 f"25(b) parity: loss {float(loss_dp)} vs {float(loss_1)}")
+            ge = max(gaps(g_dp[n], g_1[n]) for n in g_1)
+            need(ge < 1e-4, f"25(b) parity: gradients off by {ge}")
+            del g_1
+            o1 = init_opt_state(m1, oc, cfg, one)
+            m1, o1_step1, _ = make_train_step(cfg, oc)(m1, o1, batches[0])
+        pw, n_ill = held(mine, m1.state_dict(), o1_step1["nu"], 1,
+                         PARITY_OC["lr"] / 2)
+        me = max(gaps(opt[k][n], own(n, o1_step1[k][n]))
+                 for k in ("mu", "nu") for n in opt[k])
+        need(me < 1e-5, f"25(b) parity: moments off by {me}")
+        res.update(loss=float(loss_dp), loss_w1=float(loss_1), grad_err=ge,
+                   param_err=pw, moment_err=me, n_ill=n_ill)
+        del m1
+    del g_dp
+    # 25(c): save, each rank its blocks; restore on both; world size 1
+    # (`work` is the ranks' shared directory, deleted with the phase)
+    ck = work / "ckpt"
+    mgr = CheckpointManager(ck)
+    specs = held_specs(model, cfg, mesh)
+    t0 = time.perf_counter()
+    mgr.save(1, {"params": model.state_dict(), "opt": opt},
+             aux={"step_counter": 1}, specs=specs, mesh=mesh)
+    res["save_s"] = time.perf_counter() - t0
+    dist.barrier(group=mesh.group("data"))
+    path = ck / "step_00000001"
+    res["bytes_written"] = sum(f.stat().st_size for f in path.iterdir())
+    names = list(model.state_dict())
+    like = {"params": dict.fromkeys(names),
+            "opt": {"mu": dict.fromkeys(names),
+                    "nu": dict.fromkeys(names), "step": None}}
+    t0 = time.perf_counter()
+    tree, aux = restore_tree(path, like)
+    back = reshard_tree(tree["opt"], cfg, mesh, "opt")
+    res["restore_s"] = time.perf_counter() - t0
+    for k in ("mu", "nu"):
+        for n, t in opt[k].items():
+            need(torch.equal(back[k][n], t),
+                 f"25(c): restored {k} {n} != the saved block")
+    for n, t in reshard_tree(tree["params"], cfg, mesh,
+                             "params").items():
+        need(torch.equal(t, mine[n]), f"25(c): restored {n} differs")
+    if rank == 0:             # the whole restored moments: world size 1
+        me = max(gaps(tree["opt"][k][n], o1_step1[k][n].cpu())
+                 for k in ("mu", "nu") for n in o1_step1[k])
+        need(me < 1e-5, f"25(c): restored moments vs world size 1 {me}")
+    dist.barrier(group=mesh.group("data"))
+    with mesh_context(mesh):
+        model, opt, m2 = step(model, opt, batches[1])
+    if rank == 0:
+        with mesh_context(one):
+            m1 = fresh()
+            m1.load_state_dict(reshard_tree(tree["params"], cfg, one,
+                                            "params"))
+            o1 = reshard_tree(tree["opt"], cfg, one, "opt")
+            need(int(o1["step"]) == 1 and aux["step_counter"] == 1,
+                 "25(c): the restored step counter")
+            m1, o1, mm1 = make_train_step(cfg, oc)(m1, o1, batches[1])
+        need(abs(float(m2["loss"]) - float(mm1["loss"])) < 1e-5,
+             f"25(c): next loss {float(m2['loss'])} vs world size 1 "
+             f"{float(mm1['loss'])}")
+        me = max(gaps(opt[k][n], own(n, o1[k][n]))
+                 for k in ("mu", "nu") for n in opt[k])
+        need(me < 1e-5, f"25(c): next moments off by {me}")
+        pw2, _ = held(model.state_dict(), m1.state_dict(), o1["nu"], 2,
+                      PARITY_OC["lr"])
+        res.update(next_loss=float(m2["loss"]),
+                   next_loss_w1=float(mm1["loss"]), next_param_err=pw2,
+                   next_moment_err=me)
+        del m1, o1
+    del model, opt, o1_step1
+    torch.cuda.empty_cache()
+    return res
+
+
+def dp_train(rank, seed: int, dev, mesh, kernels) -> dict:
+    """25(b): MusicGen-Medium whole in bf16 on the (data 2, model 1)
+    mesh, DP_TRAIN's global batch (a row a rank), ZeRO-1 moments: each
+    of DP_STEPS' compressors for its steps (error feedback from a zero
+    residual), the first step of each held against its CPU run on the
+    same inputs bit for bit (the embedding and the LayerNorm leaves);
+    step ms, the all-reduce's and all-gather's bytes and ms, launches a
+    step, peak memory."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.distributed.compression import ErrorFeedback
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.launch import steps as st
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig
+    cfg = get_arch(AUDIO_ARCH)
+    B, S = DP_TRAIN
+    res = {"steps": []}
+    torch.cuda.reset_peak_memory_stats()
+    model = lm.init_params(cfg, seed, torch.bfloat16, dev)
+    oc = AdamWConfig(moment_dtype=cfg.opt_dtype, total_steps=4)
+    pipe = TokenPipeline(cfg.vocab_size, S, B, seed=seed)
+    watch = ("blocks.0.attn.wq", f"blocks.{cfg.n_layers - 1}.mlp.w_out")
+    before = {n: dict(model.named_parameters())[n].detach().clone()
+              for n in watch}
+    with mesh_context(mesh):
+        opt = st.init_opt_state(model, oc, cfg, mesh)
+        for mode, n_steps in DP_STEPS:
+            ef, state, checked = ErrorFeedback(mode), {}, []
+
+            def compress(grads):
+                if not state:
+                    state.update(ef.init(grads))
+                out, new = ef.apply(grads, state)
+                if not checked:
+                    keep = [n for n in grads if n == "embed.table"
+                            or n.endswith((".ln1.scale", ".ln1.bias"))]
+                    cpu = ErrorFeedback(mode).apply(
+                        {n: grads[n].cpu() for n in keep},
+                        {n: state[n].cpu() for n in keep})
+                    for n in keep:
+                        need(torch.equal(cpu[0][n], out[n].cpu())
+                             and torch.equal(cpu[1][n], new[n].cpu()),
+                             f"25(b) {mode}: {n} card != CPU")
+                    checked.append(len(keep))
+                state.update(new)
+                return out
+            step = st.make_train_step(cfg, oc, compressor=compress)
+            for _ in range(n_steps):
+                for k in kernels.values():
+                    k.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model, opt, m = step(model, opt, pipe.next_batch())
+                torch.cuda.synchronize()
+                res["steps"].append({
+                    "mode": mode, "ms": 1e3 * (time.perf_counter() - t0),
+                    "loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"]),
+                    "launches": {n: k.launches
+                                 for n, k in kernels.items()},
+                    "all_reduce_bytes": step.wire["all_reduce"],
+                    "all_reduce_ms": step.wire["all_reduce_ms"],
+                    "all_gather_bytes": step.wire["all_gather"],
+                    "all_gather_ms": step.wire["all_gather_ms"]})
+            res[f"{mode}_checked_leaves"] = checked[0]
+            del state
+    leaves = dict(model.named_parameters())
+    res["changed"] = {n: not torch.equal(before[n], leaves[n])
+                      for n in watch}
+    res["n_params"] = sum(p.numel() for p in leaves.values())
+    res["moment_bytes"] = sum(t.numel() * t.element_size()
+                              for k in ("mu", "nu")
+                              for t in opt[k].values())
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del model, opt
+    torch.cuda.empty_cache()
+    return res
+
+
+def dist_rank(rank: int, world: int, work: str, seed: int) -> None:
+    """Phase 25 on one of the DIST_RANKS ranks that share the card
+    (spawned, gloo): 25(a) on every rank, then 25(b) and (c) on ranks 0
+    and 1 while the others wait. Writes its numbers to `work`/dist<r>.
+    json; any check that fails raises, which fails the phase."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch.distributed import mesh as pg
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_mesh
+    dev = pg.rank_device(None)
+    torch.cuda.set_device(dev)
+    need(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    kernels = {"flash_attention": fa.flash_attention,
+               "flash_fwd_lse": fa.flash_fwd_lse,
+               "flash_bwd_dkv": fa._bwd_dkv, "flash_bwd_dq": fa._bwd_dq}
+    work = Path(work)
+    report = {"rank": rank, "device": str(dev), "ep": {}}
+    t0 = time.perf_counter()
+    for case in EP_CASES:
+        report["ep"][case[0]] = ep_case(rank, world, work, seed, case, dev)
+    report["ep_s"] = time.perf_counter() - t0
+    mesh = make_mesh((2, 1), DM, ranks=[0, 1])
+    if mesh is not None:
+        t0 = time.perf_counter()
+        report["parity"] = dp_parity(rank, work, seed, dev, mesh, kernels)
+        report["parity_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        report["train"] = dp_train(rank, seed, dev, mesh, kernels)
+        report["train_s"] = time.perf_counter() - t0
+    dist.barrier()
+    (work / f"dist{rank}.json").write_text(json.dumps(report))
+
+
+def phase_dist(seed: int, card: str) -> dict:
+    """Phase 25, the distribution slice: DIST_RANKS gloo ranks on the
+    card (`dist_rank`). Logs `[dist*]` lines; returns the DP ranks'
+    launch counts by path."""
+    from repro_torch.distributed import mesh
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        work = Path(tmp)
+        t0 = time.perf_counter()
+        mesh.spawn(dist_rank, DIST_RANKS, work / "store", (str(work), seed),
+                   timeout_s=600)
+        ranks_s = time.perf_counter() - t0
+        reps = [json.loads((work / f"dist{r}.json").read_text())
+                for r in range(DIST_RANKS)]
+    ep0 = reps[0]["ep"]
+    for name, arch, shape, names, B, S, _ in EP_CASES:
+        n = int(np.prod(shape))
+        r0 = ep0[name]
+        log(f"[dist ep {name}] {arch} at its widths, mesh {shape} "
+            f"{names}, B={B} S={S}: every rank == moe_apply_sharded_ref "
+            f"(fp32, max err {r0['err']:.3e} of max |ref| "
+            f"{r0['max_ref']:.4g}, aux {r0['aux_err']:.2e} relative"
+            + (f"; vs the one-rank layer on the whole batch "
+               f"{r0['one_rank_err']:.3e} of max |y|"
+               if "one_rank_err" in r0 else "") + "); "
+            f"events dropped a shard {r0['dropped']} (C = {r0['C']} at "
+            f"{r0['T']} tokens a rank); routed experts {r0['experts_bytes']:,}"
+            f" B in bf16, a rank holds {[reps[r]['ep'][name]['held_bytes'] for r in range(n)]}"
+            f" B of bf16 layer; bf16 layer ms a rank "
+            f"{[round(reps[r]['ep'][name]['layer_ms'], 2) for r in range(n)]};"
+            f" {r0['wire']}: {r0['wire_bytes_sent']:,} B sent a rank in "
+            f"{[round(reps[r]['ep'][name]['wire_ms'], 2) for r in range(n)]} "
+            f"ms; the reference {r0['ref_s']:.1f} s; on {card}")
+    par = reps[0]["parity"]
+    log(f"[dist parity] {AUDIO_ARCH} at its widths cut to {DP_PARITY[0]} "
+        f"layers, fp32, B={DP_PARITY[1]} (a row a rank) S={DP_PARITY[2]}, "
+        f"lr {PARITY_OC['lr']}: loss {par['loss']:.7f} vs world size 1 "
+        f"{par['loss_w1']:.7f}; gradients off by {par['grad_err']:.3e}, "
+        f"moments {par['moment_err']:.3e}, "
+        f"parameters {par['param_err']:.3e} where well-conditioned "
+        f"({100 * par['n_ill']:.2f} % of the elements not, each within "
+        f"2 lr); launches on the ranks "
+        f"{[reps[r]['parity']['launches'] for r in (0, 1)]}")
+    log(f"[dist elastic] the state after step 1 in JAX's layout, each rank "
+        f"its ZeRO-1 blocks: {par['bytes_written']:,} B written in "
+        f"{[round(reps[r]['parity']['save_s'], 2) for r in (0, 1)]} s, "
+        f"restored in {[round(reps[r]['parity']['restore_s'], 2) for r in (0, 1)]}"
+        f" s, every block bit for bit; on world size 1 the next step's loss "
+        f"{par['next_loss_w1']:.7f} vs the ranks' {par['next_loss']:.7f}, "
+        f"moments off by {par['next_moment_err']:.3e}, parameters "
+        f"{par['next_param_err']:.3e}")
+    from repro_torch.configs import get_arch
+    n_layers = get_arch(AUDIO_ARCH).n_layers
+    paths = {}
+    for r in (0, 1):
+        tr = reps[r]["train"]
+        need(all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
+                 for s in tr["steps"]), f"25(b) rank {r}: a loss or norm")
+        need(all(tr["changed"].values()), f"25(b) rank {r}: no update")
+        for s in tr["steps"]:
+            c = s["launches"]
+            need(c["flash_fwd_lse"] == 2 * n_layers
+                 and c["flash_bwd_dkv"] == c["flash_bwd_dq"] == n_layers
+                 and c["flash_attention"] == 0,
+                 f"25(b) rank {r}: a step's launches {c}")
+        total = {k: sum(s["launches"][k] for s in tr["steps"])
+                 for k in tr["steps"][0]["launches"]}
+        paths[f"dist dp train {AUDIO_ARCH} bf16 rank {r}"] = total
+        paths[f"dist dp parity 2L fp32 rank {r}"] = \
+            reps[r]["parity"]["launches"]
+        log(f"[dist dp rank {r}] {AUDIO_ARCH} whole ({tr['n_params']:,} "
+            f"parameters) bf16, B={DP_TRAIN[0]} (a row a rank) "
+            f"S={DP_TRAIN[1]}, ZeRO-1 moments ({tr['moment_bytes']:,} B a "
+            f"rank): " + "; ".join(
+                f"{s['mode']} step {s['ms']:.1f} ms, loss {s['loss']:.4f}, "
+                f"all-reduce {s['all_reduce_bytes']:,} B in "
+                f"{s['all_reduce_ms']:.1f} ms, all-gather "
+                f"{s['all_gather_bytes']:,} B in {s['all_gather_ms']:.1f} ms"
+                for s in tr["steps"]) +
+            f"; compressors == their CPU runs on {tr['int8_checked_leaves']}"
+            f" / {tr['topk_checked_leaves']} leaves; peak "
+            f"{tr['peak_bytes'] / 1e9:.2f} GB; on {card}")
+    log(f"[dist] {DIST_RANKS} gloo ranks on {reps[0]['device']}: "
+        f"{ranks_s:.1f} s with their start (25(a) "
+        f"{reps[0]['ep_s']:.1f} s, parity and elastic "
+        f"{reps[0]['parity_s']:.1f} s, training {reps[0]['train_s']:.1f} "
+        f"s); phase 25 {time.perf_counter() - t_phase:.1f} s on {card}")
+    return paths
+
+
 # ------------------------------------------------------- the serving tier
 SERVE = (8, 2.0, 16)          # SpikeServer max_batch, max_wait_ms; window
 # model, session clients, scratch clients, session lanes
@@ -3465,6 +4080,67 @@ def finish_hiaer_compile(job: dict):
         shutil.rmtree(job["dir"], ignore_errors=True)
     hc.placement_s = rec["placement_s"]
     return hc, rec, waited
+
+
+def cpu_window_worker(art: str, out: str, sched, seed: int) -> None:
+    """Phase 5's CPU side, in a process of its own: the core network's
+    artifact deployed on the CPU port, unfused and fused, running the
+    window `sched` (B = 2, T = 4); what it gave (spikes, V, lane state,
+    counters) pickled to `out`. It touches no card."""
+    import pickle
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import deploy
+    from repro_torch.core.compile import CompiledNetwork
+    torch.set_num_threads(4)
+    c = CompiledNetwork.load(art)
+    res = {"s": {}}
+    for fused in (False, True):
+        t0 = time.perf_counter()
+        dp = deploy(c, seed=seed, fused=fused, device="cpu")
+        dp.alloc_lanes(2)
+        spk, V = dp.run_lanes([0, 1], sched)
+        res[fused] = {"spikes": spk, "V": V, "lanes": dp.lane_state(),
+                      "counter": dp.counter.as_dict()}
+        res["s"][fused] = time.perf_counter() - t0
+        del dp
+    with open(out, "wb") as fh:
+        pickle.dump(res, fh)
+
+
+def start_cpu_window(compiled, sched, seed: int) -> dict:
+    """Saves the core network's artifact and starts `cpu_window_worker`
+    (spawned, daemonic) beside the card's phases; `finish_cpu_window`
+    waits for it."""
+    import multiprocessing
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cpu_")
+    art = str(Path(tmp) / "core.npz")
+    t0 = time.perf_counter()
+    compiled.save(art, compressed=False)
+    save_s = time.perf_counter() - t0
+    out = str(Path(tmp) / "window.pkl")
+    proc = multiprocessing.get_context("spawn").Process(
+        target=cpu_window_worker, args=(art, out, sched, seed),
+        daemon=True)
+    proc.start()
+    return {"proc": proc, "out": out, "dir": tmp, "save_s": save_s}
+
+
+def finish_cpu_window(job: dict):
+    """Waits for `start_cpu_window`'s process; returns what it ran (the
+    worker's own bytes, unpickled) and the seconds waited."""
+    import pickle
+    import shutil
+    t0 = time.perf_counter()
+    job["proc"].join()
+    waited = time.perf_counter() - t0
+    need(job["proc"].exitcode == 0,
+         f"phase 5's CPU process exited {job['proc'].exitcode}")
+    try:
+        with open(job["out"], "rb") as fh:
+            res = pickle.load(fh)
+    finally:
+        shutil.rmtree(job["dir"], ignore_errors=True)
+    return res, waited
 
 
 def phase_hiaer(hiaer_job, compiled, seed: int, zero_counts, read_counts,
@@ -5228,6 +5904,11 @@ def main(argv=None) -> int:
         f"density {st['packing_density']:.4f}, "
         f"{len(compiled.report.warnings)} warning(s)")
 
+    # phase 5's CPU side runs beside the card's phases from here
+    sched5 = drive(np.random.default_rng(args.seed + 2), 2, 4, AXONS)
+    cpu_job = None if args.kernels_only else start_cpu_window(
+        compiled, sched5, args.seed)
+
     # ---- 3. the fused kernel against its plain version, real tables
     dep_probe = deploy(compiled, seed=args.seed, fused=True)
     log(f"[tables] {dep_probe.impl.tables.nbytes()} device bytes, "
@@ -5315,23 +5996,20 @@ def main(argv=None) -> int:
         f"keys, counters); mean spike rate {rate:.5f}")
     clock("phase 4")
 
-    # ---- 5. the card against the CPU port, first window B=2 T=4
-    sched = drive(np.random.default_rng(args.seed + 2), 2, 4, AXONS)
+    # ---- 5. the card against the CPU port, first window B=2 T=4: the
+    # card's side here, the CPU port's in `cpu_job`'s process (started
+    # after the compile), compared after phase 9
+    card_window = {}
     for fused in (False, True):
-        got = []
-        for d in (None, "cpu"):
-            dp = deploy(compiled, seed=args.seed, fused=fused, device=d)
-            dp.alloc_lanes(2)
-            spk, V = dp.run_lanes([0, 1], sched)
-            got.append({"spikes": spk, "V": V, "lanes": dp.lane_state(),
-                        "counter": dp.counter.as_dict()})
-            del dp
-        need(same(got[0], got[1]),
-             f"card and CPU port disagree (fused={fused})")
-        log(f"[cpu] card == CPU port on the first window (fused={fused}, "
-            f"{int(got[0]['spikes'].sum())} spikes)")
+        dp = deploy(compiled, seed=args.seed, fused=fused)
+        dp.alloc_lanes(2)
+        spk, V = dp.run_lanes([0, 1], sched5)
+        card_window[fused] = {"spikes": spk, "V": V,
+                              "lanes": dp.lane_state(),
+                              "counter": dp.counter.as_dict()}
+        del dp
 
-    clock("phase 5")
+    clock("phase 5 (the card's side)")
 
     # ---- 7. spike_matmul against its plain version, on the MLP network
     mlp_spec, sim_compiled, sim_probe, sm_x, sm_err = setup_mlp(dev,
@@ -5390,6 +6068,17 @@ def main(argv=None) -> int:
     need(same(got[0], got[1]), "card and CPU port disagree (simulator)")
     log(f"[cpu] card == CPU port on the simulator's first window "
         f"({int(got[0]['spikes'].sum())} spikes)")
+
+    # ---- 5, its CPU side: the CPU port's first window from its process
+    cpu_window, waited = finish_cpu_window(cpu_job)
+    for fused in (False, True):
+        need(same(card_window[fused], cpu_window[fused]),
+             f"card and CPU port disagree (fused={fused})")
+        log(f"[cpu] card == CPU port on the first window (fused={fused}, "
+            f"{int(card_window[fused]['spikes'].sum())} spikes; the CPU "
+            f"port's deploy and window {cpu_window['s'][fused]:.1f} s in "
+            f"its own process, started after the compile; the artifact "
+            f"saved in {cpu_job['save_s']:.1f} s, {waited:.1f} s waited)")
 
     clock("phase 9")
 
@@ -5505,6 +6194,16 @@ def main(argv=None) -> int:
     last_errs_by_case = last.pop("kernel_errors")
     torch.cuda.empty_cache()
     clock("phase 24")
+
+    # ---- 25. the distribution slice: expert-parallel MoE layers, data-
+    # parallel training with ZeRO-1 moments and compression, the elastic
+    # restart, on DIST_RANKS gloo ranks sharing the card
+    need(threading.active_count() == 1,
+         f"threads alive before phase 25: {threading.enumerate()}")
+    by_path.update({p: {k: c.get(k, 0) for k in kernels_of}
+                    for p, c in phase_dist(args.seed, card).items()})
+    torch.cuda.empty_cache()
+    clock("phase 25")
 
     # ---- 17. the serving tier at full width: the core (fused engine) and
     # the MLP (simulator) resident in one SpikeServer; every server shut

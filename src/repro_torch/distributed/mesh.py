@@ -20,6 +20,22 @@ broadcasts CUDA tensors as well as host ones in the card machine's torch
 all_reduce only; gloo's CUDA work copies through pinned host memory
 itself). A collective that fails raises; nothing is retried another
 way.
+
+The distribution slice's collectives (`all_reduce_ad`, `all_gather_ad`,
+`all_to_all_ad`, and `all_reduce_buckets` / `all_gather_blocks` for the
+training step) use only the tensor forms: `all_reduce`,
+`all_gather_into_tensor`, `reduce_scatter_tensor` and
+`all_to_all_single`. On the card machine's torch 2.11 gloo takes all
+four on CUDA tensors, in fp32 and bf16, and refuses the list form of
+`all_to_all` ("Backend gloo does not support alltoall"), which
+`torch.distributed.nn.functional` falls back on for some backwards; so
+the port carries its own autograd functions, one wire for both
+backends, with no host staging of its own (a 512 MB bf16 all_to_all
+staged through `.cpu()` took 1.24 s against gloo's own 0.52 s on the
+H100's host). The `_ad` functions are autograd-aware: the backward of
+an all_reduce is an all_reduce, of an all_gather a reduce-scatter (a
+sum over the members, each keeping its block), of an all_to_all the
+reverse all_to_all.
 """
 from __future__ import annotations
 
@@ -34,7 +50,9 @@ import torch.distributed as dist
 from repro_torch.device import resolve
 
 __all__ = ["world", "rank_device", "init_from_env", "init_for_tests",
-           "spawn", "stage_groups", "all_gather", "broadcast"]
+           "spawn", "stage_groups", "all_gather", "broadcast",
+           "all_reduce_ad", "all_gather_ad", "all_to_all_ad",
+           "all_reduce_buckets", "all_gather_blocks"]
 
 # the groups every rank has built, keyed by their ranks: new_group is a
 # collective of the whole world, so each group is built once, by every
@@ -195,3 +213,130 @@ def broadcast(tensors: Sequence[torch.Tensor], src: int = 0,
         out.append(buf[o:o + n].view(t.dtype).view(t.shape))
         o += n + (-n % 8)
     return out
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        y = all_gather(x.movedim(dim, 0), group)
+        return y.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.movedim(ctx.dim, 0).contiguous()
+        m = dist.get_world_size(ctx.group)
+        out = g.new_empty((g.shape[0] // m,) + tuple(g.shape[1:]))
+        dist.reduce_scatter_tensor(out, g, group=ctx.group)
+        return out.movedim(0, ctx.dim), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous()
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        out = torch.empty_like(g)
+        dist.all_to_all_single(out, g, group=ctx.group)
+        return out, None
+
+
+def all_reduce_ad(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every member's x, on every member."""
+    return _AllReduce.apply(x, group)
+
+
+def all_gather_ad(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every member's x concatenated along `dim` in the group's rank
+    order."""
+    return _AllGather.apply(x, group, dim)
+
+
+def all_to_all_ad(x: torch.Tensor, group) -> torch.Tensor:
+    """x (m, ...) over a group of m: block i to member i; block j of the
+    result from member j."""
+    return _AllToAll.apply(x, group)
+
+
+BUCKET_BYTES = 256 << 20
+
+
+def _buckets(tensors: Sequence[torch.Tensor], bucket_bytes: int):
+    """Runs of consecutive tensors of one dtype and device, each run
+    under `bucket_bytes` (a larger tensor is a run of its own)."""
+    run, size = [], 0
+    for i, t in enumerate(tensors):
+        n = t.numel() * t.element_size()
+        if run and (t.dtype != tensors[run[0]].dtype
+                    or t.device != tensors[run[0]].device
+                    or size + n > bucket_bytes):
+            yield run
+            run, size = [], 0
+        run.append(i)
+        size += n
+    if run:
+        yield run
+
+
+def all_reduce_buckets(tensors: Sequence[torch.Tensor], group,
+                       bucket_bytes: int = BUCKET_BYTES) -> int:
+    """Sum each tensor over the group, in place, a bucket of consecutive
+    tensors (one dtype) at a time: one all_reduce of their concatenated
+    bytes. Returns the bytes each rank put on the wire's input."""
+    sent = 0
+    for run in _buckets(tensors, bucket_bytes):
+        flat = torch.cat([tensors[i].reshape(-1) for i in run])
+        dist.all_reduce(flat, group=group)
+        o = 0
+        for i in run:
+            t = tensors[i]
+            t.copy_(flat[o:o + t.numel()].view(t.shape))
+            o += t.numel()
+        sent += flat.numel() * flat.element_size()
+    return sent
+
+
+def all_gather_blocks(fulls: Sequence[torch.Tensor], dims: Sequence[int],
+                      group, bucket_bytes: int = BUCKET_BYTES) -> int:
+    """Each full tensor holds, along `dims[i]`, m equal blocks of which
+    this rank (index k in the group) has brought block k up to date; put
+    every member's block in place on every member, a bucket of tensors
+    (one dtype) at a time: one all_gather of the concatenated blocks.
+    Returns the bytes each rank gathered in."""
+    m = dist.get_world_size(group)
+    k = dist.get_rank(group)
+    got = 0
+    for run in _buckets(fulls, bucket_bytes):
+        blocks = [fulls[i].movedim(dims[i], 0) for i in run]
+        mine = [b.reshape((m, -1) + tuple(b.shape[1:]))[k].reshape(-1)
+                for b in blocks]
+        out = all_gather(torch.cat(mine), group).view(m, -1)
+        o = 0
+        for b, piece in zip(blocks, mine):
+            n = piece.numel()
+            b.copy_(out[:, o:o + n].reshape(b.shape))
+            o += n
+        got += out.numel() * out.element_size()
+    return got

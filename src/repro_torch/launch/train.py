@@ -2,31 +2,49 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_5_3b \
         --steps 100 --batch 8 --seq 256 --reduced --ckpt-dir /tmp/run \
-        [--device cpu]
+        [--compress int8] [--device cpu]
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch deepseek_moe_16b --reduced --device cpu --mesh local \
+        --compress int8
 
-Wires together: config -> parameters (drawn from seed 0; fp32 with
---reduced, bf16 otherwise) and AdamW state -> `make_train_step`
-(gradient-accumulation microbatches) -> the resumable `TokenPipeline`
--> `CheckpointManager` (async, atomic, retention) -> `StepWatchdog`
-(straggler detection). On restart it resumes from the latest checkpoint,
-exact to the pipeline cursor. It runs on the card unless --device names
-another device. JAX's --compress and --mesh come with the distribution
-slice.
+Wires together: config -> mesh (`--mesh local`: (1, world size) over
+the live world; `single` and `multi` the production (16, 16) and (2, 16,
+16) meshes, which need 256 and 512 ranks) -> parameters (drawn from
+seed 0 on every rank; fp32 with --reduced, bf16 otherwise; an MoE
+model's routed experts cut to the rank's blocks) and AdamW state (the
+rank's ZeRO-1 blocks) -> `make_train_step` (gradient-accumulation
+microbatches on one rank, optional gradient compression with error
+feedback; data and expert parallelism under a mesh of more than one
+rank) -> the resumable `TokenPipeline` (the global batch on every rank;
+the step takes the rank's rows) -> `CheckpointManager` (async, atomic,
+retention; JAX's layout, each rank its blocks) -> `StepWatchdog`
+(straggler detection). On restart it resumes from the latest checkpoint
+through `reshard_tree` onto whatever mesh is live, exact to the
+pipeline cursor; a checkpoint that `repro.launch.train` wrote resumes
+too. Under `torchrun` (RANK in the environment) the ranks join the world
+the environment describes (`distributed.mesh.init_from_env`) and rank 0
+logs. It runs on the card unless --device names another device.
 """
 from __future__ import annotations
 
 import argparse
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_arch, get_reduced
 from repro_torch.data.synthetic import TokenPipeline
-from repro_torch.device import resolve
-from repro_torch.distributed.elastic import StepWatchdog
-from repro_torch.launch.steps import make_train_step
+from repro_torch.distributed import mesh as pg
+from repro_torch.distributed.compression import ErrorFeedback
+from repro_torch.distributed.context import mesh_context
+from repro_torch.distributed.elastic import StepWatchdog, reshard_tree
+from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+from repro_torch.launch.steps import (held_specs, init_opt_state,
+                                      make_train_step)
 from repro_torch.models import lm
-from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.models.moe import shard_experts
+from repro_torch.optim import AdamWConfig
 
 
 def main(argv=None):
@@ -42,60 +60,101 @@ def main(argv=None):
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--compress", choices=["none", "int8", "topk"],
+                    default="none")
+    ap.add_argument("--mesh", choices=["local", "single", "multi"],
+                    default="local")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' "
                          "runs the kernels' plain versions)")
     args = ap.parse_args(argv)
+    started = pg.init_from_env(args.device)
+    try:
+        return _train(args)
+    finally:
+        if started:
+            pg._GROUPS.clear()
+            dist.destroy_process_group()
 
+
+def _train(args):
     cfg = get_reduced(args.arch) if args.reduced else get_arch(args.arch)
-    dev = resolve(args.device)
+    dev = pg.rank_device(args.device)
+    mesh = {"local": make_local_mesh,
+            "single": make_production_mesh,
+            "multi": lambda: make_production_mesh(multi_pod=True)
+            }[args.mesh]()
+    lead = mesh.rank == 0
     oc = AdamWConfig(lr=args.lr, moment_dtype=cfg.opt_dtype,
                      total_steps=args.steps)
     dtype = torch.float32 if args.reduced else torch.bfloat16
-    params = lm.init_params(cfg, 0, dtype, dev)
-    opt = adamw_init(params, oc)
-    step_fn = make_train_step(cfg, oc, microbatches=args.microbatches,
-                              device=dev)
-    pipe = TokenPipeline(cfg.vocab_size, args.seq, args.batch, seed=0)
-    mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
-    start = 0
-    if mgr and mgr.latest_step() is not None:
-        restored, aux = mgr.restore({"params": params.state_dict(),
-                                     "opt": opt})
-        params.load_state_dict(restored["params"])
-        opt = restored["opt"]
-        pipe.load_state_dict({k: aux[k] for k in ("seed", "step")})
-        start = int(aux["step_counter"])
-        print(f"[resume] from step {start}")
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+    compressor = None
+    if args.compress != "none":
+        ef = ErrorFeedback(mode=args.compress)
+        ef_state = {}
 
-    wd = StepWatchdog()
-    metrics = None
-    for step in range(start, args.steps):
-        wd.start()
-        params, opt, metrics = step_fn(params, opt, pipe.next_batch())
-        sync()                           # the step's time is the device's
-        info = wd.stop()
-        if info["evict"]:
-            print(f"[watchdog] persistent straggler at step {step} — "
-                  "elastic remesh would trigger here")
-        if step % args.log_every == 0 or step == args.steps - 1:
-            print(f"step {step}: loss={float(metrics['loss']):.4f} "
-                  f"gnorm={float(metrics['grad_norm']):.3f} "
-                  f"lr={float(metrics['lr']):.2e} "
-                  f"({info['step_s']:.2f}s)", flush=True)
-        if mgr and (step + 1) % args.ckpt_every == 0:
-            mgr.save(step + 1, {"params": params.state_dict(), "opt": opt},
-                     aux={**pipe.state_dict(), "step_counter": step + 1},
-                     async_=True)
-    if mgr:
-        mgr.save(args.steps, {"params": params.state_dict(), "opt": opt},
-                 aux={**pipe.state_dict(), "step_counter": args.steps})
-        mgr.wait()
+        def compressor(grads):
+            if not ef_state:
+                ef_state.update(ef.init(grads))
+            out, new = ef.apply(grads, ef_state)
+            ef_state.update(new)
+            return out
+
+    with mesh_context(mesh):
+        params = shard_experts(lm.init_params(cfg, 0, dtype, dev), cfg, mesh)
+        opt = init_opt_state(params, oc, cfg, mesh)
+        specs = held_specs(params, cfg, mesh)
+        step_fn = make_train_step(cfg, oc, microbatches=args.microbatches,
+                                  compressor=compressor, device=dev)
+        pipe = TokenPipeline(cfg.vocab_size, args.seq, args.batch, seed=0)
+        mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+        start = 0
+        if mgr and mgr.latest_step() is not None:
+            like = {"params": dict.fromkeys(specs["params"]),
+                    "opt": {"mu": dict.fromkeys(specs["params"]),
+                            "nu": dict.fromkeys(specs["params"]),
+                            "step": None}}
+            restored, aux = mgr.restore(like)
+            params.load_state_dict(reshard_tree(
+                restored["params"], cfg, mesh, "params", device=dev))
+            opt = reshard_tree(restored["opt"], cfg, mesh, "opt", device=dev)
+            pipe.load_state_dict({k: aux[k] for k in ("seed", "step")})
+            start = int(aux["step_counter"])
+            if lead:
+                print(f"[resume] from step {start}")
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+        wd = StepWatchdog()
+        metrics = None
+        for step in range(start, args.steps):
+            wd.start()
+            params, opt, metrics = step_fn(params, opt, pipe.next_batch())
+            sync()                       # the step's time is the device's
+            info = wd.stop()
+            if info["evict"] and lead:
+                print(f"[watchdog] persistent straggler at step {step} — "
+                      "elastic remesh would trigger here")
+            if lead and (step % args.log_every == 0
+                         or step == args.steps - 1):
+                print(f"step {step}: loss={float(metrics['loss']):.4f} "
+                      f"gnorm={float(metrics['grad_norm']):.3f} "
+                      f"lr={float(metrics['lr']):.2e} "
+                      f"({info['step_s']:.2f}s)", flush=True)
+            if mgr and (step + 1) % args.ckpt_every == 0:
+                mgr.save(step + 1, {"params": params.state_dict(),
+                                    "opt": opt},
+                         aux={**pipe.state_dict(), "step_counter": step + 1},
+                         async_=True, specs=specs, mesh=mesh)
+        if mgr:
+            mgr.save(args.steps, {"params": params.state_dict(), "opt": opt},
+                     aux={**pipe.state_dict(), "step_counter": args.steps},
+                     specs=specs, mesh=mesh)
+            mgr.wait()
     return None if metrics is None else float(metrics["loss"])
 
 

@@ -149,12 +149,20 @@ def unembed(p, h, cfg):
 
 def chunked_ce_loss(emb, h, labels, mask, cfg):
     """Mean next-token cross entropy over the mask: h (B, S, d), labels
-    (B, S) integer, mask (B, S) fp32. The sequence is cut into chunks of
-    the largest divisor of S not above `cfg.loss_chunk`, so the (B, S,
-    Vp) logits never exist at once; each chunk's fp32 logits mask the
-    vocab padding to -1e30 and are rematerialized in the backward
-    (`torch.utils.checkpoint`, JAX's `jax.checkpoint` on the scan body).
-    Returns tot / max(cnt, 1) as an fp32 scalar."""
+    (B, S) integer, mask (B, S) fp32. Returns tot / max(cnt, 1) as an
+    fp32 scalar, from `chunked_ce_sums`."""
+    tot, cnt = chunked_ce_sums(emb, h, labels, mask, cfg)
+    return tot / cnt.clamp(min=1.0)
+
+
+def chunked_ce_sums(emb, h, labels, mask, cfg):
+    """(the masked cross entropy summed, the mask's sum), fp32 scalars.
+    The sequence is cut into chunks of the largest divisor of S not
+    above `cfg.loss_chunk`, so the (B, S, Vp) logits never exist at
+    once; each chunk's fp32 logits mask the vocab padding to -1e30 and
+    are rematerialized in the backward (`torch.utils.checkpoint`, JAX's
+    `jax.checkpoint` on the scan body). A data-parallel step adds both
+    over the ranks before it divides."""
     B, S, _ = h.shape
     chunk = min(cfg.loss_chunk, S)
     while S % chunk:        # largest divisor of S not above loss_chunk
@@ -178,4 +186,4 @@ def chunked_ce_loss(emb, h, labels, mask, cfg):
         ce, n = checkpoint(body, h[:, sl], labels[:, sl], mask[:, sl],
                            use_reentrant=False)
         tot, cnt = tot + ce, cnt + n
-    return tot / cnt.clamp(min=1.0)
+    return tot, cnt

@@ -55,7 +55,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (MLP, Embed, Norm, chunked_ce_loss,
+from repro_torch.models.layers import (MLP, Embed, Norm,  # noqa: F401
+                                       chunked_ce_loss, chunked_ce_sums,
                                        embed_lookup, sinusoidal_positions,
                                        unembed)
 
@@ -324,10 +325,19 @@ def backbone(params, cfg, batch, positions=None, caches=None,
 def loss_fn(params, cfg, batch):
     """The training loss of batch["tokens"] (B, S): next-token cross
     entropy (labels are the tokens rolled by one, the last position
-    masked, times batch["loss_mask"] when given) through
-    `chunked_ce_loss`, over the text positions only (after any patches).
-    Returns (ce + aux, {"ce", "aux"}); aux, the MoE layers' router loss,
-    is 0 for the other families."""
+    masked, times batch["loss_mask"] when given) over the text positions
+    only (after any patches), from `loss_terms`. Returns (ce + aux,
+    {"ce", "aux"}); aux, the MoE layers' router loss, is 0 for the other
+    families."""
+    tot, cnt, aux = loss_terms(params, cfg, batch)
+    ce = tot / cnt.clamp(min=1.0)
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+def loss_terms(params, cfg, batch):
+    """(the masked cross entropy summed over the batch's tokens, the
+    count of tokens it covers, aux) as fp32 scalars, through
+    `chunked_ce_sums`: what a data-parallel step adds over the ranks."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     h, aux, _ = backbone(params, cfg, batch)
@@ -337,8 +347,8 @@ def loss_fn(params, cfg, batch):
     mask[:, -1] = 0.0
     if "loss_mask" in batch:
         mask = mask * batch["loss_mask"]
-    ce = chunked_ce_loss(params.embed, h, labels, mask, cfg)
-    return ce + aux, {"ce": ce, "aux": aux}
+    tot, cnt = chunked_ce_sums(params.embed, h, labels, mask, cfg)
+    return tot, cnt, aux
 
 
 def _layer_cache(cfg, kind, batch_size, max_len, dtype, device):

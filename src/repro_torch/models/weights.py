@@ -25,6 +25,13 @@ leaves):
 numpy) onto the port's (`repro_torch.optim.adamw_init`): mu and nu by
 the same names as the parameters, step an int32 scalar tensor.
 
+`params_to_jax(state, cfg)` and `opt_state_to_jax(opt, cfg)` are the
+inverse maps: the per-layer leaves stacked back over each segment's
+layers (their counts checked against the config's), names split into
+JAX's nested dicts, as torch tensors (bf16 stays bf16), so that
+`params_to_jax(params_from_jax(t, cfg), cfg)` is `t` bit for bit. The
+checkpoint store writes this layout (`checkpoint.store.stack_layers`).
+
 The port's tests use them to make both packages compute one function.
 """
 from __future__ import annotations
@@ -34,6 +41,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.store import layer_of, stack_layers
 from repro_torch.models.lm import segment_layers
 
 
@@ -75,3 +83,23 @@ def opt_state_from_jax(opt_tree, cfg):
             "nu": params_from_jax(opt_tree["nu"], cfg),
             "step": torch.as_tensor(np.array(opt_tree["step"]),
                                     dtype=torch.int32)}
+
+
+def params_to_jax(state: Dict[str, torch.Tensor], cfg) -> dict:
+    layers = segment_layers(cfg)
+    counts: Dict[str, set] = {}
+    for name in state:
+        path, i = layer_of(name)
+        if i is not None:
+            counts.setdefault(path[0], set()).add(i)
+    for seg, idx in counts.items():
+        if len(idx) != layers.get(seg):
+            raise ValueError(f"{seg}: {len(idx)} layers, the config has "
+                             f"{layers.get(seg)}")
+    return stack_layers(dict(state), torch.stack)
+
+
+def opt_state_to_jax(opt, cfg) -> dict:
+    return {"mu": params_to_jax(opt["mu"], cfg),
+            "nu": params_to_jax(opt["nu"], cfg),
+            "step": opt["step"]}

@@ -106,11 +106,14 @@ def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float):
 
 @torch.no_grad()
 def adamw_update(params, grads: Dict[str, torch.Tensor], state,
-                 oc: AdamWConfig):
+                 oc: AdamWConfig, norm=None):
     """One AdamW step on every leaf, in place. Returns (params, state,
-    {"grad_norm", "lr"}), the metrics fp32 device tensors."""
+    {"grad_norm", "lr"}), the metrics fp32 device tensors. `norm` is the
+    gradients' global norm when the caller has it over more than the
+    leaves it passes (a ZeRO-1 step passes its blocks); by default it is
+    `global_norm(grads)`."""
     leaves = named_leaves(params)
-    norm = global_norm(grads)
+    norm = global_norm(grads) if norm is None else norm
     scale = _clip_scale(norm, oc.clip_norm)
     step = state["step"] + 1
     lr = cosine_schedule(oc, step)

@@ -1,0 +1,249 @@
+"""The JAX package's side of tests/test_torch_{moe_parallel,
+checkpoint_crossload}.py, run in a subprocess with 8 virtual CPU
+devices (`--xla_force_host_platform_device_count`, which must be set
+before jax is imported).
+
+    python tests/_jax_dist_ref.py moe DIR
+    python tests/_jax_dist_ref.py ckpt DIR
+    python tests/_jax_dist_ref.py dp DIR
+
+`moe`: for each case of DIR/cases.json, one MoE layer (`moe_init`,
+fp32) and a seeded input through `moe_apply` under `shard_map` on the
+case's mesh (for a case marked `routed_only`, also the layer less its
+shared experts), and each shard's dropped events as its own routing and
+packing give them (the rank's rows, and at tp > 1 in prefill its S/tp
+positions); then one jitted `make_train_step` of reduced
+deepseek_moe_16b on a (1, 2) mesh. Writes DIR/jax_moe.npz.
+`dp`: reduced qwen2_5_3b, one jitted `make_train_step` on a (data 2,
+model 1) mesh of 2 virtual devices for each of the three steps of
+`tests/_torch_dist_ranks.py dp` (whose DIR/rank{r}.npz it reads), each
+from the state the ranks started that step from: the port's initial
+parameters (its `lm.init_params`, seed 5) first, then the ranks' state
+after their previous step (rank 0's parameters, the moments assembled
+from both ranks' ZeRO-1 blocks); the batch `dp_batch` sharded by
+`batch_specs`, the parameters and the AdamW state by `params_specs` and
+`opt_specs`: the loss, parameters, mu and nu after each step. Writes
+DIR/jax_dp.npz.
+`ckpt`: for every family, reduced parameters (the shapes and dtypes of
+`lm.init_params`, the values drawn from numpy) and a random AdamW state
+saved with `save_tree` unsharded (DIR/<arch>/plain) and sharded over a
+(2, 4) mesh by `ShardingRules` (DIR/<arch>/sharded), with aux.
+"""
+import os
+import sys
+
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import dataclasses  # noqa: E402
+import json  # noqa: E402
+import time  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.checkpoint import save_tree  # noqa: E402
+from repro.compat import make_mesh  # noqa: E402
+from repro.configs import get_reduced  # noqa: E402
+from repro.distributed.context import mesh_context  # noqa: E402
+from repro.launch.sharding import ShardingRules, to_named  # noqa: E402
+from repro.launch.steps import make_train_step  # noqa: E402
+from repro.models import lm  # noqa: E402
+from repro.models import moe  # noqa: E402
+from repro.optim import AdamWConfig, adamw_init  # noqa: E402
+
+FAMILIES = ["qwen2_5_3b", "deepseek_moe_16b", "mamba2_780m",
+            "recurrentgemma_2b", "deepseek_v2_236b",
+            "llava_next_mistral_7b", "musicgen_medium"]
+OC = dict(lr=1e-2, warmup_steps=2, total_steps=10)
+
+
+def case_cfg(c):
+    cfg = get_reduced(c["arch"])
+    mo = dataclasses.replace(cfg.moe, **c.get("moe", {}))
+    return dataclasses.replace(cfg, moe=mo, **c.get("cfg", {}))
+
+
+def flat(tree, prefix):
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        key = "/".join(str(getattr(p, "key", getattr(p, "idx", p)))
+                       for p in path)
+        out[prefix + key] = np.asarray(leaf)
+    return out
+
+
+def mesh_of(shape, names):
+    n = int(np.prod(shape))
+    return make_mesh(tuple(shape), tuple(names), devices=jax.devices()[:n])
+
+
+def dropped_per_shard(p, x, cfg, shape, names):
+    """Each shard's dropped events, as shard_map's blocks route them."""
+    B, S, d = x.shape
+    tp = shape[names.index("model")]
+    baxes = [a for a in ("pod", "data") if a in names]
+    nb = int(np.prod([shape[names.index(a)] for a in baxes]))
+    seq = S > 1 and tp > 1
+    out = []
+    for r in range(int(np.prod(shape))):
+        c = dict(zip(names, np.unravel_index(r, shape)))
+        b = 0
+        for a in baxes:
+            b = b * shape[names.index(a)] + int(c[a])
+        xl = x[b * B // nb:(b + 1) * B // nb]
+        if seq:
+            s = S // tp
+            xl = xl[:, int(c["model"]) * s:(int(c["model"]) + 1) * s]
+        xt = jnp.asarray(xl.reshape(-1, d))
+        w, ids, _ = moe._route(xt, p["router"], cfg)
+        C = moe._capacity(xt.shape[0], cfg)
+        keep = moe._pack(xt, ids, w, C, cfg.moe.n_routed)[2]
+        out.append(int((~np.asarray(keep)).sum()))
+    return np.asarray(out)
+
+
+def run_moe(d):
+    cases = json.loads((d / "cases.json").read_text())
+    out = {}
+    for c in cases:
+        cfg = case_cfg(c)
+        name, B, S = c["name"], c["B"], c["S"]
+        p = moe.moe_init(jax.random.PRNGKey(c["seed"]), cfg, jnp.float32)
+        x = np.random.default_rng(c["seed"]).normal(
+            0, 1, (B, S, cfg.d_model)).astype(np.float32)
+        with mesh_context(mesh_of(c["shape"], c["names"])):
+            y, aux = jax.jit(lambda p, x: moe.moe_apply(
+                p, x, cfg, decode=S == 1))(p, jnp.asarray(x))
+        out.update(flat(p, f"{name}/p/"))
+        out[f"{name}/x"] = x
+        out[f"{name}/y"] = np.asarray(y)
+        out[f"{name}/aux"] = np.asarray(aux)
+        out[f"{name}/dropped"] = dropped_per_shard(
+            p, x, cfg, tuple(c["shape"]), tuple(c["names"]))
+        if c.get("routed_only"):
+            # the layer less its shared experts: JAX's `_decode_moe_2d`
+            # mixes the data shards' rows in the shared experts (ROADMAP
+            # §3), so the port is held to it on the routed experts only
+            pr = {k: v for k, v in p.items() if k != "shared"}
+            with mesh_context(mesh_of(c["shape"], c["names"])):
+                yr, _ = jax.jit(lambda p, x: moe.moe_apply(
+                    p, x, cfg, decode=S == 1))(pr, jnp.asarray(x))
+            out[f"{name}/y_routed"] = np.asarray(yr)
+    # one training step of the reduced MoE LM on a (1, 2) mesh
+    cfg = case_cfg({"arch": "deepseek_moe_16b",
+                    "moe": {"capacity_factor": 0.5}})
+    oc = AdamWConfig(**OC)
+    params = lm.init_params(cfg, jax.random.PRNGKey(3), jnp.float32)
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 32))
+    out.update(flat(params, "ep/init/"))
+    out["ep/tokens"] = tokens
+    with mesh_context(mesh_of((1, 2), ("data", "model"))):
+        opt = adamw_init(params, oc)
+        params, opt, m = jax.jit(make_train_step(cfg, oc))(
+            params, opt, {"tokens": jnp.asarray(tokens)})
+    out.update(flat(params, "ep/params/"))
+    out.update(flat(opt["mu"], "ep/mu/"))
+    out.update(flat(opt["nu"], "ep/nu/"))
+    out["ep/loss"] = np.asarray(m["loss"])
+    out["ep/grad_norm"] = np.asarray(m["grad_norm"])
+    np.savez(d / "jax_moe.npz", **out)
+
+
+def run_dp(d):
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch
+    from _torch_dist_ranks import dp_batch
+    from repro_torch.configs import get_reduced as tget_reduced
+    from repro_torch.distributed.context import Mesh as TMesh
+    from repro_torch.launch.sharding import ShardingRules as TRules
+    from repro_torch.launch.sharding import assemble
+    from repro_torch.models import lm as tlm
+    from repro_torch.models.weights import params_to_jax
+    tcfg = tget_reduced("qwen2_5_3b")
+    cfg = get_reduced("qwen2_5_3b")
+    oc = AdamWConfig(**OC)
+    ranks = [np.load(d / f"rank{r}.npz") for r in range(2)]
+    tmesh = TMesh((2, 1), ("data", "model"))
+    trules = TRules(tcfg, tmesh, "heads")
+    as_jax = lambda state: jax.tree.map(  # noqa: E731
+        lambda t: jnp.asarray(t.numpy()), params_to_jax(state, tcfg))
+
+    def port_state(t):
+        """The ranks' state after their step t: parameters (rank 0's) and
+        the moments assembled from both ranks' ZeRO-1 blocks."""
+        pre = f"dp/{t}/params/"
+        names = [k[len(pre):] for k in ranks[0].files if k.startswith(pre)]
+        state = {n: torch.from_numpy(ranks[0][pre + n]) for n in names}
+        mom = {k: {n: torch.from_numpy(assemble(
+            [r[f"dp/{t}/{k}/{n}"] for r in ranks],
+            trules.held_moment_spec(n, state[n].shape), state[n].shape,
+            tmesh)) for n in names} for k in ("mu", "nu")}
+        return as_jax(state), {"mu": as_jax(mom["mu"]),
+                               "nu": as_jax(mom["nu"]),
+                               "step": jnp.asarray(t + 1, jnp.int32)}
+    out = {}
+    batch0 = {k: jnp.asarray(v) for k, v in dp_batch().items()}
+    mesh = mesh_of((2, 1), ("data", "model"))
+    with mesh_context(mesh):
+        params = as_jax(tlm.init_params(tcfg, 5, torch.float32,
+                                        "cpu").state_dict())
+        opt = adamw_init(params, oc)
+        rules = ShardingRules(cfg, mesh, "heads")
+        shapes = jax.tree.map(
+            lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), params)
+        ps = rules.params_specs(shapes)
+        put = lambda t, s: jax.tree.map(  # noqa: E731
+            lambda a, sh: jax.device_put(a, sh), t, to_named(s, mesh))
+        batch = put(batch0, rules.batch_specs(batch0))
+        step = jax.jit(make_train_step(cfg, oc))
+        for t in range(3):
+            if t:
+                params, opt = port_state(t - 1)
+            params, opt, m = step(put(params, ps),
+                                  put(opt, rules.opt_specs(shapes, ps)),
+                                  batch)
+            out[f"loss{t}"] = np.asarray(m["loss"])
+            out.update(flat(params, f"{t}/params/"))
+            out.update(flat(opt["mu"], f"{t}/mu/"))
+            out.update(flat(opt["nu"], f"{t}/nu/"))
+    np.savez(d / "jax_dp.npz", **out)
+
+
+def run_ckpt(d):
+    mesh = mesh_of((2, 4), ("data", "model"))
+    for i, arch in enumerate(FAMILIES):
+        cfg = get_reduced(arch)
+        dtype = jnp.bfloat16 if arch == "musicgen_medium" else jnp.float32
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(100 + i)
+        shapes = jax.eval_shape(lambda k: lm.init_params(cfg, k, dtype),
+                                jax.ShapeDtypeStruct((2,), jnp.uint32))
+        params = jax.tree.map(
+            lambda a: rng.normal(0, 1, a.shape).astype(a.dtype), shapes)
+        mom = lambda: jax.tree.map(  # noqa: E731
+            lambda a: rng.normal(0, 1, a.shape).astype(np.float32), params)
+        opt = {"mu": mom(), "nu": mom(), "step": np.asarray(7, np.int32)}
+        aux = {"seed": i, "step": 3, "step_counter": 7}
+        save_tree(d / arch / "plain", {"params": params, "opt": opt},
+                  aux=aux)
+        with mesh_context(mesh):
+            rules = ShardingRules(cfg, mesh, "heads")
+            shapes = jax.tree.map(
+                lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), params)
+            ps = rules.params_specs(shapes)
+            sh = {"params": to_named(ps, mesh),
+                  "opt": to_named(rules.opt_specs(shapes, ps), mesh)}
+            tree = jax.tree.map(lambda a, s: jax.device_put(a, s),
+                                {"params": params, "opt": opt}, sh)
+            save_tree(d / arch / "sharded", tree, aux=aux)
+        print(f"{arch}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+if __name__ == "__main__":
+    mode, d = sys.argv[1], Path(sys.argv[2])
+    {"moe": run_moe, "ckpt": run_ckpt, "dp": run_dp}[mode](d)
+    print("JAX-REF-OK")

@@ -204,10 +204,25 @@ def test_global_norm_is_exact_on_large_leaves(dtype):
 
 
 def test_train_step_takes_no_compressor_yet():
-    oc = AdamWConfig()
-    with pytest.raises(NotImplementedError, match="distribution slice"):
-        make_train_step(get_reduced("qwen2_5_3b"), oc, compressor=lambda g: g,
-                        device="cpu")
+    """`make_train_step(compressor=...)` (it raised before the
+    distribution slice): the compressor gets every leaf's gradient once
+    a step and AdamW sees what it returns — zeros leave mu, nu and the
+    grad norm at 0."""
+    cfg = get_reduced("qwen2_5_3b")
+    model = tlm.init_params(cfg, 2, torch.float32, "cpu")
+    opt = adamw_init(model, AdamWConfig())
+    seen = []
+
+    def zero(grads):
+        seen.append(set(grads))
+        return {n: torch.zeros_like(g) for n, g in grads.items()}
+    step = make_train_step(cfg, AdamWConfig(), compressor=zero, device="cpu")
+    batch = TokenPipeline(cfg.vocab_size, 16, 2, seed=1).next_batch()
+    _, opt, m = step(model, opt, batch)
+    assert seen == [set(named_leaves(model))]
+    assert float(m["grad_norm"]) == 0.0
+    assert all(float(t.abs().max()) == 0.0 for k in ("mu", "nu")
+               for t in opt[k].values())
 
 
 # ------------------------------------------------------------------ data
