@@ -105,14 +105,14 @@ raises and the script exits non-zero:
      seed's weights on the card and on the CPU (TF32 off; the CPU
      reference prefill on one thread, its seconds printed): `prefill` at
      S = 512, last-token logits within 1e-3 and K/V caches within 1e-4;
-     the slot `Server` answering 4 requests (prompt 16, max_new 16) with
+     the slot `Server` answering 4 requests (prompt 8, max_new 8) with
      the same greedy tokens, but where the CPU's top-2 logit margin is
      under 1e-3 (such near-ties are counted and reported); if the
      prefill check fails, both sides run once more first and the script
      prints card vs card, CPU vs CPU, the CPU's thread count, the fp32
      matmul precision and where the largest errors lie, then fails;
  12. the full 36-layer Qwen2.5-3B (3.09 B parameters) on the card: the
-     `Server` in fp32, 4 slots, prompt 16, max_new 32, every request
+     `Server` in fp32, 4 slots, prompt 16, max_new 16, every request
      answered; then the same weights in bf16 through `prefill` at B = 1,
      S = 4,096: finite logits, a (36, 1, 4096, 2, 128) cache, and the
      flash kernel launched once per layer (36);
@@ -138,7 +138,7 @@ raises and the script exits non-zero:
      times and the prefill's forward none; step time, tokens/s and peak
      device memory;
  22. the MoE family: (a) DeepSeekMoE-16B at its published widths cut to
-     3 layers (1 dense + 2 MoE), fp32, one seed's weights drawn on the
+     2 layers (1 dense + 1 MoE), fp32, one seed's weights drawn on the
      card and copied to the CPU (TF32 off): `prefill` at S = 256 (C = 40,
      so events drop), every MoE layer's expert ids equal card vs CPU on
      each choice whose CPU probability lies 1e-5 or more from its
@@ -146,14 +146,14 @@ raises and the script exits non-zero:
      kept events, dropped-event count and output (within 1e-4 of its
      max) equal on the tokens before the first that parted, logits within
      1e-3 and caches within 1e-4 when none parted; the `Server` as in
-     phase 11 (4 requests, prompt 16, max_new 16), a stream free to part
+     phase 11 (4 requests, prompt 8, max_new 8), a stream free to part
      from the first decode call whose routing parted at a near-tie; the
      training parity of phase 14 at B = 1, S = 128 (gradients, the fp32
      routers included, the aux loss within 1e-5 relative, one
      `make_train_step`), held when its forward routes no choice apart;
      (b) the full 28-layer model (16.38 B parameters) in bf16, weights
      drawn on the card: the `Server` with 4 slots, prompt 16, max_new
-     32, every request answered; `prefill` at B = 1, S = 4,096: finite
+     16, every request answered; `prefill` at B = 1, S = 4,096: finite
      logits, caches `dense_blocks` (1, 1, 4096, 16, 128) and `blocks`
      (27, 1, 4096, 16, 128), the flash kernel launched 28 times, the
      dropped events per layer; prefill ms and tokens/s, decode ms a tick
@@ -175,18 +175,18 @@ raises and the script exits non-zero:
      held against dv's scale, as at phase 13's S = 1), and windows of S
      and past S, which must give the unwindowed kernels' bits (forward,
      lse, backward); then for Mamba2-780m and RecurrentGemma-2B each:
-     (c) its published widths cut to 2 layers (Mamba2, chunk 256) or 4
+     (c) its published widths cut to 1 layer (Mamba2, chunk 256) or 4
      (RecurrentGemma: 1 group + 1 tail layer, the window cut to 256 so
      that it binds), fp32, one seed's weights drawn on the card and
      copied to the CPU (TF32 off; the CPU prefill on one thread):
      `prefill` at S = 512, logits within 1e-3 and every cache leaf
-     ({conv, ssd}; {conv, h} and the ring's {k, v}) within 1e-4; 8
+     ({conv, ssd}; {conv, h} and the ring's {k, v}) within 1e-4; 4
      decode steps from the prefill's caches (the rings wrap), every leaf
      held each step; the `Server` as in phase 11; the training parity of
      phase 14 at B = 1, S = 512 (gradients, one `make_train_step`); (d)
      the full model (48 / 26 layers, 0.78 B / 2.68 B parameters) in bf16,
      weights drawn on the card: the `Server` with 4 slots, prompt 16,
-     max_new 32 (ms a tick); `prefill` at B = 1, S = 4,096 (finite
+     max_new 16 (ms a tick); `prefill` at B = 1, S = 4,096 (finite
      logits, every cache leaf's shape, the flash kernel once per
      attention layer: 0 / 8; ms, tokens/s); training with fp32 moments,
      `make_train_step` on `TokenPipeline` at B = 1, S = 4,096, 3 steps:
@@ -203,16 +203,17 @@ raises and the script exits non-zero:
      1,000 (B = 2), GQA (8 over 2 heads, S = 777) and phase 10's peaky and flat softmaxes at D = 192 (phase
      10 also reads every D = 192 instance's ptxas lines: no spills); then
      for DeepSeek-V2, LLaVA-NeXT-Mistral-7B and MusicGen-Medium each:
-     card vs CPU at its published widths cut to 2 layers in fp32, as
-     23(c) (prefill at S = 512, LLaVA's 576 patches + 128 tokens, with
-     every cache leaf, 8 decode steps, the `Server`, one training step's
+     card vs CPU at its published widths cut to 2 layers (DeepSeek-V2: 1
+     dense + 1 MoE) or 1 (LLaVA-NeXT, MusicGen) in fp32, as 23(c)
+     (prefill at S = 512, LLaVA's 576 patches + 128 tokens, with every
+     cache leaf, 4 decode steps, the `Server`, one training step's
      gradients and update): DeepSeek-V2
      at its published MLA widths (kv_lora 512, q_lora 1,536, 128 + 64 /
      128) and expert width with d_model 2,048, 16 heads, a 32,000 vocab
      and 16 routed experts (1 dense + 1 MoE layer; routing recorded and
      held but at near-ties), LLaVA with 576 seeded patch embeddings
      before the text; then the model at full width in bf16, served (4
-     slots, prompt 16, max_new 32), prefilled at B = 1 and 4,096
+     slots, prompt 16, max_new 16), prefilled at B = 1 and 4,096
      positions (LLaVA: 576 patches + 3,520 tokens; finite logits, every
      cache leaf's shape, the flash kernel once a layer) and trained 3
      steps at B = 1, S = 4,096 (finite losses and grad norms, the first
@@ -245,7 +246,7 @@ raises and the script exits non-zero:
      size 1 at the whole batch (rank 0): loss within 1e-5, gradients
      within 1e-4, moments and the well-conditioned parameters within
      1e-5 (lr 1e-2); then MusicGen-Medium whole in bf16 with ZeRO-1
-     moments, a row of S = 4,096 a rank, three steps with the int8
+     moments, a row of S = 4,096 a rank, one step with the int8
      compressor and one with top-k (each compressor's first call held
      bit for bit to its CPU run on the same gradients and residual,
      the embedding and LayerNorm leaves), per step the forward with lse
@@ -258,6 +259,39 @@ raises and the script exits non-zero:
      size 1 through `reshard_tree` (the moments within 1e-5 of world
      size 1's), whose next step is held to the ranks' next step; bytes
      written, seconds to save and restore. `[dist*]` lines;
+ 26. the model axis (ROADMAP item 10.3b): (a) in this process, kernels
+     4-6 with a query offset against their plain versions, fp32 and
+     bf16, with the tolerances of phases 10 and 13 (`OFFSET_CASES`):
+     Qwen2-7B's seq-layout blocks at tp = 4 (q (1, 28, 1,024, 128)
+     against k/v (1, 4, 4,096, 128)) at each rank's q_start, the four
+     blocks together equal to the whole causal pass within FLASH_TOL,
+     RecurrentGemma's MQA at D = 256 with W = 2,048 at q_start 2,048,
+     ragged and unaligned offsets at D = 64 and 192, a peaky softmax,
+     the keys after the last query's position with dK = dV = 0 exactly,
+     and q_start + Sq > Sk or q_start < 0 raising ValueError on the
+     card; then, in phase 25's ranks (`tp_rank`, after 25(c)): (b)
+     Qwen2-7B at its published widths cut to 2 layers in fp32 on (data
+     1, model 4), each rank its held blocks, in "heads" (KV sharded) and
+     "seq", and Qwen2.5-3B in "heads" (KV replicated), each held to
+     world size 1 on rank 0 (the whole weights of the same seed):
+     prefill logits within LM_TOL and caches within CACHE_TOL, a 4-slot
+     `Server`'s greedy tokens (parting only at a near-tie), one train
+     step's loss within 1e-5, every gradient (gathered) within
+     GRAD_TOL, the step on rank 0's blocks within STEP_TOL of lr; then
+     Qwen2-7B whole in bf16 in both layouts: prefill at B = 1, S =
+     4,096, a tick over a 4,128-row cache held over 'model', and a
+     train step at TP_FULL's 14 layers (fp32 moments): ms, peak bytes a
+     rank, each collective's calls, bytes and ms (`distributed.mesh.
+     tally`); (c) the 2-layer fp32 model's prefill at 4,096 positions
+     into a T = 8,192 cache (2,048 rows a rank) and 16 greedy ticks,
+     equal to world size 1's; (d) llama3-405b with FSDP and its
+     sequence-parallel residual on (data 2, model 2): at its published
+     widths cut to 1 layer in bf16, a prefill at B = 2, S = 4,096; its
+     training at FSDP_NARROW's widths in fp32 held to world size 1 (a
+     layer's state at the published widths does not fit the card beside
+     the ranks). Every rank launches kernels 4-6 on every path.
+     `[dist tp*]` lines, `[phase 26]`; phase 6 times the seq blocks at
+     every q_start (`[time offset kernels]`, `[time offset imbalance]`);
  17. the serving tier at full width: one `SpikeServer` (max_batch 8,
      max_wait 2 ms, window 16) holding the core on the fused engine (8
      session lanes) and the MLP on the simulator (4), both deployed by
@@ -283,7 +317,7 @@ raises and the script exits non-zero:
  18. the hiaer tier: the core network compiled for target="hiaer" on
      Hierarchy(2, 2, 2, 15,625) (8 cores over every interconnect level,
      BFS placement; compile and BFS seconds, shard stats and device
-     table bytes printed); 5 run_lanes windows (B = 8, T = 16) with the
+     table bytes printed); 3 run_lanes windows (B = 8, T = 16) with the
      spike wire packed and unpacked, bit-exact against the fused engine
      (spikes, V, lane state, pointer/row reads), the per-level events
      equal packed and unpacked and to a numpy int64 recount from the
@@ -310,15 +344,15 @@ raises and the script exits non-zero:
      simulator, every output potential or spike count equal to
      `apply_quantized` / `simulate_quantized`, HiAER accuracy (and the
      DQN's score) equal to software's, each path's kernel and
-     split_randint launched once a step; 16 samples of each row equal
-     on the CPU port; then 16 steps of STDP on the converted MLP and on
+     split_randint launched once a step; 8 samples of each row equal
+     on the CPU port; then 8 steps of STDP on the converted MLP and on
      tests/test_learning.py's network, card and CPU port in lockstep
      (spikes and weight columns every step, then the traces); train,
      compile and inference times, accuracies, peak device memory and
      wall time printed;
  20. the mesh tier: phase 18's hiaer artifact as target "mesh" (no
      second compile). World size 1 in this process (n_devices=1, no
-     stages), both wires: phase 18's 5 run_lanes windows (B = 8,
+     stages), both wires: phase 18's 3 run_lanes windows (B = 8,
      T = 16) equal to its hiaer packed and unpacked paths and the fused
      engine (spikes, V, lane V and keys, reads, level events), then
      run_batch (B = 8, T = 16), 16 steps, phase 18's 1,000 writes on
@@ -336,12 +370,12 @@ raises and the script exits non-zero:
      (`distributed_engine`) on a (data 2, model 4) `DeviceMesh` over the
      same ranks, W = 512, int16 weights, at 625,000 neurons a rank
      (160 M / 256, the dense bool wire) and 625,024 (the packed wire):
-     10 steps with every rank's V and spikes equal to its plain step over
-     the gathered spikes, spike_matmul and lif_step once a step, then 10
+     4 steps with every rank's V and spikes equal to its plain step over
+     the gathered spikes, spike_matmul and lif_step once a step, then 4
      timed steps. Then (phase 21(c)) the same ranks serve the artifact
      at n_devices 8: rank 0 leads a `SpikeServer` behind an in-process
      `Portal`, every other rank deploys it and replays rank 0's calls
-     (`serve.replica.serve_follower`); 4 sessions x 4 windows and 2
+     (`serve.replica.serve_follower`); 4 sessions x 3 windows and 2
      scratch requests a round over HTTP, phase 18's 1,000 writes as one
      /reconfigure after round 2; every answer == a world-size-1 mesh
      server given the same stream in this process before the spawn,
@@ -455,8 +489,8 @@ BF16_TC_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 HEAD_START_CYCLES = 2_000_000  # ~1 ms of the card's clock before a timing
 LM_ARCH = "qwen2_5_3b"        # configs/qwen2_5_3b.py at its published widths
 LM_PREFILL = (1, 4096)        # prefill batch and length on the full model
-LM_SERVE = (4, 16, 32)        # Server slots, prompt length, max_new
-PARITY_SERVE = (4, 16, 16)    # the same on the 2-layer card-vs-CPU model
+LM_SERVE = (4, 16, 16)        # Server slots, prompt length, max_new
+PARITY_SERVE = (4, 8, 8)      # the same on the 2-layer card-vs-CPU model
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 LM_TOL = 1e-3                 # 2-layer fp32 logits, card vs CPU
 LM_TRAIN = (1, 4096, 4)       # training batch, length and steps, full model
@@ -465,8 +499,8 @@ STEP_TOL = 1e-4               # an AdamW step against its formula, of its max
 MOE_ARCH = "deepseek_moe_16b"  # its published widths (configs/)
 # card vs CPU in fp32: the layers (1 dense + 2 MoE), the prefill length
 # (C = 40 there, so events drop) and the training parity's B, S
-MOE_PARITY = (3, 256, (1, 128))
-MOE_SERVE = (4, 16, 32)       # the full model's Server: slots, prompt, max_new
+MOE_PARITY = (2, 256, (1, 128))
+MOE_SERVE = (4, 16, 16)       # the full model's Server: slots, prompt, max_new
 MOE_PREFILL = (1, 4096)       # the full model's bf16 prefill: B, S
 # training at full width: layers, B, S, steps. The most layers that fit:
 # peak device memory grows 7.06 GB a layer (44.70 GB at 6, 58.81 GB at
@@ -2362,11 +2396,11 @@ WINDOW_CASES = [
 # 23(c): card vs CPU at full width, fp32: layers, prefill length, decode
 # steps after it, the training parity's (B, S); RecurrentGemma's window
 # cut to 256 so that it binds at S = 512 (1 group + 1 tail layer)
-FAMILY_PARITY = {SSM_ARCH: (2, 512, 8, (1, 512)),
-                 HYBRID_ARCH: (4, 512, 8, (1, 512))}
+FAMILY_PARITY = {SSM_ARCH: (1, 512, 4, (1, 512)),
+                 HYBRID_ARCH: (4, 512, 4, (1, 512))}
 PARITY_WINDOW = 256
 CACHE_TOL = 1e-4               # 23(c): a cache leaf, of max(1, its max |.|)
-FAMILY_SERVE = (4, 16, 32)     # the full models' Server: slots, prompt, max_new
+FAMILY_SERVE = (4, 16, 16)     # the full models' Server: slots, prompt, max_new
 FAMILY_PREFILL = (1, 4096)     # their bf16 prefill: B, S
 FAMILY_TRAIN = (1, 4096, 3)    # their bf16 training: B, S, steps
 
@@ -3022,9 +3056,9 @@ MLA_PARITY_NARROW = {"d_model": 2048, "heads": 16, "vocab": 32000,
 # card vs CPU at full width, fp32: layers, prefill text length, decode
 # steps after it, the training parity's (B, S) (LLaVA's text after its 576
 # patch embeddings)
-LAST_PARITY = {MLA_ARCH: (2, 512, 8, (1, 256)),
-               VLM_ARCH: (2, 128, 8, (1, 128)),
-               AUDIO_ARCH: (2, 512, 8, (1, 512))}
+LAST_PARITY = {MLA_ARCH: (2, 512, 4, (1, 256)),
+               VLM_ARCH: (1, 128, 4, (1, 128)),
+               AUDIO_ARCH: (1, 512, 4, (1, 512))}
 # full width at a cut depth: DeepSeek-V2 served and prefilled at 4 layers
 # (1 dense + 3 MoE, ~13.3 B parameters, 26.6 GB in bf16) and trained at 2
 # (1 dense + 1 MoE, ~5.36 B: ~43 GB in parameters, gradients and bf16
@@ -3098,7 +3132,7 @@ EP_TOL = 1e-5                  # of max |ref|, fp32, ranks vs the reference
 EP_REPS = 3                    # timed bf16 calls of each case's layer
 DP_PARITY = (2, 2, 1024)       # 25(b) fp32 parity: layers, B, S
 DP_TRAIN = (2, 4096)           # 25(b) bf16 MusicGen: global B, S
-DP_STEPS = (("int8", 3), ("topk", 1))   # compressor, steps
+DP_STEPS = (("int8", 2), ("topk", 1))   # compressor, steps
 PARITY_OC = dict(lr=1e-2, warmup_steps=2, total_steps=10)
 ILL = 1e-6                     # sqrt(nu_hat) under it: ill-conditioned
 
@@ -3454,8 +3488,9 @@ def dp_train(rank, seed: int, dev, mesh, kernels) -> dict:
     """25(b): MusicGen-Medium whole in bf16 on the (data 2, model 1)
     mesh, DP_TRAIN's global batch (a row a rank), ZeRO-1 moments: each
     of DP_STEPS' compressors for its steps (error feedback from a zero
-    residual), the first step of each held against its CPU run on the
-    same inputs bit for bit (the embedding and the LayerNorm leaves);
+    residual, then the residual fed back), each step held against its
+    CPU run on the same inputs and residual bit for bit (the embedding
+    and the LayerNorm leaves);
     step ms, the all-reduce's and all-gather's bytes and ms, launches a
     step, peak memory."""
     from repro_torch.configs import get_arch
@@ -3484,17 +3519,17 @@ def dp_train(rank, seed: int, dev, mesh, kernels) -> dict:
                 if not state:
                     state.update(ef.init(grads))
                 out, new = ef.apply(grads, state)
-                if not checked:
-                    keep = [n for n in grads if n == "embed.table"
-                            or n.endswith((".ln1.scale", ".ln1.bias"))]
-                    cpu = ErrorFeedback(mode).apply(
-                        {n: grads[n].cpu() for n in keep},
-                        {n: state[n].cpu() for n in keep})
-                    for n in keep:
-                        need(torch.equal(cpu[0][n], out[n].cpu())
-                             and torch.equal(cpu[1][n], new[n].cpu()),
-                             f"25(b) {mode}: {n} card != CPU")
-                    checked.append(len(keep))
+                keep = [n for n in grads if n == "embed.table"
+                        or n.endswith((".ln1.scale", ".ln1.bias"))]
+                cpu = ErrorFeedback(mode).apply(
+                    {n: grads[n].cpu() for n in keep},
+                    {n: state[n].cpu() for n in keep})
+                for n in keep:
+                    need(torch.equal(cpu[0][n], out[n].cpu())
+                         and torch.equal(cpu[1][n], new[n].cpu()),
+                         f"25(b) {mode} step {len(checked)}: {n} card != "
+                         f"CPU")
+                checked.append(len(keep))
                 state.update(new)
                 return out
             step = st.make_train_step(cfg, oc, compressor=compress)
@@ -3531,21 +3566,20 @@ def dp_train(rank, seed: int, dev, mesh, kernels) -> dict:
 
 
 def dist_rank(rank: int, world: int, work: str, seed: int) -> None:
-    """Phase 25 on one of the DIST_RANKS ranks that share the card
-    (spawned, gloo): 25(a) on every rank, then 25(b) and (c) on ranks 0
-    and 1 while the others wait. Writes its numbers to `work`/dist<r>.
-    json; any check that fails raises, which fails the phase."""
+    """Phases 25 and 26 on one of the DIST_RANKS ranks that share the
+    card (spawned, gloo, started once for both): 25(a) on every rank,
+    then 25(b) and (c) on ranks 0 and 1 while the others wait, then
+    phase 26's ranks (`tp_rank`) on all. Writes its numbers to
+    `work`/dist<r>.json; any check that fails raises, which fails the
+    phase."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch.distributed as dist
     from repro_torch.distributed import mesh as pg
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.mesh import make_mesh
     dev = pg.rank_device(None)
     torch.cuda.set_device(dev)
     need(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
-    kernels = {"flash_attention": fa.flash_attention,
-               "flash_fwd_lse": fa.flash_fwd_lse,
-               "flash_bwd_dkv": fa._bwd_dkv, "flash_bwd_dq": fa._bwd_dq}
+    kernels = tp_kernels()
     work = Path(work)
     report = {"rank": rank, "device": str(dev), "ep": {}}
     t0 = time.perf_counter()
@@ -3561,20 +3595,26 @@ def dist_rank(rank: int, world: int, work: str, seed: int) -> None:
         report["train"] = dp_train(rank, seed, dev, mesh, kernels)
         report["train_s"] = time.perf_counter() - t0
     dist.barrier()
+    torch.cuda.empty_cache()
+    report["tp"] = tp_rank(rank, seed, dev)          # phase 26
+    dist.barrier()
     (work / f"dist{rank}.json").write_text(json.dumps(report))
 
 
 def phase_dist(seed: int, card: str) -> dict:
-    """Phase 25, the distribution slice: DIST_RANKS gloo ranks on the
-    card (`dist_rank`). Logs `[dist*]` lines; returns the DP ranks'
-    launch counts by path."""
+    """Phases 25 (the distribution slice) and 26 (the model axis,
+    `phase_tp`): DIST_RANKS gloo ranks on the card (`dist_rank`). Logs
+    `[dist*]` lines; returns the ranks' launch counts by path."""
     from repro_torch.distributed import mesh
     t_phase = time.perf_counter()
+    log(f"[dist] this process holds {torch.cuda.memory_allocated() / 1e9:.2f}"
+        f" GB ({torch.cuda.memory_reserved() / 1e9:.2f} GB reserved) of "
+        f"the card as the ranks start")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
         work = Path(tmp)
         t0 = time.perf_counter()
         mesh.spawn(dist_rank, DIST_RANKS, work / "store", (str(work), seed),
-                   timeout_s=600)
+                   timeout_s=900)
         ranks_s = time.perf_counter() - t0
         reps = [json.loads((work / f"dist{r}.json").read_text())
                 for r in range(DIST_RANKS)]
@@ -3644,14 +3684,848 @@ def phase_dist(seed: int, card: str) -> dict:
                 f"{s['all_gather_bytes']:,} B in {s['all_gather_ms']:.1f} ms"
                 for s in tr["steps"]) +
             f"; compressors == their CPU runs on {tr['int8_checked_leaves']}"
-            f" / {tr['topk_checked_leaves']} leaves; peak "
+            f" / {tr['topk_checked_leaves']} leaves at every step (int8's "
+            f"second from the residual its first left); peak "
             f"{tr['peak_bytes'] / 1e9:.2f} GB; on {card}")
+    paths.update(phase_tp(reps, card))
     log(f"[dist] {DIST_RANKS} gloo ranks on {reps[0]['device']}: "
         f"{ranks_s:.1f} s with their start (25(a) "
         f"{reps[0]['ep_s']:.1f} s, parity and elastic "
         f"{reps[0]['parity_s']:.1f} s, training {reps[0]['train_s']:.1f} "
-        f"s); phase 25 {time.perf_counter() - t_phase:.1f} s on {card}")
+        f"s, phase 26 {reps[0]['tp']['s']:.1f} s); phases 25 and 26 "
+        f"{time.perf_counter() - t_phase:.1f} s on {card}")
     return paths
+
+
+# ------------------------------------------------ phase 26: the model axis
+TP_ARCH = "qwen2_7b"           # configs/qwen2_7b.py: 28 / 4 heads of 128
+TP_KV_REP_ARCH = "qwen2_5_3b"  # 16 / 2 heads: KV replicated at tp = 4
+FSDP_ARCH = "llama3_405b"      # configs/llama3_405b.py, published widths
+# 26(a): kernels 4-6 with a query offset against their plain versions:
+# name, (B, Sq, Sk, H, KV, D), q_start, window or None, (q, k) x. The
+# seq layout's blocks of Qwen2-7B at tp = 4 (S = 4,096, 1,024 rows a
+# rank) at each rank's q_start, RecurrentGemma's MQA at D = 256 with its
+# window, ragged and unaligned offsets, D = 192 and 64, and a block
+# whose later keys no query sees (their dK/dV must be 0)
+SEQ_BLOCK = (1, 1024, 4096, 28, 4, 128)
+OFFSET_CASES = [
+    *(("seq block", SEQ_BLOCK, r * 1024, None, (1.0, 1.0))
+      for r in range(4)),
+    ("hybrid window", (1, 1024, 4096, 10, 1, 256), 2048, 2048, (1.0, 1.0)),
+    ("ragged, unaligned", (2, 333, 1500, 8, 2, 64), 1001, None, (1.0, 1.0)),
+    ("ragged window", (1, 200, 1000, 4, 4, 192), 450, 129, (1.0, 1.0)),
+    ("keys past the queries", (1, 300, 1000, 4, 2, 128), 77, None,
+     (1.0, 1.0)),
+    ("peaky softmax", (2, 640, 2048, 16, 2, 128), 1408, None, (4.0, 4.0)),
+]
+
+
+def offset_pairs(Sq: int, q_start: int) -> int:
+    """Query-key pairs a causal pass of Sq rows at positions q_start..
+    needs: Sq q_start + Sq (Sq + 1) / 2."""
+    return Sq * q_start + Sq * (Sq + 1) // 2
+
+
+def offset_inputs(dev, gen, shape, dtype, mul=(1.0, 1.0)):
+    """q (B, H, Sq, D) and k, v (B, KV, Sk, D) as the model passes them
+    ((B, S, heads, D) storage), and dO like q."""
+    B, Sq, Sk, H, KV, D = shape
+
+    def mk(S, n, m=1.0):
+        x = torch.randn((B, S, n, D), generator=gen, device=dev)
+        return (x * m).to(dtype).transpose(1, 2)
+    return mk(Sq, H, mul[0]), mk(Sk, KV, mul[1]), mk(Sk, KV), mk(Sq, H)
+
+
+def check_offset_cases(dev, seed: int, cases=None) -> dict:
+    """26(a): kernels 4-6 with `q_start` against their plain versions,
+    fp32 and bf16 (the tolerances of `check_flash_cases`); the keys no
+    query sees get dK = dV = 0 exactly; the four seq blocks of one
+    sequence put together equal the whole causal pass (q_start = 0, Sq ==
+    Sk) within FLASH_TOL; and a call whose offset reaches past Sk raises
+    ValueError on the card. Returns each case's errors."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd,
+                                                     flash_fwd_lse)
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_attention_ref,
+                                         flash_fwd_lse_ref)
+    need(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    errs, blocks = {}, {}
+    for name, shape, q0, W, mul in (OFFSET_CASES if cases is None
+                                    else cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = offset_inputs(dev, gen, shape, dtype, mul)
+            o = flash_attention(q, k, v, window=W, q_start=q0)
+            ro, rlse = flash_fwd_lse_ref(q, k, v, True, W, q0)
+            o2, lse = flash_fwd_lse(q, k, v, window=W, q_start=q0)
+            got = flash_attention_bwd(q, k, v, ro, rlse, do, window=W,
+                                      q_start=q0)
+            want = flash_attention_bwd_ref(q, k, v, ro, rlse, do, True, W,
+                                           q0)
+            torch.cuda.synchronize()
+            tag = (f"{name} {tuple(shape)} q_start={q0}"
+                   + (f" W={W}" if W else "") + f" {str(dtype)[6:]}")
+            e = {"o": float((o.float() - ro.float()).abs().max()),
+                 "o_lse": float((o2.float() - ro.float()).abs().max()),
+                 "lse": float((lse - rlse).abs().max()),
+                 **{n: rel_err(g, w) for n, g, w in
+                    zip(("dq", "dk", "dv"), got, want)},
+                 **{n + "_max": float(w.float().abs().max())
+                    for n, w in zip(("dq", "dk", "dv"), want)}}
+            if dtype == torch.bfloat16:
+                e["o_fp32"] = float((o.float() - flash_attention_ref(
+                    q.float(), k.float(), v.float(), True, W, q0))
+                    .abs().max())
+            # keys past the last query's position: no query sees them
+            unseen = q0 + shape[1]
+            if unseen < shape[2]:
+                e["unseen_keys_zero"] = bool(
+                    (got[1][:, :, unseen:] == 0).all()
+                    and (got[2][:, :, unseen:] == 0).all())
+                need(e["unseen_keys_zero"], f"26(a) {tag}: keys no query "
+                                            f"sees got a gradient")
+            tol, gtol = FLASH_TOL[dtype], GRAD_TOL[dtype]
+            need(all(bool(torch.isfinite(t).all())
+                     for t in (o, o2, lse, *got))
+                 and max(e["o"], e["o_lse"], e["lse"],
+                         e.get("o_fp32", 0.0)) <= tol
+                 and all(e[n + "_max"] > 0 for n in ("dq", "dk", "dv"))
+                 and max(e["dq"], e["dk"], e["dv"]) <= gtol,
+                 f"26(a): flash kernels != plain versions on {tag}: {e} "
+                 f"(tolerances {tol}, {gtol} of max |ref|)")
+            if name == "seq block":
+                blocks.setdefault(dtype, {})[q0] = (q, k, v, o)
+            errs[tag] = e
+            log(f"[dist tp kernels] kernels == plain on {tag} (B, Sq, Sk, "
+                f"H, KV, D), q, k x {mul}: o {e['o']:.3g}, o with lse "
+                f"{e['o_lse']:.3g}, lse {e['lse']:.3g}"
+                + (f" ({e['o_fp32']:.3g} against fp32)" if "o_fp32" in e
+                   else "") + f" (<= {tol}); dq {e['dq']:.3g}, dk "
+                f"{e['dk']:.3g}, dv {e['dv']:.3g} of max |ref| (<= {gtol})"
+                + ("; unseen keys' dK, dV == 0" if unseen < shape[2]
+                   else ""))
+            del o2, lse, ro, rlse, got, want, do
+            torch.cuda.empty_cache()
+    # the seq blocks were drawn from one generator: put each block's q
+    # into one sequence with the last block's k, v and compare the blocks
+    # against the whole pass over it
+    for dtype, bl in blocks.items():
+        if len(bl) < 2:
+            continue
+        _, k, v, _ = bl[max(bl)]
+        q = torch.cat([bl[s][0] for s in sorted(bl)], dim=2)
+        if q.shape[2] != k.shape[2]:
+            continue
+        whole = flash_attention(q, k, v)
+        parts = torch.cat([flash_attention(bl[s][0], k, v, q_start=s)
+                           for s in sorted(bl)], dim=2)
+        d = float((whole.float() - parts.float()).abs().max())
+        need(d <= FLASH_TOL[dtype], f"26(a): the seq blocks != the whole "
+                                    f"pass ({d}) in {dtype}")
+        errs[f"blocks == whole {str(dtype)[6:]}"] = {
+            "o": d, "same_bits": bool(torch.equal(whole, parts))}
+        log(f"[dist tp kernels] {len(bl)} seq blocks == the whole causal "
+            f"pass in {str(dtype)[6:]}: max |d| {d:.3g}"
+            + (" (the same bits)" if torch.equal(whole, parts) else ""))
+    q, k, v = (torch.zeros((1, 2, 64, 64), device=dev) for _ in range(3))
+    for q0 in (1, -1):
+        try:
+            flash_attention(q, k, v, q_start=q0)
+            need(False, f"26(a): q_start={q0} with Sq == Sk did not raise")
+        except ValueError:
+            pass
+    log("[dist tp kernels] q_start + Sq > Sk and q_start < 0 raise "
+        "ValueError on the card")
+    return errs
+
+
+def time_offset_kernels(dev, seed: int, flush, card: str, shape, q0: int,
+                        dtypes=(torch.bfloat16, torch.float32)) -> dict:
+    """Kernels 4-6 on one seq block: (B, Sq, Sk, H, KV, D) at q_start q0,
+    causal: each kernel, its plain version and the library yardstick
+    (SDPA with the offset band as a boolean mask, the KV heads repeated;
+    autograd through it for the backward, its forward excluded). The
+    bound counts B H D 2 pairs flops a product, pairs = Sq q0 + Sq (Sq +
+    1) / 2, at the card's peak rate for the type."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_attention_ref,
+                                         flash_fwd_lse_ref)
+    B, Sq, Sk, H, KV, D = shape
+    prod = 2 * B * H * D * offset_pairs(Sq, q0)   # flops of one product
+    out = {"shape": list(shape), "q_start": q0,
+           "pairs_per_head": offset_pairs(Sq, q0)}
+    for dtype in dtypes:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        q, k, v, do = offset_inputs(dev, gen, shape, dtype)
+        o, lse = fa.flash_fwd_lse(q, k, v, q_start=q0)
+        delta = (do.float() * o.float()).sum(dim=-1).contiguous()
+        rate = BF16_TC_FLOPS_PER_S if dtype == torch.bfloat16 \
+            else SCALAR_OPS_PER_S
+        r = {"fwd": (time_ms(lambda: fa.flash_attention(q, k, v,
+                                                        q_start=q0),
+                             flush=flush),
+                     time_ms(lambda: flash_attention_ref(q, k, v, True, None,
+                                                         q0), flush=flush),
+                     *bound(nbytes(q, k, v, q), 2 * prod, rate)),
+             "lse": (time_ms(lambda: fa.flash_fwd_lse(q, k, v, q_start=q0),
+                             flush=flush),
+                     time_ms(lambda: flash_fwd_lse_ref(q, k, v, True, None,
+                                                       q0), flush=flush),
+                     *bound(nbytes(q, k, v, o, lse), 2 * prod, rate))}
+        bwd_in = nbytes(q, k, v, do, lse, delta)
+        r["dkv"] = (time_ms(lambda: fa._bwd_dkv(q, k, v, do, lse, delta,
+                                                True, 0, q0), flush=flush),
+                    *bound(bwd_in + nbytes(k, v), 4 * prod, rate))
+        r["dq"] = (time_ms(lambda: fa._bwd_dq(q, k, v, do, lse, delta, True,
+                                              0, q0), flush=flush),
+                   *bound(bwd_in + nbytes(q), 3 * prod, rate))
+        r["bwd"] = (time_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, o, lse, do, q_start=q0), flush=flush),
+            time_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                    True, None, q0),
+                    flush=flush),
+            *bound(nbytes(q, k, v, o, do, lse, q, k, v), 5 * prod, rate))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        i = torch.arange(Sk, device=dev)
+        band = i[None, :] <= (q0 + torch.arange(Sq, device=dev))[:, None]
+        qe = q.contiguous().requires_grad_()
+        ke, ve = (t.repeat_interleave(H // KV, dim=1).contiguous()
+                  .requires_grad_() for t in (k, v))
+        with torch.no_grad():
+            lib_fwd = time_ms(lambda: sdpa(qe, ke, ve, attn_mask=band),
+                              flush=flush)
+        lo = sdpa(qe, ke, ve, attn_mask=band)
+        doe = do.contiguous()
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            lo, (qe, ke, ve), doe, retain_graph=True), flush=flush)
+        r["lib"] = (lib_fwd, lib_bwd)
+        name = str(dtype)[6:]
+        f, fl, bw = r["fwd"], r["lse"], r["bwd"]
+        log(f"[time offset kernels {name}] (B, Sq, Sk, H, KV, D) = "
+            f"{tuple(shape)}, q_start = {q0}: flash_attention {f[0]:.4f} ms "
+            f"({2 * prod / f[0] / 1e9:.1f} TFLOP/s), plain {f[1]:.4f} ms, "
+            f"bound {1e3 * f[2]:.2f} us ({f[3]}: {2 * prod} flops), "
+            f"{f[0] / f[2]:.2f}x the bound, SDPA with the offset band "
+            f"{lib_fwd:.4f} ms ({f[0] / lib_fwd:.2f}x); flash_fwd_lse "
+            f"{fl[0]:.4f} ms, plain {fl[1]:.4f} ms, bound "
+            f"{1e3 * fl[2]:.2f} us ({fl[0] / fl[2]:.2f}x); backward "
+            f"{bw[0]:.4f} ms (dK/dV {r['dkv'][0]:.4f} ms, bound "
+            f"{1e3 * r['dkv'][1]:.2f} us for 4 products; dQ {r['dq'][0]:.4f}"
+            f" ms, bound {1e3 * r['dq'][1]:.2f} us for 3), plain "
+            f"{bw[1]:.4f} ms, bound {1e3 * bw[2]:.2f} us (5 products), "
+            f"{bw[0] / bw[2]:.2f}x; autograd through SDPA {lib_bwd:.4f} ms "
+            f"({bw[0] / lib_bwd:.2f}x) on {card}")
+        out[name] = r
+        del q, k, v, do, o, lse, delta, qe, ke, ve, lo, doe, band
+        torch.cuda.empty_cache()
+    return out
+
+
+TP_PARITY = (2, 1024)          # 26(b) fp32 parity: layers, prefill/train S
+TP_SERVE = (4, 8, 8)           # its Server: slots, prompt, max_new
+TP_FULL = (4096, 14, 4128)     # 26(b) bf16 whole: prefill S, train layers,
+#                                the tick's cache rows (its T over 'model')
+TP_CACHE = (4096, 8192, 16)    # 26(c): prefill S, cache T, greedy ticks
+FSDP_SHAPE = (1, 2, 4096)      # 26(d) bf16 at full width: layers, B, S
+# 26(d)'s training, fp32 against world size 1 at narrowed widths (a
+# layer's state at the published widths does not fit the card beside
+# the ranks' others): llama3-405b's ratios (GQA 8:1 -> 16 / 2 heads of
+# 128, d_ff 3.25 d), its FSDP and sequence-parallel residual kept
+FSDP_NARROW = {"d_model": 2048, "n_heads": 16, "n_kv_heads": 2,
+               "d_ff": 6656, "vocab_size": 32000}
+FSDP_PARITY = (2, 2, 512)      # its layers, B (a row a data rank), S
+
+
+def tp_kernels():
+    from repro_torch.kernels import flash_attention as fa
+    return {"flash_attention": fa.flash_attention,
+            "flash_fwd_lse": fa.flash_fwd_lse,
+            "flash_bwd_dkv": fa._bwd_dkv, "flash_bwd_dq": fa._bwd_dq}
+
+
+def tp_gather(t, spec, shape, mesh):
+    """A held leaf's whole value on rank 0 (its blocks gathered to rank 0
+    through host memory, gloo's `gather`, and assembled there; a leaf
+    held whole as it is), None elsewhere."""
+    import torch.distributed as dist
+    from repro_torch.launch.sharding import assemble
+    if all(a is None or mesh.axis_size(a) == 1 for a in spec):
+        return t if mesh.rank == 0 else None
+    flat = t.detach().reshape(-1).cpu()
+    parts = [torch.empty_like(flat) for _ in range(mesh.size)] \
+        if mesh.rank == 0 else None
+    dist.gather(flat, parts, dst=mesh.ranks[0],
+                group=mesh.group(mesh.axis_names))
+    if mesh.rank != 0:
+        return None
+    return assemble([p.view(t.shape) for p in parts], spec, shape,
+                    mesh).to(t.device)
+
+
+def tp_compare(rank, mesh, cfg, layout, got, want, what, tol):
+    """The largest gap, of each leaf's max |want| (`tol` the limit), of
+    the ranks' held first moments `got` {name: block} gathered, against
+    rank 0's world size 1 `want` {name: whole}; every rank takes part,
+    rank 0 checks and returns it (None elsewhere). After one step a
+    first moment is (1 - b1) times the step's clipped gradient, so this
+    holds the step's own gradients to world size 1's."""
+    from repro_torch.launch.sharding import ShardingRules
+    from repro_torch.models import lm
+    rules = ShardingRules(cfg, mesh, layout)
+    shapes = lm.param_shapes(cfg)
+    gaps = {}
+    for n in sorted(got):
+        whole = tp_gather(got[n], rules.held_moment_spec(n, shapes[n]),
+                          shapes[n], mesh)
+        if rank == 0:
+            w = want[n].float()
+            gaps[n] = float((whole.float() - w).abs().max()) / max(
+                float(w.abs().max()), 1e-30)
+        del whole
+    if rank != 0:
+        return None
+    worst = max(gaps.values())
+    need(worst <= tol, f"26: {what} off by {worst:.3e} of max |ref| (<= "
+                       f"{tol}); the largest gaps "
+                       f"{sorted(gaps.items(), key=lambda x: -x[1])[:8]}")
+    return worst
+
+
+def tp_parity(rank, seed: int, dev, arch: str, layout: str, kernels
+              ) -> dict:
+    """26(b)'s fp32 parity on the (1, 4) mesh: `arch` at its published
+    widths cut to TP_PARITY's layers, each rank its held blocks in
+    `layout`, against world size 1 on rank 0 (the whole weights of the
+    same seed): prefill logits (LM_TOL) and caches (CACHE_TOL), a
+    TP_SERVE Server's greedy tokens (parting only at a near-tie), and
+    one train step: loss (1e-5), every gradient gathered (GRAD_TOL of
+    its max), the parameters after it on rank 0's blocks (STEP_TOL of
+    the step's max where well-conditioned, 2 lr elsewhere: the update is
+    elementwise on the gradients held)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.context import Mesh, mesh_context
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.steps import (init_opt_state, make_prefill_step,
+                                          make_train_step)
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig
+    L, S = TP_PARITY
+    cfg = dataclasses.replace(get_arch(arch), n_layers=L)
+    mesh = make_mesh((1, DIST_RANKS), DM)
+    one = Mesh((1, 1), DM)
+    rng = np.random.default_rng(seed + 261)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                    (1, S)), device=dev)}
+    res = {"layout": layout}
+    with mesh_context(mesh):
+        model = lm.init_params(cfg, seed, torch.float32, dev, mesh=mesh,
+                               layout=layout)
+        for k in kernels.values():
+            k.launches = 0
+        lg, caches = make_prefill_step(cfg, layout)(model, batch)
+        res["prefill_launches"] = {n: k.launches for n, k in kernels.items()}
+    w1 = None
+    if rank == 0:
+        with mesh_context(one):
+            w1 = lm.init_params(cfg, seed, torch.float32, dev)
+            lg1, caches1 = lm.prefill(w1, cfg, batch)
+        res["logits_err"] = float((lg - lg1).abs().max())
+        need(res["logits_err"] <= LM_TOL, f"26(b) {arch} {layout}: prefill "
+                                          f"logits off by {res['logits_err']}")
+        res["cache_err"] = max(
+            float((caches["blocks"][n] - caches1["blocks"][n]).abs().max())
+            / max(1.0, float(caches1["blocks"][n].abs().max()))
+            for n in ("k", "v"))
+        need(res["cache_err"] <= CACHE_TOL, f"26(b) {arch} {layout}: caches "
+                                            f"off by {res['cache_err']}")
+        del lg1, caches1
+    del lg, caches
+    # the Server: every rank the same slots; rank 0 also at world size 1
+    slots, plen, max_new = TP_SERVE
+    prompts = prompts_for(cfg, slots, plen, seed + 263)
+    with mesh_context(mesh):
+        for k in kernels.values():
+            k.launches = 0
+        srv = Server(cfg, max_len=plen + max_new + 2, slots=slots,
+                     params=model, device=dev, layout=layout)
+        calls = record_decisions(srv)
+        got = serve(srv, prompts, max_new)
+        res["serve_launches"] = {n: k.launches for n, k in kernels.items()}
+        del srv
+    if rank == 0:
+        with mesh_context(one):
+            srv1 = Server(cfg, max_len=plen + max_new + 2, slots=slots,
+                          params=w1, device=dev)
+            calls1 = record_decisions(srv1)
+            serve(srv1, prompts, max_new)
+            del srv1
+        res["greedy"] = greedy_agreement(calls, calls1, prompts, got[0],
+                                         got[1])
+    # one train step
+    oc = AdamWConfig(**PARITY_OC)
+    with mesh_context(mesh):
+        opt = init_opt_state(model, oc, cfg, mesh, layout)
+        for k in kernels.values():
+            k.launches = 0
+        model, opt, m = make_train_step(cfg, oc, layout=layout)(
+            model, opt, batch)
+        res["train_launches"] = {n: k.launches for n, k in kernels.items()}
+    o1 = None
+    if rank == 0:
+        with mesh_context(one):
+            o1 = init_opt_state(w1, oc, cfg, one)
+            w1, o1, m1 = make_train_step(cfg, oc)(w1, o1, batch)
+        res["loss"], res["loss_w1"] = float(m["loss"]), float(m1["loss"])
+        need(abs(res["loss"] - res["loss_w1"]) <= 1e-5,
+             f"26(b) {arch} {layout}: loss {res['loss']} vs {res['loss_w1']}")
+    res["grad_err"] = tp_compare(rank, mesh, cfg, layout, opt["mu"],
+                                 None if o1 is None else o1["mu"],
+                                 f"{arch} {layout} gradients",
+                                 GRAD_TOL[torch.float32])
+    torch.cuda.empty_cache()
+    # the step on rank 0's blocks: each leaf's gap against the step's
+    # size where Adam is well-conditioned (sqrt(nu_hat) >= ILL), within
+    # 2 lr elsewhere
+    if rank == 0:
+        res["step_err"], res["n_ill"] = tp_step_gap(
+            rank, mesh, cfg, layout, model.state_dict(), w1.state_dict(),
+            o1["nu"], f"{arch} {layout}")
+        del o1
+    del model, opt, w1
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_step_gap(rank, mesh, cfg, layout, params, p1, nu1, what,
+                gather=False):
+    """The ranks' parameters after a step against world size 1's `p1`
+    (rank 0's held blocks against their slices, or with `gather` every
+    rank's blocks gathered): the largest gap where Adam is
+    well-conditioned (sqrt(nu_hat) >= ILL), of the first step's lr, and
+    the ill-conditioned share (each within 2 lr); rank 0."""
+    from repro_torch.launch.sharding import ShardingRules, local_slice
+    from repro_torch.models import lm
+    rules = ShardingRules(cfg, mesh, layout)
+    shapes = lm.param_shapes(cfg)
+    worst, n_ill, n_all = 0.0, 0, 0
+    lr = PARITY_OC["lr"] / PARITY_OC["warmup_steps"]
+    for n in sorted(params):
+        spec = rules.held_spec(n, shapes[n])
+        got = tp_gather(params[n], spec, shapes[n], mesh) if gather \
+            else params[n]
+        if rank == 0:
+            sl = (slice(None),) if gather else \
+                local_slice(spec, shapes[n], mesh)
+            gap = (got - p1[n][sl]).abs()
+            v = nu1[n][sl]
+            well = (v == 0) | ((v / (1 - 0.95)).sqrt() >= ILL)
+            worst = max(worst, float(torch.where(well, gap, 0.0).max()))
+            need(float(gap.max()) <= 2 * lr, f"26: {what} step {n} off by "
+                                             f"{float(gap.max())}")
+            n_ill += int((~well).sum())
+            n_all += gap.numel()
+        del got
+    if rank != 0:
+        return None
+    need(worst / lr <= STEP_TOL, f"26: {what} step off by {worst} "
+                                 f"({worst / lr:.3e} of lr)")
+    return worst / lr, n_ill / n_all
+
+
+def tp_cache2d(rank, seed: int, dev, kernels) -> dict:
+    """26(c): TP_PARITY's 2-layer fp32 Qwen2-7B in "heads" on (1, 4): a
+    prefill at TP_CACHE's 4,096 positions (its cache T over 'model',
+    1,024 rows a rank) written into a cache of 8,192 rows (2,048 a
+    rank), then greedy ticks: every rank's tokens == world size 1's on
+    rank 0 (a stream may part only at a near-tie, LM_TOL)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.context import Mesh, mesh_context
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import lm
+    S, T, ticks = TP_CACHE
+    cfg = dataclasses.replace(get_arch(TP_ARCH), n_layers=TP_PARITY[0])
+    mesh = make_mesh((1, DIST_RANKS), DM)
+    rng = np.random.default_rng(seed + 267)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                    (1, S)), device=dev)}
+    V = cfg.vocab_size
+
+    def run(mm):
+        with mesh_context(mm):
+            model = lm.init_params(cfg, seed, torch.float32, dev, mesh=mm)
+            lg, caches = make_prefill_step(cfg)(model, batch)
+            rows = (caches["blocks"]["k"].shape[2],)
+            cache = lm.extend_cache(caches, cfg, S, T)
+            rows += (cache["blocks"]["k"].shape[2],)
+            del caches
+            step = make_decode_step(cfg, max_len=T)
+            toks, margins = [], []
+            tok = lg[:, :V].argmax(dim=1)
+            for t in range(ticks):
+                top = lg[:, :V].topk(2, dim=1).values
+                margins.append(float(top[0, 0] - top[0, 1]))
+                toks.append(int(tok[0]))
+                lg, cache = step(model, tok[:, None], cache, S + t)
+                tok = lg[:, :V].argmax(dim=1)
+            del model, cache
+            return toks, margins, rows
+    for k in kernels.values():
+        k.launches = 0
+    toks, _, rows = run(mesh)
+    res = {"tokens": toks, "rows": rows,
+           "launches": {n: k.launches for n, k in kernels.items()}}
+    need(rows == (S // DIST_RANKS, T // DIST_RANKS),
+         f"26(c): cache rows a rank {rows}")
+    if rank == 0:
+        toks1, margins1, _ = run(Mesh((1, 1), DM))
+        res["tokens_w1"] = toks1
+        parted = [i for i, (a, b) in enumerate(zip(toks, toks1)) if a != b]
+        need(not parted or margins1[parted[0]] < LM_TOL,
+             f"26(c): tokens part at tick {parted[:1]} with a margin "
+             f"{margins1[parted[0]] if parted else None}")
+        res["parted_at"] = parted[0] if parted else None
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_full(rank, seed: int, dev, kernels) -> dict:
+    """26(b) whole and in bf16: Qwen2-7B at its published widths on (1,
+    4) in both layouts: prefill at B = 1, S = TP_FULL's 4,096, one decode
+    tick over a cache of TP_FULL's rows (T over 'model'), then a train
+    step at TP_FULL's layers (fp32 moments): ms, the rank's peak bytes,
+    each collective's calls, bytes and ms (`distributed.mesh.tally`;
+    gloo ranks sharing one card: this wire, not NVLink), launches."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.distributed import mesh as pg
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import (init_opt_state, make_decode_step,
+                                          make_prefill_step, make_train_step)
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig
+    S, n_train, T = TP_FULL
+    cfg = get_arch(TP_ARCH)
+    mesh = make_mesh((1, DIST_RANKS), DM)
+    rng = np.random.default_rng(seed + 269)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                    (1, S)), device=dev)}
+    res = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+    for layout in ("heads", "seq"):
+        r = res[layout] = {}
+        torch.cuda.reset_peak_memory_stats()
+        with mesh_context(mesh):
+            model = lm.init_params(cfg, seed, torch.bfloat16, dev,
+                                   mesh=mesh, layout=layout)
+            torch.cuda.empty_cache()     # the whole leaves drawn to cut
+            r["held_bytes"] = sum(p.numel() * p.element_size()
+                                  for p in model.parameters())
+            prefill = make_prefill_step(cfg, layout)
+            for k in kernels.values():
+                k.launches = 0
+            with pg.tally() as wire:                 # the first call
+                (lg, _), r["prefill_ms"] = timed(lambda: prefill(model,
+                                                                 batch))
+            r["prefill_wire"] = wire
+            r["prefill_launches"] = {n: k.launches
+                                     for n, k in kernels.items()}
+            need(bool(torch.isfinite(lg).all()), f"26(b) {layout}: logits")
+            cache = lm.init_cache(cfg, 4, T, torch.bfloat16, dev)
+            r["cache_rows"] = cache["blocks"]["k"].shape[2]
+            step = make_decode_step(cfg, layout, max_len=T)
+            tok = torch.zeros((4, 1), dtype=torch.long, device=dev)
+            step(model, tok, cache, 7)
+            with pg.tally() as wire:
+                _, r["tick_ms"] = timed(lambda: step(model, tok, cache, 8))
+            r["tick_wire"] = wire
+            r["prefill_peak"] = torch.cuda.max_memory_allocated()
+            del model, cache, lg
+            torch.cuda.empty_cache()
+            if layout == "seq":
+                continue          # the train step: "heads", TP_FULL[1] layers
+            tcfg = dataclasses.replace(cfg, n_layers=n_train)
+            torch.cuda.reset_peak_memory_stats()
+            model = lm.init_params(tcfg, seed, torch.bfloat16, dev,
+                                   mesh=mesh, layout=layout)
+            torch.cuda.empty_cache()
+            oc = AdamWConfig(moment_dtype=tcfg.opt_dtype, total_steps=2)
+            opt = init_opt_state(model, oc, tcfg, mesh, layout)
+            train = make_train_step(tcfg, oc, layout=layout)
+            pipe = TokenPipeline(cfg.vocab_size, S, 1, seed=seed)
+            r["train"] = []
+            for _ in range(1):
+                for k in kernels.values():
+                    k.launches = 0
+                with pg.tally() as wire:
+                    (_, _, m), ms = timed(lambda: train(model, opt,
+                                                        pipe.next_batch()))
+                need(np.isfinite(float(m["loss"])), "26(b): a train loss")
+                r["train"].append({
+                    "ms": ms, "loss": float(m["loss"]), "wire": wire,
+                    "grad_wire": dict(train.wire),
+                    "launches": {n: k.launches for n, k in kernels.items()}})
+            r["train_layers"] = n_train
+            r["train_peak"] = torch.cuda.max_memory_allocated()
+            r["free_after_train"] = torch.cuda.mem_get_info()[0]
+            r["n_params"] = sum(int(np.prod(s)) for s in
+                                lm.param_shapes(tcfg).values())
+            del model, opt
+            torch.cuda.empty_cache()
+    return res
+
+
+def tp_fsdp(rank, seed: int, dev, kernels) -> dict:
+    """26(d): llama3-405b with FSDP on (data 2, model 2). At its
+    published widths cut to FSDP_SHAPE's layer, bf16: a prefill at B = 2
+    (a row a data rank), S = 4,096 (each layer's leaves gathered over
+    'data' before use, the residual sequence-parallel). Training at
+    FSDP_NARROW's widths, fp32, one step against world size 1 on rank 0
+    (loss, every gradient, the parameters after it)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import mesh as pg
+    from repro_torch.distributed.context import Mesh, mesh_context
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import (init_opt_state, make_prefill_step,
+                                          make_train_step)
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig
+    mesh = make_mesh((2, 2), DM)
+    base = get_arch(FSDP_ARCH)
+    need(base.fsdp and base.seq_parallel, "26(d): llama3-405b's FSDP")
+    L, B, S = FSDP_SHAPE
+    cfg = dataclasses.replace(base, n_layers=L)
+    rng = np.random.default_rng(seed + 271)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                    (B, S)), device=dev)}
+    res = {}
+    torch.cuda.reset_peak_memory_stats()
+    with mesh_context(mesh):
+        model = lm.init_params(cfg, seed, torch.bfloat16, dev, mesh=mesh)
+        torch.cuda.empty_cache()         # the whole leaves drawn to cut
+        res["held_bytes"] = sum(p.numel() * p.element_size()
+                                for p in model.parameters())
+        prefill = make_prefill_step(cfg)
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with pg.tally() as wire:                     # the first call
+            lg, _ = prefill(model, batch)
+            torch.cuda.synchronize()
+        res["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+        res["prefill_wire"] = wire
+        res["prefill_launches"] = {n: k.launches for n, k in kernels.items()}
+        need(bool(torch.isfinite(lg).all()), "26(d): prefill logits")
+        res["prefill_peak"] = torch.cuda.max_memory_allocated()
+        del model, lg
+    torch.cuda.empty_cache()
+    # the training, narrowed, fp32, against world size 1
+    L, B, S = FSDP_PARITY
+    ncfg = dataclasses.replace(base, n_layers=L, **FSDP_NARROW)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, ncfg.vocab_size,
+                                                    (B, S)), device=dev)}
+    oc = AdamWConfig(**PARITY_OC)
+    with mesh_context(mesh):
+        model = lm.init_params(ncfg, seed, torch.float32, dev, mesh=mesh)
+        opt = init_opt_state(model, oc, ncfg, mesh)
+        for k in kernels.values():
+            k.launches = 0
+        model, opt, m = make_train_step(ncfg, oc)(model, opt, batch)
+        res["train_launches"] = {n: k.launches for n, k in kernels.items()}
+    mu1 = p1 = nu1 = None
+    one = Mesh((1, 1), DM)
+    if rank == 0:
+        with mesh_context(one):
+            w1 = lm.init_params(ncfg, seed, torch.float32, dev)
+            o1 = init_opt_state(w1, oc, ncfg, one)
+            w1, o1, m1 = make_train_step(ncfg, oc)(w1, o1, batch)
+        res["loss"], res["loss_w1"] = float(m["loss"]), float(m1["loss"])
+        need(abs(res["loss"] - res["loss_w1"]) <= 1e-5,
+             f"26(d): loss {res['loss']} vs {res['loss_w1']}")
+        p1, nu1, mu1 = w1.state_dict(), o1["nu"], o1["mu"]
+        del w1, o1
+    res["grad_err"] = tp_compare(rank, mesh, ncfg, "heads", opt["mu"], mu1,
+                                 "FSDP gradients", GRAD_TOL[torch.float32])
+    step_gap = tp_step_gap(rank, mesh, ncfg, "heads", model.state_dict(),
+                           p1, nu1, "FSDP", gather=True)
+    if rank == 0:
+        res["step_err"], res["n_ill"] = step_gap
+    del model, opt, mu1, p1, nu1
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_rank(rank: int, seed: int, dev) -> dict:
+    """Phase 26 on one of phase 25's ranks (`dist_rank`): (b) the fp32
+    parities and the whole bf16 model on (1, 4), (c) the 2-D cache, (d)
+    FSDP on (2, 2). Any failed check raises."""
+    kernels = tp_kernels()
+    out, t0 = {"held_at_start": torch.cuda.memory_allocated()}, \
+        time.perf_counter()
+    out["parity"] = [tp_parity(rank, seed, dev, TP_ARCH, lay, kernels)
+                     for lay in ("heads", "seq")]
+    out["parity"].append(tp_parity(rank, seed, dev, TP_KV_REP_ARCH, "heads",
+                                   kernels))
+    out["parity_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    out["cache2d"] = tp_cache2d(rank, seed, dev, kernels)
+    out["cache2d_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["full"] = tp_full(rank, seed, dev, kernels)
+    out["full_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["fsdp"] = tp_fsdp(rank, seed, dev, kernels)
+    out["fsdp_s"] = time.perf_counter() - t1
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def fmt_wire(w) -> str:
+    return ", ".join(f"{op} {n} x {b / n / 1e6:.2f} MB in {ms:.1f} ms"
+                     for op, (n, b, ms) in sorted(w.items())) or "none"
+
+
+def phase_tp(reps, card: str) -> dict:
+    """Phase 26's lines from the ranks' reports; every kernel of the
+    paths launched on every rank. Returns the launch counts by path."""
+    paths = {}
+    for r, rep in enumerate(reps):
+        tp = rep["tp"]
+        for p in tp["parity"]:
+            for part in ("prefill", "train"):
+                c = p[f"{part}_launches"]
+                need(sum(c.values()) > 0 and (
+                    c["flash_attention"] > 0 if part == "prefill" else
+                    min(c["flash_fwd_lse"], c["flash_bwd_dkv"],
+                        c["flash_bwd_dq"]) > 0),
+                     f"26 rank {r} {p['layout']} {part}: launches {c}")
+                paths[f"tp {p['layout']} {part} 2L fp32 rank {r}"] = c
+        f = tp["full"]
+        for lay in ("heads", "seq"):
+            c = f[lay]["prefill_launches"]
+            need(c["flash_attention"] > 0, f"26 rank {r} {lay} bf16 prefill "
+                                           f"launches {c}")
+            paths[f"tp {lay} prefill bf16 rank {r}"] = c
+        for i, st in enumerate(f["heads"]["train"]):
+            c = st["launches"]
+            need(min(c["flash_fwd_lse"], c["flash_bwd_dkv"],
+                     c["flash_bwd_dq"]) > 0, f"26 rank {r} train {c}")
+            paths[f"tp heads train bf16 step {i} rank {r}"] = c
+        paths[f"tp cache2d rank {r}"] = tp["cache2d"]["launches"]
+        paths[f"tp fsdp prefill bf16 rank {r}"] = tp["fsdp"][
+            "prefill_launches"]
+        paths[f"tp fsdp train fp32 rank {r}"] = tp["fsdp"]["train_launches"]
+        need(tp["fsdp"]["prefill_launches"]["flash_attention"] > 0
+             and tp["fsdp"]["train_launches"]["flash_bwd_dq"] > 0,
+             f"26(d) rank {r}: launches {tp['fsdp']}")
+    t0 = reps[0]["tp"]
+    names = (f"{TP_ARCH} heads (KV sharded)", f"{TP_ARCH} seq",
+             f"{TP_KV_REP_ARCH} heads (KV replicated)")
+    for p, name in zip(t0["parity"], names):
+        log(f"[dist tp parity] {name} at its widths cut to {TP_PARITY[0]} "
+            f"layers, fp32, (data 1, model {DIST_RANKS}) vs world size 1: "
+            f"prefill S={TP_PARITY[1]} logits {p['logits_err']:.3e} "
+            f"(<= {LM_TOL}), caches {p['cache_err']:.3e} (<= {CACHE_TOL}); "
+            f"Server {TP_SERVE[0]} slots (prompt {TP_SERVE[1]}, max_new "
+            f"{TP_SERVE[2]}): {p['greedy'][0]} greedy decisions, parted at "
+            f"{p['greedy'][1]} near-tie(s); train step loss {p['loss']:.7f} "
+            f"vs {p['loss_w1']:.7f}, gradients {p['grad_err']:.3e} of max "
+            f"|ref| (<= {GRAD_TOL[torch.float32]}), step {p['step_err']:.3e}"
+            f" of lr where well-conditioned (<= {STEP_TOL}; "
+            f"{100 * p['n_ill']:.2f} % not); launches rank 0 prefill "
+            f"{p['prefill_launches']}, train {p['train_launches']} on {card}")
+    c = t0["cache2d"]
+    log(f"[dist tp cache2d] {TP_ARCH} {TP_PARITY[0]} layers fp32 heads: "
+        f"prefill S={TP_CACHE[0]} (cache rows a rank {c['rows'][0]}), "
+        f"{TP_CACHE[2]} greedy ticks over a T={TP_CACHE[1]} cache "
+        f"({c['rows'][1]} rows a rank): tokens {c['tokens']} == world size "
+        f"1 {c['tokens_w1']}" + ("" if c["parted_at"] is None else
+                                 f" but from tick {c['parted_at']} (a "
+                                 f"near-tie)") + f" on {card}")
+    for lay in ("heads", "seq"):
+        per = [rep["tp"]["full"][lay] for rep in reps]
+        ms = [round(p["prefill_ms"], 1) for p in per]
+        log(f"[dist tp {lay} bf16] {TP_ARCH} whole ({per[0]['held_bytes']:,}"
+            f" B held a rank), (data 1, model {DIST_RANKS}): prefill B=1 "
+            f"S={TP_FULL[0]} ms a rank {ms}"
+            f" (wire rank 0: {fmt_wire(per[0]['prefill_wire'])}); a tick at "
+            f"4 slots over T={TP_FULL[2]} ({per[0]['cache_rows']} rows a "
+            f"rank) ms {[round(p['tick_ms'], 2) for p in per]} (wire rank 0:"
+            f" {fmt_wire(per[0]['tick_wire'])}); peak GB a rank "
+            f"{[round(p['prefill_peak'] / 1e9, 2) for p in per]} on {card}")
+    per = [rep["tp"]["full"]["heads"] for rep in reps]
+    tr = per[0]["train"]
+    log(f"[dist tp train bf16] {TP_ARCH} cut to {per[0]['train_layers']} "
+        f"layers ({per[0]['n_params']:,} parameters), heads, fp32 moments, "
+        f"B=1 S={TP_FULL[0]}: step ms rank 0 "
+        f"{[round(s['ms'], 1) for s in tr]}, losses "
+        f"{[round(s['loss'], 4) for s in tr]}; the model's collectives "
+        f"(rank 0, step 2): {fmt_wire(tr[-1]['wire'])}; gradient "
+        f"all-reduce {tr[-1]['grad_wire']['all_reduce']:,} B in "
+        f"{tr[-1]['grad_wire']['all_reduce_ms']:.1f} ms; peak GB a rank "
+        f"{[round(p['train_peak'] / 1e9, 2) for p in per]}, the card's "
+        f"free GB after it {per[0]['free_after_train'] / 1e9:.2f} (ranks "
+        f"held {[round(r['tp']['held_at_start'] / 1e9, 2) for r in reps]} "
+        f"GB at phase 26's start); gloo ranks sharing one card, so the "
+        f"wire is that, not NVLink, on {card}")
+    fs = t0["fsdp"]
+    per = [rep["tp"]["fsdp"] for rep in reps]
+    ms = [round(p["prefill_ms"], 1) for p in per]
+    log(f"[dist tp fsdp] {FSDP_ARCH} at its widths cut to {FSDP_SHAPE[0]} "
+        f"layer(s) bf16, (data 2, model 2), FSDP + sequence-parallel: "
+        f"{fs['held_bytes']:,} B held a rank; prefill B={FSDP_SHAPE[1]} "
+        f"S={FSDP_SHAPE[2]} (its first call) ms a rank {ms}"
+        f" (wire rank 0: {fmt_wire(fs['prefill_wire'])}), peak GB a rank "
+        f"{[round(p['prefill_peak'] / 1e9, 2) for p in per]}; training at "
+        f"{FSDP_NARROW} cut to {FSDP_PARITY[0]} layers, fp32, B="
+        f"{FSDP_PARITY[1]} S={FSDP_PARITY[2]} vs world size 1: loss "
+        f"{fs['loss']:.7f} vs {fs['loss_w1']:.7f}, gradients "
+        f"{fs['grad_err']:.3e} of max |ref|, step {fs['step_err']:.3e} of "
+        f"lr where well-conditioned ({100 * fs['n_ill']:.2f} % not) on "
+        f"{card}")
+    log(f"[phase 26] the ranks' phase 26: {t0['s']:.1f} s (parity "
+        f"{t0['parity_s']:.1f}, 2-D cache {t0['cache2d_s']:.1f}, bf16 whole "
+        f"{t0['full_s']:.1f}, FSDP {t0['fsdp_s']:.1f}) on {card}")
+    return paths
+
+
+def offset_probe() -> int:
+    """26(a) alone (`python3 -c "import chip_smoke as c;
+    c.offset_probe()"`): the kernels' build with their ptxas lines, the
+    offset cases and the seq block's timing at every q_start."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    logs = _build.build_all(["flash_attention", "flash_attention_bwd"])
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build:{name}] {line.strip()}")
+    dev = torch.device("cuda", 0)
+    flush_buf = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    card = card_line()
+    check_offset_cases(dev, 0)
+    for q0 in range(0, 4096, 1024):
+        time_offset_kernels(dev, 1, flush_buf.zero_, card,
+                            SEQ_BLOCK, q0, dtypes=(torch.bfloat16,))
+    return 0
 
 
 # ------------------------------------------------------- the serving tier
@@ -3982,8 +4856,8 @@ def phase_serve(compiled, sim_compiled, seed: int, zero_counts, read_counts,
 
 # ------------------------------------------------------- the hiaer tier
 HIAER = (2, 2, 2, 15_625)     # Hierarchy: 8 cores, every interconnect level
-HIAER_WINDOWS = 5             # run_lanes windows at B = 8, T = 16 a path
-HIAER_ROUNDS = 12             # timed rounds of one window on each path
+HIAER_WINDOWS = 3             # run_lanes windows at B = 8, T = 16 a path
+HIAER_ROUNDS = 6              # timed rounds of one window on each path
 HIAER_WRITE_CORES = (0, 3, 6)  # the cores phase 18's write batch reaches
 HIAER_SERVE = (4, 4, 2)       # session lanes, windows each, scratch requests
 
@@ -4384,7 +5258,7 @@ T2_DIGITS = (1200, 200, 4)   # train / test images, epochs (table2_vision.run's
 #                              1,200 train and 4 epochs; 200 test, not 60)
 T2_DVS = (330, 110, 6, 5e-3)  # train / test samples, epochs, lr
 T2_DQN = (400, 3)            # DQN episodes and seed (tests/test_rl.py)
-T2_PARITY = 16               # samples a row, and STDP steps, card vs CPU port
+T2_PARITY = 8                # samples a row, and STDP steps, card vs CPU port
 T2_PATHS = (("engine", False), ("engine", True), ("simulator", False))
 
 
@@ -4755,11 +5629,11 @@ MESH_DEVICES = (8, 2)         # n_devices in that world: a core a rank (NoC,
 #                               a rank (Ethernet only; ranks 2-7 hold none)
 POD_MESH = (2, 4)             # the pod-scale step's (data, model) mesh
 POD_NLOC = (625_000, 625_024)  # 160 M / 256 (bool wire), word-aligned
-POD_STEPS = 10
+POD_STEPS = 4
 POD_WINDOW_BLOCKS = 4         # x 128 = the 512-wide presynaptic window
 
 
-MESH_SERVE = (4, 2, 4)        # phase 21(c): sessions, scratch requests a
+MESH_SERVE = (4, 2, 3)        # phase 21(c): sessions, scratch requests a
 #                               round, rounds (phase 18's writes after 2)
 
 
@@ -6195,15 +7069,22 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     clock("phase 24")
 
+    # ---- 26(a). kernels 4-6 with a query offset against their plain
+    # versions (the seq layout's blocks), on the card alone
+    offset_errs = check_offset_cases(dev, args.seed + 83)
+    clock("phase 26(a)")
+
     # ---- 25. the distribution slice: expert-parallel MoE layers, data-
     # parallel training with ZeRO-1 moments and compression, the elastic
-    # restart, on DIST_RANKS gloo ranks sharing the card
+    # restart; and 26(b)-(d), the model axis: Qwen2-7B's and Qwen2.5-3B's
+    # tensor parallelism against world size 1, the 2-D cache, FSDP on
+    # llama3-405b; on DIST_RANKS gloo ranks sharing the card, started once
     need(threading.active_count() == 1,
          f"threads alive before phase 25: {threading.enumerate()}")
     by_path.update({p: {k: c.get(k, 0) for k in kernels_of}
                     for p, c in phase_dist(args.seed, card).items()})
     torch.cuda.empty_cache()
-    clock("phase 25")
+    clock("phases 25, 26")
 
     # ---- 17. the serving tier at full width: the core (fused engine) and
     # the MLP (simulator) resident in one SpikeServer; every server shut
@@ -6557,6 +7438,59 @@ def main(argv=None) -> int:
                     "musicgen kernels",
                     dtypes=(torch.bfloat16,))["bfloat16"]}
 
+    # kernels 4-6 on the seq layout's blocks (phase 26): Qwen2-7B's rank
+    # at each q_start in bf16 (the causal work grows with q_start: the
+    # layout's per-rank imbalance), fp32 also at the last
+    seq_t = {q0: time_offset_kernels(
+        dev, args.seed + 101, flush, card, SEQ_BLOCK, q0,
+        dtypes=(torch.bfloat16,) + ((torch.float32,) if q0 == 3072 else ()))
+        for q0 in range(0, SEQ_BLOCK[2], SEQ_BLOCK[1])}
+    o16, o32 = seq_t[3072]["bfloat16"], seq_t[3072]["float32"]
+    rank_ms = {q0: t["bfloat16"]["fwd"][0] + t["bfloat16"]["bwd"][0]
+               for q0, t in seq_t.items()}
+    log(f"[time offset imbalance] seq layout, bf16 forward + backward ms "
+        f"of the rank at each q_start: " + ", ".join(
+            f"{q0}: {ms:.4f}" for q0, ms in rank_ms.items())
+        + f" (last / first {rank_ms[3072] / rank_ms[0]:.2f}; pairs "
+        f"{[t['pairs_per_head'] for t in seq_t.values()]}) on {card}")
+
+    def offset_errs_of(kinds):
+        return max(e[k] for t, e in offset_errs.items()
+                   if t.endswith("bfloat16") and "q_start" in t
+                   for k in kinds)
+
+    def offset_keys(part):
+        """The line's keys of one kernel (`part`: fwd, lse, dkv or dq)
+        on the seq block at q_start 3,072 (phase 26)."""
+        out = {"offset_shape": list(SEQ_BLOCK), "offset_q_start": 3072,
+               "ms_offset_by_q_start": {q0: t["bfloat16"][part][0]
+                                        for q0, t in seq_t.items()}}
+        if part in ("fwd", "lse"):
+            out.update({
+                "max_abs_err_offset": offset_errs_of(
+                    ("o",) if part == "fwd" else ("o_lse", "lse")),
+                "ms_offset": o16[part][0], "plain_ms_offset": o16[part][1],
+                "bound_ms_offset": o16[part][2],
+                "library_ms_offset": o16["lib"][0],
+                "ms_offset_fp32": o32[part][0],
+                "plain_ms_offset_fp32": o32[part][1],
+                "bound_ms_offset_fp32": o32[part][2],
+                "library_ms_offset_fp32": o32["lib"][0]})
+            return out
+        out.update({
+            "max_rel_err_offset": offset_errs_of(
+                ("dk", "dv") if part == "dkv" else ("dq",)),
+            "ms_offset": o16[part][0], "bound_ms_offset": o16[part][1],
+            "ms_offset_fp32": o32[part][0],
+            "backward_ms_offset": o16["bwd"][0],
+            "backward_plain_ms_offset": o16["bwd"][1],
+            "backward_bound_ms_offset": o16["bwd"][2],
+            "backward_library_ms_offset": o16["lib"][1],
+            "backward_ms_offset_fp32": o32["bwd"][0],
+            "backward_plain_ms_offset_fp32": o32["bwd"][1],
+            "backward_library_ms_offset_fp32": o32["lib"][1]})
+        return out
+
     def last_errs(kind, model="MLA"):
         return max(e[kind] for t, e in last_errs_by_case.items()
                    if t.startswith(f"{model} model shape")
@@ -6714,7 +7648,8 @@ def main(argv=None) -> int:
          "bound_ms_mla_fp32": m32["fwd"][2],
          "library_ms_mla_fp32": m32["lib"][0],
          "ms_mla_by_head_dim": mla_by_d,
-         **model_keys("fwd"),
+         **model_keys("fwd"), **offset_keys("fwd"),
+         "offset_errors_by_case": offset_errs,
          "last_errors_by_case": last_errs_by_case, "last_families": last,
          "lm_parity": lm_par, "prefill_ms": pre_ms,
          "prefill_tokens_per_s": n_tok / (pre_ms / 1e3),
@@ -6746,7 +7681,7 @@ def main(argv=None) -> int:
          "bound_ms_mla": m16["lse"][2], "library_ms_mla": m16["lib"][0],
          "ms_mla_fp32": m32["lse"][0], "plain_ms_mla_fp32": m32["lse"][1],
          "bound_ms_mla_fp32": m32["lse"][2],
-         **model_keys("lse"),
+         **model_keys("lse"), **offset_keys("lse"),
          "errors_by_case": train_errs, "train_parity": train_par,
          "train_step_ms": train_ms, "train_tokens_per_s": train_tok,
          "train_losses": tr["loss"], "train_peak_bytes": tr["peak_bytes"]},
@@ -6805,7 +7740,7 @@ def main(argv=None) -> int:
             "backward_ms_mla_fp32": m32["bwd"][0],
             "backward_plain_ms_mla_fp32": m32["bwd"][1],
             "backward_library_ms_mla_fp32": m32["lib"][1],
-            **model_keys(part)})
+            **model_keys(part), **offset_keys(part)})
     clock("timing (phase 6)")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

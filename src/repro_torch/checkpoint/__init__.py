@@ -1,4 +1,5 @@
-from repro_torch.checkpoint.store import (CheckpointManager, restore_tree,
-                                          save_tree)
+from repro_torch.checkpoint.store import (CheckpointManager, restore_blocks,
+                                          restore_tree, save_tree)
 
-__all__ = ["CheckpointManager", "restore_tree", "save_tree"]
+__all__ = ["CheckpointManager", "restore_blocks", "restore_tree",
+           "save_tree"]

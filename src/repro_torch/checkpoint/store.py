@@ -17,7 +17,10 @@ of `repro/checkpoint/store.py`:
     synchronously or in one background thread (at most one in flight),
     and keeps the newest `keep` steps.
 
-`save_tree` and `restore_tree` take nested dicts as they are.
+`save_tree` and `restore_tree` take nested dicts as they are;
+`restore_blocks` restores a rank's blocks of each leaf (of a save
+sharded over any mesh, or whole) from the files that overlap them, never
+assembling the whole leaf.
 `CheckpointManager` stores the port's training state ({"params": state
 dict, "opt": {"mu", "nu", "step"}}) in JAX's layout: state-dict names
 become nested keys (`embed.table` -> `embed/table`) and a segment's
@@ -325,6 +328,71 @@ def restore_tree(path: os.PathLike, like):
         if jkey not in cache:
             cache[jkey] = _load(path, saved[jkey])
         t = cache[jkey] if i is None else cache[jkey][i].clone()
+        flat[key] = t.to(ref.device) if torch.is_tensor(ref) else t
+    return _unflatten_like(like, flat), index.get("aux", {})
+
+
+def _region(index, shape) -> list:
+    """An index's (start, stop) per dim of `shape`."""
+    return [(0 if sl.start is None else sl.start,
+             n if sl.stop is None else sl.stop)
+            for sl, n in zip(index, shape)]
+
+
+def _load_block(path: Path, meta, want) -> np.ndarray:
+    """The region `want` ((start, stop) per dim) of a saved leaf, read
+    from the files that overlap it only, one of each set of replicas
+    (memory-mapped: a whole leaf or a shard is never read whole for a
+    block of it)."""
+    out = np.empty(tuple(b - a for a, b in want),
+                   dtype=np.dtype("uint16" if meta["dtype"] == "bfloat16"
+                                  else meta["dtype"]))
+    parts = ([(meta["file"], [(0, n) for n in meta["shape"]])]
+             if not meta["sharded"] else
+             [(sh["file"], _region(_parse_index(sh["index"], meta["shape"]),
+                                   meta["shape"]))
+              for sh in meta["shards"]])
+    seen = set()
+    for fname, have in parts:
+        cut = [(max(a, c), min(b, d)) for (a, b), (c, d) in zip(want, have)]
+        if any(a >= b for a, b in cut) or tuple(have) in seen:
+            continue                     # no overlap, or a replica's
+        seen.add(tuple(have))
+        arr = np.load(path / fname, mmap_mode="r")
+        src = tuple(slice(a - c, b - c) for (a, b), (c, _) in zip(cut, have))
+        dst = tuple(slice(a - c, b - c) for (a, b), (c, _) in zip(cut, want))
+        out[dst] = arr[src]
+    return out
+
+
+def restore_blocks(path: os.PathLike, like, specs, mesh, coords=None):
+    """`restore_tree` of a rank's blocks only: each leaf of `like` the
+    block a rank at `coords` (default: the mesh's own) holds under its
+    spec in `specs` (a tree like `like`, each spec over the leaf's
+    global shape; None for a whole leaf), read from the files of the
+    saved leaf that overlap the block (its shards, in JAX's layout or
+    the port's; a state-dict name's layer of a stacked leaf). Returns
+    (tree, aux)."""
+    from repro_torch.launch.sharding import local_slice
+    path = Path(path)
+    index = json.loads((path / "index.json").read_text())
+    saved = index["leaves"]
+    flat_like, flat_specs = _flatten(like), _flatten(specs)
+    flat = {}
+    for key, ref in flat_like.items():
+        jkey, i = (key, None) if key in saved else _jax_key(key)
+        if jkey not in saved:
+            raise KeyError(f"checkpoint missing leaf {key}")
+        meta = saved[jkey]
+        shape = meta["shape"][1:] if i is not None else meta["shape"]
+        spec = flat_specs.get(key) or (None,) * len(shape)
+        want = _region(local_slice(spec, shape, mesh, coords), shape)
+        if i is not None:
+            want = [(i, i + 1)] + want
+        t = _from_saved(np.ascontiguousarray(_load_block(path, meta, want)),
+                        meta["dtype"])
+        if i is not None:
+            t = t[0]
         flat[key] = t.to(ref.device) if torch.is_tensor(ref) else t
     return _unflatten_like(like, flat), index.get("aux", {})
 

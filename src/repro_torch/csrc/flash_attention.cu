@@ -6,6 +6,13 @@
 // window W (causal only; 0 for none) also masks j <= i - W: the local
 // attention of `repro.models.attention._sdpa` (RecurrentGemma's layers).
 //
+// Query offset: q holds Sq rows and k, v hold Sk >= q_start + Sq keys; row
+// i of q sits at position q_start + i, so the masks above read q_start + i
+// for i (`_sdpa(q_start=..., kv_len=Sk)`): the sequence-sharded layout's
+// block of query rows against the gathered K/V. q_start and Sk are runtime
+// ints (no instance is added); with q_start = 0 and Sq == Sk the kernels
+// do the arithmetic they did before the offset came, bit for bit.
+//
 // Replaces the Pallas kernel `_kernel` of src/repro/kernels/flash_attention.py
 // (function `flash_attention`, reached through
 // `repro.kernels.ops.flash_attention`, which pads S to the block size). On
@@ -156,7 +163,7 @@ flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
                        float* __restrict__ lse, Strides qs, Strides ks,
-                       Strides vs, Strides os, int S,
+                       Strides vs, Strides os, int Sq, int Sk, int qoff,
                        int rep, int causal, int window, float scale) {
   constexpr int LD = D + 4;        // padded row of the Q and K/V tiles
   constexpr int LP = kBK + 4;      // padded row of the P tile
@@ -167,16 +174,16 @@ flash_attention_kernel(const float* __restrict__ q,
   float* Ps = KVs + kBK * LD;
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int qb = gridDim.x - 1 - blockIdx.x;
+  // the block's first row is row q0 of q, at position p0. Only p0 stays
+  // live through the key walk; the K/V and O bases are taken from the
+  // block's index where they are used (at D = 128 the 128 registers of
+  // two blocks an SM leave none to spare: the query offset's arithmetic
+  // spilled 36 B until then)
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int p0 = qoff + q0;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int g = h / rep;
-  const int q0 = qb * kBQ;
-  const float* qp = q + b * qs.b + h * qs.h;
-  const float* kp = k + b * ks.b + g * ks.h;
-  const float* vp = v + b * vs.b + g * vs.h;
-  float* op = o + b * os.b + h * os.h;
 
-  load_tile<D>(Qs, qp, qs.s, q0, S, scale);
+  load_tile<D>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, Sq, scale);
 
   float m[4], l[4], acc[4][4 * NJ];
 #pragma unroll
@@ -187,13 +194,15 @@ flash_attention_kernel(const float* __restrict__ q,
     for (int c = 0; c < 4 * NJ; ++c) acc[i][c] = 0.f;
   }
 
-  const int n_all = (S + kBK - 1) / kBK;
-  const int n_kb = causal ? min(n_all, (q0 + kBQ - 1) / kBK + 1) : n_all;
-  const int kb0 = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+  const int n_all = (Sk + kBK - 1) / kBK;
+  const int n_kb = causal ? min(n_all, (p0 + kBQ - 1) / kBK + 1) : n_all;
+  const int kb0 = window > 0 ? max(0, p0 - window + 1) / kBK : 0;
   for (int kb = kb0; kb < n_kb; ++kb) {
     const int k0 = kb * kBK;
     __syncthreads();               // Qs is written; KVs and Ps are free
-    load_tile<D>(KVs, kp, ks.s, k0, S, 1.f);
+    load_tile<D>(KVs, k + (long long)blockIdx.z * ks.b +
+                          (long long)(blockIdx.y / rep) * ks.h,
+                 ks.s, k0, Sk, 1.f);
     __syncthreads();
 
     // scores of rows 4 ty + i against keys tx + 16 j
@@ -202,7 +211,7 @@ flash_attention_kernel(const float* __restrict__ q,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
+#pragma unroll 2
     for (int d = 0; d < D; d += 4) {
       float4 qv[4], kv[4];
 #pragma unroll
@@ -227,12 +236,12 @@ flash_attention_kernel(const float* __restrict__ q,
     // mask, then the online softmax of each row across its 16 threads
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + 4 * ty + i;
+      const int qpos = p0 + 4 * ty + i;
       float mx = kNeg;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        if (kpos >= S || (causal && kpos > qpos)) s[i][j] = kNeg;
+        if (kpos >= Sk || (causal && kpos > qpos)) s[i][j] = kNeg;
         else if (window > 0 && kpos <= qpos - window)
           s[i][j] = -CUDART_INF_F;
         mx = fmaxf(mx, s[i][j]);
@@ -258,7 +267,9 @@ flash_attention_kernel(const float* __restrict__ q,
       for (int c = 0; c < 4 * NJ; ++c) acc[i][c] *= alpha;
     }
     __syncthreads();               // every read of the K tile is done
-    load_tile<D>(KVs, vp, vs.s, k0, S, 1.f);
+    load_tile<D>(KVs, v + (long long)blockIdx.z * vs.b +
+                          (long long)(blockIdx.y / rep) * vs.h,
+                 vs.s, k0, Sk, 1.f);
     __syncthreads();
 
     // acc += P V over the tile's 64 keys
@@ -282,13 +293,15 @@ flash_attention_kernel(const float* __restrict__ q,
     }
   }
 
+  float* op = o + (long long)blockIdx.z * os.b + (long long)blockIdx.y * os.h;
+  const int q0e = (gridDim.x - 1 - blockIdx.x) * kBQ;     // q0 again
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row >= S) continue;
+    const int row = q0e + 4 * ty + i;
+    if (row >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
     if (LSE && tx == 0)
-      lse[((long long)b * gridDim.y + h) * S + row] = m[i] + logf(den);
+      lse[((long long)b * gridDim.y + h) * Sq + row] = m[i] + logf(den);
     float* orow = op + (long long)row * os.s;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
@@ -316,8 +329,9 @@ struct Wg {                          // the tensor-core kernel's shape at D
   // slack
   static constexpr int kSmem =
       1024 + kQBytes + kStages * 2 * kTileBytes + 128;
-  // the first key of a block's last causal tile is at most its first row,
-  // so no warpgroup meets a tile wholly in its future
+  // without a query offset the first key of a block's last causal tile is
+  // at most its first row, so no warpgroup meets a tile wholly in its
+  // future (with one, such a tile's scores are all masked)
   static_assert(kBK % kBQ == 0, "key tiles must cover whole query blocks");
 };
 
@@ -360,25 +374,26 @@ __device__ __forceinline__ void start_pv(float (&acc)[D / 2],
 // the online softmax of one key tile on this thread's two rows (row0 and
 // row0 + 8, columns k0 + 8 i + col and the next one), across its quad:
 // masks the diagonal tile and the ragged tail to -1e30 and keys before a
-// row's window (window > 0) to -inf, updates the
+// row's window (window > 0) to -inf (row0 and wq0 are positions: the
+// query offset included), updates the
 // running max m (log2 units) and the denominator l (the fp32 sum of p),
 // returns each row's rescale alpha and leaves p = exp2(s * scale * log2 e
 // - m) in sc, in the accumulator's layout
 template <int BK>
 __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], int k0,
-                                             int row0, int col, int S,
+                                             int row0, int col, int Sk,
                                              int causal, int window, int wq0,
                                              float scale_log2, float (&m)[2],
                                              float (&l)[2],
                                              float (&alpha)[2]) {
-  if (k0 + BK > S || (causal && k0 + BK - 1 > wq0) ||
+  if (k0 + BK > Sk || (causal && k0 + BK - 1 > wq0) ||
       (window > 0 && k0 <= wq0 + 63 - window)) {
 #pragma unroll
     for (int i = 0; i < BK / 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int row = row0 + 8 * (e >> 1), key = k0 + 8 * i + col + (e & 1);
-        if (key >= S || (causal && key > row)) sc[4 * i + e] = kNeg;
+        if (key >= Sk || (causal && key > row)) sc[4 * i + e] = kNeg;
         else if (window > 0 && key <= row - window)
           sc[4 * i + e] = -CUDART_INF_F;
       }
@@ -424,9 +439,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                              const __grid_constant__ CUtensorMap kmap,
                              const __grid_constant__ CUtensorMap vmap,
                              __nv_bfloat16* __restrict__ o,
-                             float* __restrict__ lse, Strides os, int S,
-                             int rep, int causal, int window,
-                             float scale_log2) {
+                             float* __restrict__ lse, Strides os, int Sq,
+                             int Sk, int qoff, int rep, int causal,
+                             int window, float scale_log2) {
   using namespace hopper;
   using C = Wg<D>;
   constexpr int BQ = C::kBQ, BK = C::kBK, NS = C::kStages;
@@ -443,12 +458,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
   const int h = blockIdx.x, b = blockIdx.z, g = h / rep;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest first
-  const int n_all = (S + BK - 1) / BK;
+  const int p0 = qoff + q0;          // the position of the block's first row
+  const int n_all = (Sk + BK - 1) / BK;
   // key tiles kb0 .. kb0 + n_kb - 1: from the window of the block's first
   // row (0 without a window) to its diagonal (all when not causal)
-  const int kb0 = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  const int kb0 = window > 0 ? max(0, p0 - window + 1) / BK : 0;
   const int n_kb =
-      (causal ? min(n_all, (q0 + BQ - 1) / BK + 1) : n_all) - kb0;
+      (causal ? min(n_all, (p0 + BQ - 1) / BK + 1) : n_all) - kb0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -493,11 +509,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
   if constexpr (C::kWGs == 2) setmaxnreg_inc<kConsumerRegs>();
 
-  // a consumer warpgroup: query rows wq0 .. wq0 + 63
+  // a consumer warpgroup: query rows at positions wq0 .. wq0 + 63 (with
+  // an offset, a key tile may lie wholly in the first warpgroup's future:
+  // its scores are all masked, and p = 0 there)
   const int wg = warp / 4;
-  const int wq0 = q0 + 64 * wg;
+  const int wq0 = p0 + 64 * wg;
   const int r_in = 64 * wg + 16 * (warp % 4) + lane / 4;  // row in the block
   const int row0 = q0 + r_in;           // this thread's rows: row0, row0 + 8
+  const int prow = qoff + row0;         // and their positions
   const int col = 2 * (lane % 4);       // its first column of each 8
   const uint32_t q_addr = smem_addr(Qs) + 64 * wg * 128;
   const uint32_t kv_addr = smem_addr(KVs);
@@ -521,7 +540,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   fence_operands(sc);
   __syncwarp();
   if (lane == 0) mbar_arrive(&empty_k[0]);
-  softmax_tile<BK>(sc, kb0 * BK, row0, col, S, causal, window, wq0,
+  softmax_tile<BK>(sc, kb0 * BK, prow, col, Sk, causal, window, wq0,
                    scale_log2, m, l, alpha);
   split_p<BK>(sc, hi, lo);
 
@@ -544,8 +563,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     fence_operands(sc);
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty_k[t % NS]);
-    softmax_tile<BK>(sc, (kb0 + t) * BK, row0, col, S, causal, window, wq0,
-                     scale_log2, m, l, alpha);
+    softmax_tile<BK>(sc, (kb0 + t) * BK, prow, col, Sk, causal, window,
+                     wq0, scale_log2, m, l, alpha);
     wgmma_wait<0>();                   // P V of tile t - 1 is in
     fence_operands(acc);
     __syncwarp();
@@ -575,8 +594,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     den[r] = fmaxf(l[r], 1e-30f);
-    if (LSE && lane % 4 == 0 && row0 + 8 * r < S)
-      lse[((long long)b * gridDim.x + h) * S + row0 + 8 * r] =
+    if (LSE && lane % 4 == 0 && row0 + 8 * r < Sq)
+      lse[((long long)b * gridDim.x + h) * Sq + row0 + 8 * r] =
           m[r] * kLn2 + logf(den[r]);
   }
   // the rows go through this warpgroup's rows of the Q tile (its last
@@ -597,7 +616,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   __nv_bfloat16* op = o + b * os.b + h * os.h;
   for (int idx = threadIdx.x % 128; idx < 64 * kChunks; idx += 128) {
     const int R = 64 * wg + idx / kChunks, ch = idx % kChunks;
-    if (q0 + R < S)
+    if (q0 + R < Sq)
       *reinterpret_cast<uint4*>(op + (long long)(q0 + R) * os.s + 8 * ch) =
           *reinterpret_cast<const uint4*>(
               Qs + (ch / 8) * BQ * 128 + R * 128 + (((ch % 8) ^ (R % 8)) << 4));
@@ -606,52 +625,54 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
 template <int D, bool LSE>
 int launch_fma(const void* q, const void* k, const void* v, void* o,
-               float* lse, int B, int H, int KV, int S, int causal,
-               int window, float scale, Strides qs, Strides ks, Strides vs,
-               Strides os, cudaStream_t st) {
+               float* lse, int B, int H, int KV, int Sq, int Sk, int qoff,
+               int causal, int window, float scale, Strides qs, Strides ks,
+               Strides vs, Strides os, cudaStream_t st) {
   auto kernel = flash_attention_kernel<D, LSE>;
   constexpr int bytes = smem_bytes<D>();
   cudaError_t err = allow_smem<flash_attention_kernel<D, LSE>>(bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, bytes, st>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, qs,
-      ks, vs, os, S, H / KV, causal, window, scale);
+      ks, vs, os, Sq, Sk, qoff, H / KV, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D, bool LSE>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                 float* lse, int B, int H, int KV, int S, int causal,
-                 int window, float scale, Strides qs, Strides ks, Strides vs,
-                 Strides os, cudaStream_t st) {
+                 float* lse, int B, int H, int KV, int Sq, int Sk, int qoff,
+                 int causal, int window, float scale, Strides qs, Strides ks,
+                 Strides vs, Strides os, cudaStream_t st) {
   using C = Wg<D>;
   CUtensorMap qm, km, vm;
-  int err = make_map(&qm, q, D, S, H, B, qs, C::kBQ);
-  if (!err) err = make_map(&km, k, D, S, KV, B, ks, C::kBK);
-  if (!err) err = make_map(&vm, v, D, S, KV, B, vs, C::kBK);
+  int err = make_map(&qm, q, D, Sq, H, B, qs, C::kBQ);
+  if (!err) err = make_map(&km, k, D, Sk, KV, B, ks, C::kBK);
+  if (!err) err = make_map(&vm, v, D, Sk, KV, B, vs, C::kBK);
   if (err) return err;
   auto kernel = flash_attention_wgmma_kernel<D, LSE>;
   err = (int)allow_smem<flash_attention_wgmma_kernel<D, LSE>>(C::kSmem);
   if (err) return err;
-  dim3 grid(H, (S + C::kBQ - 1) / C::kBQ, B);
+  dim3 grid(H, (Sq + C::kBQ - 1) / C::kBQ, B);
   kernel<<<grid, C::kThreads, C::kSmem, st>>>(
-      qm, km, vm, (__nv_bfloat16*)o, lse, os, S, H / KV, causal, window,
-      (float)(scale * 1.4426950408889634));
+      qm, km, vm, (__nv_bfloat16*)o, lse, os, Sq, Sk, qoff, H / KV, causal,
+      window, (float)(scale * 1.4426950408889634));
   return (int)cudaGetLastError();
 }
 
 // bf16 -> the tensor-core kernel, fp32 -> the FMA kernel, at head dim D
 template <bool LSE>
 int launch_d(int bf16, const void* q, const void* k, const void* v, void* o,
-             float* lse, int B, int H, int KV, int S, int D, int causal,
-             int window, float scale, Strides qs, Strides ks, Strides vs,
-             Strides os, cudaStream_t st) {
+             float* lse, int B, int H, int KV, int Sq, int Sk, int qoff,
+             int D, int causal, int window, float scale, Strides qs,
+             Strides ks, Strides vs, Strides os, cudaStream_t st) {
 #define FLASH_LAUNCH(DIM)                                                    \
-  return bf16 ? launch_wgmma<DIM, LSE>(q, k, v, o, lse, B, H, KV, S, causal, \
-                                       window, scale, qs, ks, vs, os, st)    \
-              : launch_fma<DIM, LSE>(q, k, v, o, lse, B, H, KV, S, causal,   \
-                                     window, scale, qs, ks, vs, os, st)
+  return bf16 ? launch_wgmma<DIM, LSE>(q, k, v, o, lse, B, H, KV, Sq, Sk,    \
+                                       qoff, causal, window, scale, qs, ks,  \
+                                       vs, os, st)                           \
+              : launch_fma<DIM, LSE>(q, k, v, o, lse, B, H, KV, Sq, Sk,      \
+                                     qoff, causal, window, scale, qs, ks,    \
+                                     vs, os, st)
   switch (D) {
     case 64: FLASH_LAUNCH(64);
     case 128: FLASH_LAUNCH(128);
@@ -664,35 +685,38 @@ int launch_d(int bf16, const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// q, o: (B, H, S, D); k, v: (B, KV, S, D); fp32 (bf16 == 0, the FMA
-// kernel) or bf16 (bf16 == 1, the tensor-core kernel); D in {64, 128,
-// 192, 256}; H % KV == 0; each tensor's batch, head and sequence strides in
-// elements, its last axis dense; for bf16 every base 16-byte aligned and
-// every stride of an axis longer than 1 a multiple of 8. lse: null (the
-// forward alone, kernel 4) or a dense fp32 (B, H, S) array for the rows'
-// logsumexp (kernel 5). window: the sliding window W >= 1 (causal only)
-// or 0 for none. Launches on `stream` and returns a cudaError_t
-// (cudaErrorInvalidValue for a head dimension it has no instance for, or a
-// window without causal).
+// q, o: (B, H, Sq, D); k, v: (B, KV, Sk, D), q's row i at position
+// q_start + i, with q_start >= 0 and q_start + Sq <= Sk; fp32 (bf16 == 0,
+// the FMA kernel) or bf16 (bf16 == 1, the tensor-core kernel); D in {64,
+// 128, 192, 256}; H % KV == 0; each tensor's batch, head and sequence
+// strides in elements, its last axis dense; for bf16 every base 16-byte
+// aligned and every stride of an axis longer than 1 a multiple of 8. lse:
+// null (the forward alone, kernel 4) or a dense fp32 (B, H, Sq) array for
+// the rows' logsumexp (kernel 5). window: the sliding window W >= 1
+// (causal only) or 0 for none. Launches on `stream` and returns a
+// cudaError_t (cudaErrorInvalidValue for a head dimension it has no
+// instance for, a window without causal, or an offset or lengths out of
+// range).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, void* lse,
-    int bf16, int B, int H, int KV, int S, int D, int causal, int window,
-    float scale,
+    int bf16, int B, int H, int KV, int Sq, int Sk, int q_start, int D,
+    int causal, int window, float scale,
     long long q_sb,
     long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss, void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0) return (int)cudaSuccess;
-  if (KV <= 0 || H % KV != 0 || window < 0 || (window > 0 && !causal))
+  if (KV <= 0 || H % KV != 0 || window < 0 || (window > 0 && !causal) ||
+      q_start < 0 || Sq < 0 || (long long)q_start + Sq > Sk)
     return (int)cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || Sq <= 0) return (int)cudaSuccess;
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   cudaStream_t st = (cudaStream_t)stream;
   float* l = (float*)lse;
-  return l ? launch_d<true>(bf16, q, k, v, o, l, B, H, KV, S, D, causal,
-                            window, scale, qs, ks, vs, os, st)
-           : launch_d<false>(bf16, q, k, v, o, l, B, H, KV, S, D, causal,
-                             window, scale, qs, ks, vs, os, st);
+  return l ? launch_d<true>(bf16, q, k, v, o, l, B, H, KV, Sq, Sk, q_start,
+                            D, causal, window, scale, qs, ks, vs, os, st)
+           : launch_d<false>(bf16, q, k, v, o, l, B, H, KV, Sq, Sk, q_start,
+                             D, causal, window, scale, qs, ks, vs, os, st);
 }
 
 // dynamic shared memory of one block of the kernel for (bf16, D), in bytes

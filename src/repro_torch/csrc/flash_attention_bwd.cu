@@ -10,6 +10,12 @@
 // walks start at the first key tile in their window, and the tiles on the
 // window's edge set p = 0 there.
 //
+// Query offset (the forward's, flash_attention.cu): q, dO, dQ hold Sq rows
+// at positions q_start .. q_start + Sq - 1 and k, v, dK, dV hold Sk keys.
+// The dK/dV walks cover every key tile and start at the first query tile
+// whose diagonal reaches it (a key tile no query sees is written as
+// zeros); the dQ walks stop at the diagonal of their rows' positions.
+//
 // Replaces the two Pallas kernels of `flash_attention_bwd` in
 // src/repro/kernels/flash_attention.py: `_bwd_dkv_kernel` (dK and dV, one
 // kv block across the q blocks) and `_bwd_dq_kernel` (dQ, one q block
@@ -216,18 +222,21 @@ __device__ __forceinline__ void acc_product(float (&acc)[4][D / 16],
 }
 
 // p[i][j] = exp(s[i][j] - lse of row i), or 0 where the pair is masked:
-// query or key at or past S, (causal) the key after the query, or (window
-// > 0) the key before the query's window
+// query past the last (position q_end) or key at or past Sk, (causal) the
+// key after the query, or (window > 0) the key before the query's window;
+// p0 is the position of the tile's first query row
 __device__ __forceinline__ void probs(float (&s)[4][4], const float* L,
-                                      int q0, int k0, int S, int causal,
-                                      int window, int tx, int ty) {
+                                      int p0, int k0, int q_end, int Sk,
+                                      int causal, int window, int tx,
+                                      int ty) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + 4 * ty + i;
+    const int qpos = p0 + 4 * ty + i;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int kpos = k0 + tx + 16 * j;
-      const bool live = qpos < S && kpos < S && (!causal || kpos <= qpos) &&
+      const bool live = qpos < q_end && kpos < Sk &&
+                        (!causal || kpos <= qpos) &&
                         (window <= 0 || kpos > qpos - window);
       s[i][j] = live ? expf(s[i][j] - L[i]) : 0.f;
     }
@@ -249,8 +258,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, Strides qs, Strides ks,
-                     Strides vs, Strides dos, int S, int rep, int causal,
-                     int window, float scale) {
+                     Strides vs, Strides dos, int Sq, int Sk, int qoff,
+                     int rep, int causal, int window, float scale) {
   constexpr int LD = D + 4;
   constexpr int NJ = D / 64;
   extern __shared__ float4 smem4[];
@@ -270,10 +279,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* dop = dout + b * dos.b + h * dos.h;
   const T* kp = k + b * ks.b + g * ks.h;
   const T* vp = v + b * vs.b + g * vs.h;
-  const long long row0 = ((long long)b * H + h) * S;
+  const long long row0 = ((long long)b * H + h) * Sq;   // lse, delta
+  const long long out0 = ((long long)b * H + h) * Sk;   // dk, dv
 
-  load_tile<T, D>(Ks, kp, ks.s, k0, S, 1.f);
-  load_tile<T, D>(Vs, vp, vs.s, k0, S, 1.f);
+  load_tile<T, D>(Ks, kp, ks.s, k0, Sk, 1.f);
+  load_tile<T, D>(Vs, vp, vs.s, k0, Sk, 1.f);
 
   float dka[4][4 * NJ], dva[4][4 * NJ];
 #pragma unroll
@@ -281,17 +291,18 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < 4 * NJ; ++c) dka[i][c] = dva[i][c] = 0.f;
 
-  const int nq = (S + kB - 1) / kB;
+  const int nq = (Sq + kB - 1) / kB;
   // the q tiles that see the key tile: from its diagonal (all when not
-  // causal) to the last row of its keys' window
-  const int nq_end = window > 0 ? min(nq, (k0 + kB + window - 2) / kB + 1)
+  // causal) to the last row of its keys' window (none: its keys get zeros)
+  const int last = k0 + kB + window - 2 - qoff;  // that row, with a window
+  const int nq_end = window > 0 ? (last < 0 ? 0 : min(nq, last / kB + 1))
                                 : nq;
-  for (int qb = causal ? kb : 0; qb < nq_end; ++qb) {
+  for (int qb = causal ? max(0, k0 - qoff) / kB : 0; qb < nq_end; ++qb) {
     const int q0 = qb * kB;
     __syncthreads();               // the last tile's reads are done
-    load_tile<T, D>(Xs, qp, qs.s, q0, S, scale);
+    load_tile<T, D>(Xs, qp, qs.s, q0, Sq, scale);
     for (int i = threadIdx.x; i < kB; i += kThreads) {
-      const bool in = q0 + i < S;
+      const bool in = q0 + i < Sq;
       Lrow[i] = in ? lse[row0 + q0 + i] : 0.f;
       Drow[i] = in ? delta[row0 + q0 + i] : 0.f;
     }
@@ -301,9 +312,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     row_dots<D>(p, Xs, Ks, tx, ty);
 #pragma unroll
     for (int i = 0; i < 4; ++i) L[i] = Lrow[4 * ty + i];
-    probs(p, L, q0, k0, S, causal, window, tx, ty);
+    probs(p, L, qoff + q0, k0, qoff + Sq, Sk, causal, window, tx, ty);
     __syncthreads();               // every read of q_hat is done
-    load_tile<T, D>(Xs, dop, dos.s, q0, S, 1.f);
+    load_tile<T, D>(Xs, dop, dos.s, q0, Sq, 1.f);
     put_tile(Ps, p, tx, ty);
     __syncthreads();
 
@@ -318,7 +329,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();               // every read of p and dO is done
     put_tile(Ps, p, tx, ty);
-    load_tile<T, D>(Xs, qp, qs.s, q0, S, scale);
+    load_tile<T, D>(Xs, qp, qs.s, q0, Sq, scale);
     __syncthreads();
     acc_product<D, true>(dka, Ps, Xs, tx, ty);       // dK += ds^T q_hat
   }
@@ -326,9 +337,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = k0 + 4 * ty + i;
-    if (row >= S) continue;
-    float* krow = dk + (row0 + row) * D;
-    float* vrow = dv + (row0 + row) * D;
+    if (row >= Sk) continue;
+    float* krow = dk + (out0 + row) * D;
+    float* vrow = dv + (out0 + row) * D;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = 4 * tx + 64 * j;
@@ -349,8 +360,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     Strides qs, Strides ks, Strides vs, Strides dos,
-                    Strides dqs, int S, int rep, int causal, int window,
-                    float scale) {
+                    Strides dqs, int Sq, int Sk, int qoff, int rep,
+                    int causal, int window, float scale) {
   constexpr int LD = D + 4;
   constexpr int NJ = D / 64;
   extern __shared__ float4 smem4[];
@@ -366,16 +377,17 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = qb * kB;
   const T* kp = k + b * ks.b + g * ks.h;
   const T* vp = v + b * vs.b + g * vs.h;
-  const long long row0 = ((long long)b * H + h) * S;
+  const long long row0 = ((long long)b * H + h) * Sq;
+  const int p0 = qoff + q0;        // the position of the block's first row
 
-  load_tile<T, D>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, S, scale);
-  load_tile<T, D>(DOs, dout + b * dos.b + h * dos.h, dos.s, q0, S, 1.f);
+  load_tile<T, D>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, Sq, scale);
+  load_tile<T, D>(DOs, dout + b * dos.b + h * dos.h, dos.s, q0, Sq, 1.f);
   float L[4], Dl[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
-    L[i] = row < S ? lse[row0 + row] : 0.f;
-    Dl[i] = row < S ? delta[row0 + row] : 0.f;
+    L[i] = row < Sq ? lse[row0 + row] : 0.f;
+    Dl[i] = row < Sq ? delta[row0 + row] : 0.f;
   }
 
   float acc[4][4 * NJ];
@@ -384,22 +396,22 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < 4 * NJ; ++c) acc[i][c] = 0.f;
 
-  const int n_all = (S + kB - 1) / kB;
-  const int n_kb = causal ? min(n_all, qb + 1) : n_all;
-  const int kb0 = window > 0 ? max(0, q0 - window + 1) / kB : 0;
+  const int n_all = (Sk + kB - 1) / kB;
+  const int n_kb = causal ? min(n_all, (p0 + kB - 1) / kB + 1) : n_all;
+  const int kb0 = window > 0 ? max(0, p0 - window + 1) / kB : 0;
   for (int kb = kb0; kb < n_kb; ++kb) {
     const int k0 = kb * kB;
     __syncthreads();               // Qs, DOs written; the last K read done
-    load_tile<T, D>(Xs, vp, vs.s, k0, S, 1.f);
+    load_tile<T, D>(Xs, vp, vs.s, k0, Sk, 1.f);
     __syncthreads();
     float dpv[4][4];
     row_dots<D>(dpv, DOs, Xs, tx, ty);               // dP = dO V^T
     __syncthreads();               // every read of V is done
-    load_tile<T, D>(Xs, kp, ks.s, k0, S, 1.f);
+    load_tile<T, D>(Xs, kp, ks.s, k0, Sk, 1.f);
     __syncthreads();
     float p[4][4];
     row_dots<D>(p, Qs, Xs, tx, ty);                  // s = q_hat K^T
-    probs(p, L, q0, k0, S, causal, window, tx, ty);
+    probs(p, L, p0, k0, qoff + Sq, Sk, causal, window, tx, ty);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -413,7 +425,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
     T* out = dqp + (long long)row * dqs.s;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
@@ -426,36 +438,37 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, float* dk, float* dv,
-               int B, int H, int KV, int S, int causal, int window,
-               float scale, Strides qs, Strides ks, Strides vs, Strides dos,
-               cudaStream_t st) {
+               int B, int H, int KV, int Sq, int Sk, int qoff, int causal,
+               int window, float scale, Strides qs, Strides ks, Strides vs,
+               Strides dos, cudaStream_t st) {
   auto kernel = flash_bwd_dkv_kernel<T, D>;
   constexpr int bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + kB - 1) / kB, H, B);
+  dim3 grid((Sk + kB - 1) / kB, H, B);
   kernel<<<grid, kThreads, bytes, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, dk,
-      dv, qs, ks, vs, dos, S, H / KV, causal, window, scale);
+      dv, qs, ks, vs, dos, Sq, Sk, qoff, H / KV, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int B, int H,
-              int KV, int S, int causal, int window, float scale, Strides qs,
-              Strides ks, Strides vs, Strides dos, Strides dqs,
-              cudaStream_t st) {
+              int KV, int Sq, int Sk, int qoff, int causal, int window,
+              float scale, Strides qs, Strides ks, Strides vs, Strides dos,
+              Strides dqs, cudaStream_t st) {
   auto kernel = flash_bwd_dq_kernel<T, D>;
   constexpr int bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + kB - 1) / kB, H, B);
+  dim3 grid((Sq + kB - 1) / kB, H, B);
   kernel<<<grid, kThreads, bytes, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dq, qs, ks, vs, dos, dqs, S, H / KV, causal, window, scale);
+      (T*)dq, qs, ks, vs, dos, dqs, Sq, Sk, qoff, H / KV, causal, window,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -503,21 +516,23 @@ struct Dq {                          // the dQ tensor-core kernel's shape
   // Q, dO, the ring of K and V tiles, 9 mbarriers, 1,024 bytes of slack
   static constexpr int kSmem =
       1024 + 2 * kQBytes + kStages * 2 * kTileBytes + 128;
-  // a key tile is never wholly in a warpgroup's causal future
+  // without a query offset no key tile is wholly in a warpgroup's causal
+  // future (with one, such a tile's pairs are all masked)
   static_assert(kBK % kBQ == 0, "key tiles must cover whole query blocks");
 };
 
 // one consumer warpgroup of the dK/dV kernel: keys wk0 .. wk0 + 63 against
 // each of the block's n_it (Q, dO) tiles (head it / nt, q tile t0 + it %
-// nt); DV / DK: which of the two accumulators it holds; window: the
-// sliding window (0 for none). Writes its rows of the chunk's fp32
-// partials (dK scaled).
+// nt, its rows at positions qoff + ..); DV / DK: which of the two
+// accumulators it holds; window: the sliding window (0 for none). Writes
+// its rows of the chunk's fp32 partials (dK scaled; zeros for keys no
+// query sees).
 template <int D, bool DV, bool DK>
 __device__ __forceinline__ void dkv_consumer(
     const uint8_t* ring, const float* rows, uint64_t* full, uint64_t* empty,
     uint32_t k_addr, uint32_t v_addr, float* __restrict__ dk,
-    float* __restrict__ dv, int wk0, int t0, int nt, int n_it, int S,
-    int causal, int window, float scale, float scale_log2) {
+    float* __restrict__ dv, int wk0, int t0, int nt, int n_it, int Sk,
+    int qoff, int causal, int window, float scale, float scale_log2) {
   using namespace hopper;
   using C = Dkv<D>;
   constexpr int NS = C::kStages, BQ = C::kBQ;
@@ -534,11 +549,11 @@ __device__ __forceinline__ void dkv_consumer(
 
   for (int it = 0; it < n_it; ++it) {
     const int s = it % NS;
-    const int q0 = (t0 + it % nt) * BQ;
+    const int q0 = (t0 + it % nt) * BQ + qoff;  // its first row's position
     mbar_wait(&full[s], (it / NS) & 1);
     // the tile is skipped when its queries see none of the keys: all
     // in their future, or (window) all before their windows
-    if (wk0 < S && !(causal && wk0 > q0 + BQ - 1) &&
+    if (wk0 < Sk && !(causal && wk0 > q0 + BQ - 1) &&
         !(window > 0 && wk0 + 63 <= q0 - window)) {
       const uint32_t q_addr = smem_addr(ring + s * 2 * C::kTileBytes);
       const uint32_t do_addr = q_addr + C::kTileBytes;
@@ -620,7 +635,7 @@ __device__ __forceinline__ void dkv_consumer(
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = wk0 + r_in + 8 * r;
-    if (row >= S) continue;
+    if (row >= Sk) continue;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
       if constexpr (DV)
@@ -634,7 +649,7 @@ __device__ __forceinline__ void dkv_consumer(
   }
 }
 
-// dK and dV partials, dk / dv fp32 (B, KV, chunks, S, D): grid (KV *
+// dK and dV partials, dk / dv fp32 (B, KV, chunks, Sk, D): grid (KV *
 // chunks, key tiles, B)
 template <int D>
 __global__ void __launch_bounds__(Dkv<D>::kThreads, 1)
@@ -645,8 +660,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
                            float* __restrict__ dk, float* __restrict__ dv,
-                           int S, int H, int rep, int chunks, int causal,
-                           int window, float scale, float scale_log2) {
+                           int Sq, int Sk, int qoff, int H, int rep,
+                           int chunks, int causal, int window, float scale,
+                           float scale_log2) {
   using namespace hopper;
   using C = Dkv<D>;
   constexpr int NS = C::kStages, BQ = C::kBQ;
@@ -665,12 +681,14 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int k0 = blockIdx.y * C::kKeys;   // the longest walks (k0 = 0) first
   const int per = rep / chunks;            // the chunk's query heads
   const int h0 = g * rep + chunk * per;
-  const int nq = (S + BQ - 1) / BQ;
-  const int t0 = causal ? k0 / BQ : 0;     // the first q tile seeing a key
+  const int nq = (Sq + BQ - 1) / BQ;
+  // the first q tile seeing a key
+  const int t0 = causal ? max(0, k0 - qoff) / BQ : 0;
   // one past the last: the tile of the last row in the last key's window
+  const int last = k0 + C::kKeys + window - 2 - qoff;
   const int t_end =
-      window > 0 ? min(nq, (k0 + C::kKeys + window - 2) / BQ + 1) : nq;
-  const int nt = t_end - t0, n_it = per * nt;
+      window > 0 ? (last < 0 ? 0 : min(nq, last / BQ + 1)) : nq;
+  const int nt = max(0, t_end - t0), n_it = per * nt;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -709,10 +727,10 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       for (int it = 0; it < n_it; ++it) {
         const int s = it % NS, h = h0 + it / nt, q0 = (t0 + it % nt) * BQ;
         float* r = rows + s * 2 * BQ;
-        const long long at = ((long long)b * H + h) * S;
+        const long long at = ((long long)b * H + h) * Sq;
         if (it >= NS) mbar_wait(&empty[s], (it / NS - 1) & 1);
         for (int i = lane; i < BQ; i += 32) {
-          const bool in = q0 + i < S;
+          const bool in = q0 + i < Sq;
           r[i] = in ? lse[at + q0 + i] * kLog2e : CUDART_INF_F;
           r[BQ + i] = in ? delta[at + q0 + i] : 0.f;
         }
@@ -728,21 +746,23 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const uint32_t k_addr = smem_addr(Ks) + off * 128;
   const uint32_t v_addr = smem_addr(Vs) + off * 128;
   const long long out0 =
-      (((long long)b * KV + g) * chunks + chunk) * S * D;
+      (((long long)b * KV + g) * chunks + chunk) * Sk * D;
   mbar_wait(kvbar, 0);
   if constexpr (C::kSplit) {
     if (wg == 0)
       dkv_consumer<D, true, false>(ring, rows, full, empty, k_addr, v_addr,
-                                   dk + out0, dv + out0, k0, t0, nt, n_it, S,
-                                   causal, window, scale, scale_log2);
+                                   dk + out0, dv + out0, k0, t0, nt, n_it,
+                                   Sk, qoff, causal, window, scale,
+                                   scale_log2);
     else
       dkv_consumer<D, false, true>(ring, rows, full, empty, k_addr, v_addr,
-                                   dk + out0, dv + out0, k0, t0, nt, n_it, S,
-                                   causal, window, scale, scale_log2);
+                                   dk + out0, dv + out0, k0, t0, nt, n_it,
+                                   Sk, qoff, causal, window, scale,
+                                   scale_log2);
   } else {
     dkv_consumer<D, true, true>(ring, rows, full, empty, k_addr, v_addr,
                                 dk + out0, dv + out0, k0 + off, t0, nt, n_it,
-                                S, causal, window, scale, scale_log2);
+                                Sk, qoff, causal, window, scale, scale_log2);
   }
 }
 
@@ -755,9 +775,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap domap,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          __nv_bfloat16* __restrict__ dq, Strides dqs, int S,
-                          int rep, int causal, int window, float scale,
-                          float scale_log2) {
+                          __nv_bfloat16* __restrict__ dq, Strides dqs,
+                          int Sq, int Sk, int qoff, int rep, int causal,
+                          int window, float scale, float scale_log2) {
   using namespace hopper;
   using C = Dq<D>;
   constexpr int BQ = C::kBQ, BK = C::kBK, NS = C::kStages;
@@ -774,12 +794,13 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
   const int h = blockIdx.x, b = blockIdx.z, g = h / rep, H = gridDim.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest first
-  const int n_all = (S + BK - 1) / BK;
+  const int p0 = qoff + q0;          // the position of the block's first row
+  const int n_all = (Sk + BK - 1) / BK;
   // key tiles kb0 .. kb0 + n_kb - 1: from the window of the block's first
   // row (0 without a window) to its diagonal (all when not causal)
-  const int kb0 = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  const int kb0 = window > 0 ? max(0, p0 - window + 1) / BK : 0;
   const int n_kb =
-      (causal ? min(n_all, (q0 + BQ - 1) / BK + 1) : n_all) - kb0;
+      (causal ? min(n_all, (p0 + BQ - 1) / BK + 1) : n_all) - kb0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -825,22 +846,24 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
   if constexpr (C::kWGs == 2) setmaxnreg_inc<kConsumerRegs>();
 
-  // a consumer warpgroup: query rows wq0 .. wq0 + 63
+  // a consumer warpgroup: query rows at positions wq0 .. wq0 + 63 (with
+  // an offset, a key tile may lie wholly in the first warpgroup's future:
+  // every pair of it is masked, p = 0)
   const int wg = warp / 4;
-  const int wq0 = q0 + 64 * wg;
+  const int wq0 = p0 + 64 * wg;
   const int r_in = 64 * wg + 16 * (warp % 4) + lane / 4;  // row in the block
-  const int row0 = q0 + r_in;           // this thread's rows: row0, row0 + 8
+  const int row0 = p0 + r_in;  // this thread's rows' positions: row0, + 8
   const int col = 2 * (lane % 4);       // its first column of each 8
   const uint32_t q_addr = smem_addr(Qs) + 64 * wg * 128;
   const uint32_t do_addr = smem_addr(DOs) + 64 * wg * 128;
   const uint32_t kv_addr = smem_addr(KVs);
-  float l2[2], dl[2];                    // lse * log2 e (+inf past S), delta
+  float l2[2], dl[2];                    // lse * log2 e (+inf past Sq), delta
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    const long long at = ((long long)b * H + h) * S + row;
-    l2[r] = row < S ? lse[at] * kLog2e : CUDART_INF_F;
-    dl[r] = row < S ? delta[at] : 0.f;
+    const int row = q0 + r_in + 8 * r;
+    const long long at = ((long long)b * H + h) * Sq + row;
+    l2[r] = row < Sq ? lse[at] * kLog2e : CUDART_INF_F;
+    dl[r] = row < Sq ? delta[at] : 0.f;
   }
   float dqa[D / 2];
 #pragma unroll
@@ -874,7 +897,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i)
       sc[i] = exp2f(fmaf(sc[i], scale_log2, -l2[(i >> 1) & 1]));
-    if (k0 + BK > S || (causal && k0 + BK - 1 > wq0) ||
+    if (k0 + BK > Sk || (causal && k0 + BK - 1 > wq0) ||
         (window > 0 && k0 <= wq0 + 63 - window)) {
       const unsigned span = window > 0 ? (unsigned)window : 0x7fffffffu;
       const int d0 = row0 - k0 - col;
@@ -884,7 +907,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         for (int e = 0; e < 4; ++e) {
           const int key = k0 + 8 * i + col + (e & 1);
           const int d = d0 + 8 * (e >> 1) - 8 * i - (e & 1);
-          if (key >= S || (causal && (unsigned)d >= span)) sc[4 * i + e] = 0.f;
+          if (key >= Sk || (causal && (unsigned)d >= span)) sc[4 * i + e] = 0.f;
         }
     }
     wgmma_wait<0>();                   // dP is in: the V tile is free
@@ -925,7 +948,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   __nv_bfloat16* dqp = dq + b * dqs.b + h * dqs.h;
   for (int idx = threadIdx.x % 128; idx < 64 * kChunks; idx += 128) {
     const int R = 64 * wg + idx / kChunks, ch = idx % kChunks;
-    if (q0 + R < S)
+    if (q0 + R < Sq)
       *reinterpret_cast<uint4*>(dqp + (long long)(q0 + R) * dqs.s + 8 * ch) =
           *reinterpret_cast<const uint4*>(
               Qs + (ch / 8) * BQ * 128 + R * 128 + (((ch % 8) ^ (R % 8)) << 4));
@@ -948,82 +971,87 @@ int dkv_chunks(int bf16, int B, int H, int KV, int S, int D) {
 template <int D>
 int launch_dkv_wgmma(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
-                     float* dk, float* dv, int B, int H, int KV, int S,
-                     int causal, int window, int chunks, float scale,
-                     Strides qs, Strides ks, Strides vs, Strides dos,
-                     cudaStream_t st) {
+                     float* dk, float* dv, int B, int H, int KV, int Sq,
+                     int Sk, int qoff, int causal, int window, int chunks,
+                     float scale, Strides qs, Strides ks, Strides vs,
+                     Strides dos, cudaStream_t st) {
   using C = Dkv<D>;
   CUtensorMap qm, km, vm, dm;
-  int err = make_map(&qm, q, D, S, H, B, qs, C::kBQ);
-  if (!err) err = make_map(&km, k, D, S, KV, B, ks, C::kKeys);
-  if (!err) err = make_map(&vm, v, D, S, KV, B, vs, C::kKeys);
-  if (!err) err = make_map(&dm, dout, D, S, H, B, dos, C::kBQ);
+  int err = make_map(&qm, q, D, Sq, H, B, qs, C::kBQ);
+  if (!err) err = make_map(&km, k, D, Sk, KV, B, ks, C::kKeys);
+  if (!err) err = make_map(&vm, v, D, Sk, KV, B, vs, C::kKeys);
+  if (!err) err = make_map(&dm, dout, D, Sq, H, B, dos, C::kBQ);
   if (err) return err;
   err = (int)allow_smem<flash_bwd_dkv_wgmma_kernel<D>>(C::kSmem);
   if (err) return err;
-  dim3 grid(KV * chunks, (S + C::kKeys - 1) / C::kKeys, B);
+  dim3 grid(KV * chunks, (Sk + C::kKeys - 1) / C::kKeys, B);
   flash_bwd_dkv_wgmma_kernel<D><<<grid, C::kThreads, C::kSmem, st>>>(
-      qm, km, vm, dm, lse, delta, dk, dv, S, H, H / KV, chunks, causal,
-      window, scale, scale * kLog2e);
+      qm, km, vm, dm, lse, delta, dk, dv, Sq, Sk, qoff, H, H / KV, chunks,
+      causal, window, scale, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_dq_wgmma(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,
-                    void* dq, int B, int H, int KV, int S, int causal,
-                    int window, float scale, Strides qs, Strides ks,
-                    Strides vs, Strides dos, Strides dqs, cudaStream_t st) {
+                    void* dq, int B, int H, int KV, int Sq, int Sk, int qoff,
+                    int causal, int window, float scale, Strides qs,
+                    Strides ks, Strides vs, Strides dos, Strides dqs,
+                    cudaStream_t st) {
   using C = Dq<D>;
   CUtensorMap qm, km, vm, dm;
-  int err = make_map(&qm, q, D, S, H, B, qs, C::kBQ);
-  if (!err) err = make_map(&km, k, D, S, KV, B, ks, C::kBK);
-  if (!err) err = make_map(&vm, v, D, S, KV, B, vs, C::kBK);
-  if (!err) err = make_map(&dm, dout, D, S, H, B, dos, C::kBQ);
+  int err = make_map(&qm, q, D, Sq, H, B, qs, C::kBQ);
+  if (!err) err = make_map(&km, k, D, Sk, KV, B, ks, C::kBK);
+  if (!err) err = make_map(&vm, v, D, Sk, KV, B, vs, C::kBK);
+  if (!err) err = make_map(&dm, dout, D, Sq, H, B, dos, C::kBQ);
   if (err) return err;
   err = (int)allow_smem<flash_bwd_dq_wgmma_kernel<D>>(C::kSmem);
   if (err) return err;
-  dim3 grid(H, (S + C::kBQ - 1) / C::kBQ, B);
+  dim3 grid(H, (Sq + C::kBQ - 1) / C::kBQ, B);
   flash_bwd_dq_wgmma_kernel<D><<<grid, C::kThreads, C::kSmem, st>>>(
-      qm, km, vm, dm, lse, delta, (__nv_bfloat16*)dq, dqs, S, H / KV, causal,
-      window, scale, scale * kLog2e);
+      qm, km, vm, dm, lse, delta, (__nv_bfloat16*)dq, dqs, Sq, Sk, qoff,
+      H / KV, causal, window, scale, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Both entries: q, dout (B, H, S, D) and k, v (B, KV, S, D), fp32 (bf16 ==
+// Both entries: q, dout (B, H, Sq, D) and k, v (B, KV, Sk, D), q's row i
+// at position q_start + i (q_start >= 0, q_start + Sq <= Sk), fp32 (bf16 ==
 // 0, the FMA kernels) or bf16 (bf16 == 1, the tensor-core kernels), each
 // with its batch, head and sequence strides in elements and a dense last
 // axis (for bf16 every base 16-byte aligned and every stride of an axis
-// longer than 1 a multiple of 8); lse and delta dense fp32 (B, H, S); D in
+// longer than 1 a multiple of 8); lse and delta dense fp32 (B, H, Sq); D in
 // {64, 128, 192, 256}; H % KV == 0; window the sliding window W >= 1 (causal
 // only) or 0 for none. Each launches on `stream` and returns a cudaError_t
 // (cudaErrorInvalidValue for a head dimension or chunk count it has no
-// instance for, or a window without causal).
+// instance for, a window without causal, or an offset or lengths out of
+// range).
 
-// the chunk count the dK/dV entry wants for these shapes
+// the chunk count the dK/dV entry wants for these shapes (S: the keys, Sk)
 extern "C" int flash_bwd_dkv_chunks(int bf16, int B, int H, int KV, int S,
                                     int D) {
   if (KV <= 0 || H % KV != 0) return 0;
   return dkv_chunks(bf16, B, H, KV, S, D);
 }
 
-// dK and dV as fp32 partials dk, dv, dense (B, KV, chunks, S, D), chunk c
+// dK and dV as fp32 partials dk, dv, dense (B, KV, chunks, Sk, D), chunk c
 // summing query heads c * H / (KV chunks) and on of each group; `chunks`
 // is flash_bwd_dkv_chunks' count.
 extern "C" int flash_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int bf16, int B,
-    int H, int KV, int S, int D, int causal, int window, int chunks,
-    float scale,
+    int H, int KV, int Sq, int Sk, int q_start, int D, int causal,
+    int window, int chunks, float scale,
     long long q_sb, long long q_sh, long long q_ss, long long k_sb,
     long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long d_sb, long long d_sh, long long d_ss,
     void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0) return (int)cudaSuccess;
-  if (KV <= 0 || H % KV != 0 || chunks != dkv_chunks(bf16, B, H, KV, S, D) ||
-      window < 0 || (window > 0 && !causal))
+  if (KV <= 0 || H % KV != 0 || window < 0 || (window > 0 && !causal) ||
+      q_start < 0 || Sq < 0 || (long long)q_start + Sq > Sk)
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || Sq <= 0) return (int)cudaSuccess;
+  if (chunks != dkv_chunks(bf16, B, H, KV, Sk, D))
     return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss}, dos{d_sb, d_sh, d_ss};
@@ -1034,11 +1062,11 @@ extern "C" int flash_bwd_dkv_launch(
   float* dvf = (float*)dv;
 #define DKV_LAUNCH(DIM)                                                      \
   return bf16 ? launch_dkv_wgmma<DIM>(q, k, v, dout, l, dl, dkf, dvf, B, H,  \
-                                      KV, S, causal, window, chunks, scale,  \
-                                      qs, ks, vs, dos, st)                   \
+                                      KV, Sq, Sk, q_start, causal, window,   \
+                                      chunks, scale, qs, ks, vs, dos, st)    \
               : launch_dkv<float, DIM>(q, k, v, dout, l, dl, dkf, dvf, B, H, \
-                                       KV, S, causal, window, scale, qs, ks, \
-                                       vs, dos, st)
+                                       KV, Sq, Sk, q_start, causal, window,  \
+                                       scale, qs, ks, vs, dos, st)
   switch (D) {
     case 64: DKV_LAUNCH(64);
     case 128: DKV_LAUNCH(128);
@@ -1049,31 +1077,33 @@ extern "C" int flash_bwd_dkv_launch(
 #undef DKV_LAUNCH
 }
 
-// dQ: dq (B, H, S, D) in the input type, with its own strides.
+// dQ: dq (B, H, Sq, D) in the input type, with its own strides.
 extern "C" int flash_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int bf16, int B, int H,
-    int KV, int S, int D, int causal, int window, float scale,
+    int KV, int Sq, int Sk, int q_start, int D, int causal, int window,
+    float scale,
     long long q_sb,
     long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss,
     long long d_sb, long long d_sh, long long d_ss, long long o_sb,
     long long o_sh, long long o_ss, void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0) return (int)cudaSuccess;
-  if (KV <= 0 || H % KV != 0 || window < 0 || (window > 0 && !causal))
+  if (KV <= 0 || H % KV != 0 || window < 0 || (window > 0 && !causal) ||
+      q_start < 0 || Sq < 0 || (long long)q_start + Sq > Sk)
     return (int)cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || Sq <= 0) return (int)cudaSuccess;
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss}, dos{d_sb, d_sh, d_ss}, dqs{o_sb, o_sh, o_ss};
   cudaStream_t st = (cudaStream_t)stream;
   const float* l = (const float*)lse;
   const float* dl = (const float*)delta;
 #define DQ_LAUNCH(DIM)                                                       \
-  return bf16 ? launch_dq_wgmma<DIM>(q, k, v, dout, l, dl, dq, B, H, KV, S,  \
-                                     causal, window, scale, qs, ks, vs, dos, \
-                                     dqs, st)                                \
-              : launch_dq<float, DIM>(q, k, v, dout, l, dl, dq, B, H, KV, S, \
-                                      causal, window, scale, qs, ks, vs, dos,\
-                                      dqs, st)
+  return bf16 ? launch_dq_wgmma<DIM>(q, k, v, dout, l, dl, dq, B, H, KV, Sq, \
+                                     Sk, q_start, causal, window, scale, qs, \
+                                     ks, vs, dos, dqs, st)                   \
+              : launch_dq<float, DIM>(q, k, v, dout, l, dl, dq, B, H, KV, Sq,\
+                                      Sk, q_start, causal, window, scale, qs,\
+                                      ks, vs, dos, dqs, st)
   switch (D) {
     case 64: DQ_LAUNCH(64);
     case 128: DQ_LAUNCH(128);

@@ -149,6 +149,56 @@ class Mesh:
         from repro_torch.distributed import mesh as pg
         return pg.all_to_all_ad(x, self.group(axes))
 
+    # the model axis's region functions (`distributed.mesh`): each the
+    # identity over axes of size 1
+    def copy_to(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """Megatron's f: x, its gradient summed over `axes`."""
+        if self.axis_size(axes) == 1:
+            return x
+        from repro_torch.distributed import mesh as pg
+        return pg.copy_to_ad(x, self.group(axes))
+
+    def reduce_from(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """Megatron's g: x summed over `axes`, its gradient passed."""
+        if self.axis_size(axes) == 1:
+            return x
+        from repro_torch.distributed import mesh as pg
+        return pg.reduce_from_ad(x, self.group(axes))
+
+    def split(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """This rank's block of x along `dim` (`index(axes)`), the
+        gradient's blocks gathered."""
+        if self.axis_size(axes) == 1:
+            return x
+        from repro_torch.distributed import mesh as pg
+        return pg.split_ad(x, self.group(axes), dim)
+
+    def gather_from(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """The members' x concatenated along `dim`, the gradient's block
+        of this rank kept."""
+        if self.axis_size(axes) == 1:
+            return x
+        from repro_torch.distributed import mesh as pg
+        return pg.gather_from_ad(x, self.group(axes), dim)
+
+    def reduce_scatter(self, x: torch.Tensor, axes, dim: int
+                       ) -> torch.Tensor:
+        """The members' x summed, this rank's block along `dim`; the
+        gradient's blocks gathered."""
+        if self.axis_size(axes) == 1:
+            return x
+        from repro_torch.distributed import mesh as pg
+        return pg.reduce_scatter_ad(x, self.group(axes), dim)
+
+    def pmax(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """The elementwise max over `axes`, without a gradient."""
+        if self.axis_size(axes) == 1:
+            return x
+        y = x.detach().contiguous().clone()
+        torch.distributed.all_reduce(y, torch.distributed.ReduceOp.MAX,
+                                     group=self.group(axes))
+        return y
+
     def pmean(self, x: torch.Tensor, axes) -> torch.Tensor:
         """The mean of a scalar over `axes`: every member's value
         gathered and summed in member order, so that every rank (and a

@@ -22,8 +22,9 @@ itself). A collective that fails raises; nothing is retried another
 way.
 
 The distribution slice's collectives (`all_reduce_ad`, `all_gather_ad`,
-`all_to_all_ad`, and `all_reduce_buckets` / `all_gather_blocks` for the
-training step) use only the tensor forms: `all_reduce`,
+`all_to_all_ad`, the model axis's region functions below, and
+`all_reduce_buckets` / `all_gather_blocks` for the training step) use
+only the tensor forms: `all_reduce`,
 `all_gather_into_tensor`, `reduce_scatter_tensor` and
 `all_to_all_single`. On the card machine's torch 2.11 gloo takes all
 four on CUDA tensors, in fp32 and bf16, and refuses the list form of
@@ -36,9 +37,23 @@ H100's host). The `_ad` functions are autograd-aware: the backward of
 an all_reduce is an all_reduce, of an all_gather a reduce-scatter (a
 sum over the members, each keeping its block), of an all_to_all the
 reverse all_to_all.
+
+The model axis (Megatron's tensor parallelism) takes the region
+functions in pairs, each the other's transpose: `copy_to_ad` (f:
+identity forward, sum backward) at a column-parallel input and
+`reduce_from_ad` (g: sum forward, identity backward) at a row-parallel
+output; `split_ad` (a member's block forward, the blocks gathered
+backward) where a replicated value enters a sharded region and
+`gather_from_ad` (gathered forward, the member's block backward) where
+it leaves; `reduce_scatter_ad` (summed and cut forward, gathered
+backward) where a row-parallel output enters a sequence-sharded
+residual. A replicated value's gradient is whole on every member, so
+`all_reduce_ad` (a sum both ways, psum's transpose under `shard_map`)
+would count it once a member there.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import time
@@ -52,12 +67,65 @@ from repro_torch.device import resolve
 __all__ = ["world", "rank_device", "init_from_env", "init_for_tests",
            "spawn", "stage_groups", "all_gather", "broadcast",
            "all_reduce_ad", "all_gather_ad", "all_to_all_ad",
+           "copy_to_ad", "reduce_from_ad", "split_ad", "gather_from_ad",
+           "reduce_scatter_ad",
            "all_reduce_buckets", "all_gather_blocks"]
 
 # the groups every rank has built, keyed by their ranks: new_group is a
 # collective of the whole world, so each group is built once, by every
 # rank, in the same order
 _GROUPS: Dict[Tuple[int, ...], object] = {}
+# the model's collectives while `tally` is open: {op: [calls, bytes, ms
+# or the CUDA event pairs to read]}
+_TALLY: Optional[dict] = None
+
+
+@contextlib.contextmanager
+def tally():
+    """Count the model's collectives (the autograd functions below and
+    `all_gather`) while open: yields {op: [calls, bytes a rank put in,
+    ms]}, the ms from CUDA events around each call on the card (read
+    when the block closes, after a synchronize), the host's clock on the
+    CPU. Every collective of this module is counted by the innermost
+    tally open, once: the training step opens its own around its
+    gradient all-reduce and parameter all-gather (`train_step.wire`)."""
+    global _TALLY
+    prev, _TALLY = _TALLY, {}
+    out = {}
+    try:
+        yield out
+    finally:
+        got, _TALLY = _TALLY, prev
+        for op, (n, b, spans) in got.items():
+            ms = 0.0
+            for sp in spans:
+                if isinstance(sp, tuple):
+                    sp[1].synchronize()
+                    ms += sp[0].elapsed_time(sp[1])
+                else:
+                    ms += sp
+            out[op] = [n, b, ms]
+
+
+def _wire(op: str, t: torch.Tensor, fn) -> None:
+    """Run the collective `fn` on `t`, counted when `tally` is open."""
+    if _TALLY is None:
+        fn()
+        return
+    rec = _TALLY.setdefault(op, [0, 0, []])
+    rec[0] += 1
+    rec[1] += t.numel() * t.element_size()
+    if t.is_cuda:
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        fn()
+        ev[1].record()
+        rec[2].append(ev)
+    else:
+        t0 = time.perf_counter()
+        fn()
+        rec[2].append(1e3 * (time.perf_counter() - t0))
 
 
 def world() -> Tuple[int, int]:
@@ -190,7 +258,8 @@ def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty((m * x.shape[0],) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, x, group=group)
+    _wire("all_gather", x, lambda: dist.all_gather_into_tensor(
+        out, x, group=group))
     return out
 
 
@@ -220,13 +289,13 @@ class _AllReduce(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         y = x.contiguous().clone()
-        dist.all_reduce(y, group=group)
+        _wire("all_reduce", y, lambda: dist.all_reduce(y, group=group))
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        _wire("all_reduce", g, lambda: dist.all_reduce(g, group=ctx.group))
         return g, None
 
 
@@ -242,7 +311,8 @@ class _AllGather(torch.autograd.Function):
         g = g.movedim(ctx.dim, 0).contiguous()
         m = dist.get_world_size(ctx.group)
         out = g.new_empty((g.shape[0] // m,) + tuple(g.shape[1:]))
-        dist.reduce_scatter_tensor(out, g, group=ctx.group)
+        _wire("reduce_scatter", g, lambda: dist.reduce_scatter_tensor(
+            out, g, group=ctx.group))
         return out.movedim(0, ctx.dim), None, None
 
 
@@ -252,15 +322,133 @@ class _AllToAll(torch.autograd.Function):
         ctx.group = group
         x = x.contiguous()
         y = torch.empty_like(x)
-        dist.all_to_all_single(y, x, group=group)
+        _wire("all_to_all", x, lambda: dist.all_to_all_single(
+            y, x, group=group))
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous()
         out = torch.empty_like(g)
-        dist.all_to_all_single(out, g, group=ctx.group)
+        _wire("all_to_all", g, lambda: dist.all_to_all_single(
+            out, g, group=ctx.group))
         return out, None
+
+
+class _CopyTo(torch.autograd.Function):
+    """Megatron's f: identity forward, sum over the group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        _wire("all_reduce", g, lambda: dist.all_reduce(g, group=ctx.group))
+        return g, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Megatron's g: sum over the group forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        _wire("all_reduce", y, lambda: dist.all_reduce(y, group=group))
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _block(x, group, dim):
+    m = dist.get_world_size(group)
+    k = dist.get_rank(group)
+    n = x.shape[dim] // m
+    return x.narrow(dim, k * n, n)
+
+
+class _Split(torch.autograd.Function):
+    """This member's block along `dim` forward, the blocks gathered
+    backward: a replicated value entering a sharded region."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _block(x, group, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        y = all_gather(g.movedim(ctx.dim, 0), ctx.group)
+        return y.movedim(0, ctx.dim), None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    """The blocks gathered along `dim` forward, this member's block of
+    the gradient backward: a sharded value leaving for a replicated
+    region (whose gradient every member holds whole)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x.movedim(dim, 0), group).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.group, ctx.dim).contiguous(), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """The members' x summed, each keeping its block along `dim`,
+    forward; the blocks gathered backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        g = x.movedim(dim, 0).contiguous()
+        m = dist.get_world_size(group)
+        out = g.new_empty((g.shape[0] // m,) + tuple(g.shape[1:]))
+        _wire("reduce_scatter", g, lambda: dist.reduce_scatter_tensor(
+            out, g, group=group))
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        y = all_gather(g.movedim(ctx.dim, 0), ctx.group)
+        return y.movedim(0, ctx.dim), None, None
+
+
+def copy_to_ad(x: torch.Tensor, group) -> torch.Tensor:
+    """x unchanged; its gradient summed over the group (Megatron's f,
+    at a column-parallel input)."""
+    return _CopyTo.apply(x, group)
+
+
+def reduce_from_ad(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every member's x; its gradient passed through
+    (Megatron's g, at a row-parallel output)."""
+    return _ReduceFrom.apply(x, group)
+
+
+def split_ad(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This member's block of x along `dim` (blocks in group rank
+    order); the backward gathers the gradient's blocks."""
+    return _Split.apply(x, group, dim)
+
+
+def gather_from_ad(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every member's x concatenated along `dim`; the backward keeps
+    this member's block of the gradient (`split_ad`'s inverse)."""
+    return _GatherFrom.apply(x, group, dim)
+
+
+def reduce_scatter_ad(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The sum of every member's x, this member's block along `dim`;
+    the backward gathers the gradient's blocks."""
+    return _ReduceScatter.apply(x, group, dim)
 
 
 def all_reduce_ad(x: torch.Tensor, group) -> torch.Tensor:
@@ -308,7 +496,7 @@ def all_reduce_buckets(tensors: Sequence[torch.Tensor], group,
     sent = 0
     for run in _buckets(tensors, bucket_bytes):
         flat = torch.cat([tensors[i].reshape(-1) for i in run])
-        dist.all_reduce(flat, group=group)
+        _wire("all_reduce", flat, lambda: dist.all_reduce(flat, group=group))
         o = 0
         for i in run:
             t = tensors[i]

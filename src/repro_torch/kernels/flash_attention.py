@@ -3,19 +3,22 @@
 the three entries of `repro/kernels/flash_attention.py` (with the
 any-length interface of `repro.kernels.ops.flash_attention`):
 
-  * `flash_attention(q, k, v, causal, window)` -> o, the forward (Pallas
-    `_kernel`; the prefill's attention);
-  * `flash_fwd_lse(q, k, v, causal, window)` -> (o, lse), the same forward
-    with each row's logsumexp (Pallas `_kernel_lse`, JAX's
+  * `flash_attention(q, k, v, causal, window, q_start)` -> o, the forward
+    (Pallas `_kernel`; the prefill's attention);
+  * `flash_fwd_lse(q, k, v, causal, window, q_start)` -> (o, lse), the same
+    forward with each row's logsumexp (Pallas `_kernel_lse`, JAX's
     `_flash_fwd_lse`);
-  * `flash_attention_bwd(q, k, v, o, lse, do, causal, window)` -> (dq, dk,
-    dv), two kernels as in JAX (`_bwd_dkv_kernel`, `_bwd_dq_kernel`);
-  * `flash_attention_trainable(q, k, v, causal, window)`, the differentiable
+  * `flash_attention_bwd(q, k, v, o, lse, do, causal, window, q_start)` ->
+    (dq, dk, dv), two kernels as in JAX (`_bwd_dkv_kernel`,
+    `_bwd_dq_kernel`);
+  * `flash_attention_trainable(q, k, v, causal, window, q_start)`, the
+    differentiable
     attention of the training path: a `torch.autograd.Function` whose
     forward is `flash_fwd_lse` and whose backward is
     `flash_attention_bwd`, saving (q, k, v, o, lse) as JAX's `_fat_fwd`.
 
-q is (B, H, S, D); k and v are (B, KV, S, D) with H % KV == 0, query
+q is (B, H, S, D); k and v are (B, KV, S, D) with H % KV == 0 (Sq and
+Sk rows with an offset, below), query
 head h reading KV head h // (H / KV) — the grouping of
 `repro.models.attention._sdpa`, so the model's narrow K/V go in without
 being repeated; KV == H is the TPU kernels' function. dK and dV come back
@@ -35,6 +38,20 @@ the first key tile in their window, the dK/dV walks stop at the last
 query tile that sees their keys, and the tiles on the window's edge mask
 the keys before it. The TPU kernels take no window; JAX's local
 attention runs in XLA (`attend`), and the port runs it on these kernels.
+
+`q_start` (an int >= 0; 0 by default) is the query offset of the
+sequence-sharded layout (`repro.models.attention._shardmap_seq_attention`):
+q holds Sq rows at positions q_start .. q_start + Sq - 1 and k, v hold Sk
+>= q_start + Sq keys, q (B, H, Sq, D) against k, v (B, KV, Sk, D); the
+masks read each row's position (`_sdpa(q_start=..., kv_len=Sk)`). Like
+the window it reaches the kernels as a runtime int with Sq and Sk, so it
+adds no instance: the forward's and dQ's walks stop at the key tile of
+their last row's position, the dK/dV walks cover every key tile from the
+first query tile whose diagonal reaches it (zeros for a key tile no query
+sees). lse is (B, H, Sq), dK and dV (B, KV, Sk, D). With q_start = 0 and
+Sq == Sk the kernels give the bits they gave before the offset. An
+offset or lengths the kernels cannot take raise ValueError, on the CPU
+as on the card.
 
 The forward has one kernel per input type. fp32 runs every operation in
 fp32 FMAs on the CUDA cores (the TPU kernel's contract; TF32 would break
@@ -85,19 +102,19 @@ def _on_cpu(name, *tensors) -> bool:
     return False
 
 
-def _check(name, q, k, v):
+def _check(name, q, k, v, q_start=0):
     """Validate the forward's interface for a kernel launch; returns
-    (B, H, KV, S, D)."""
+    (B, H, KV, Sq, D) (Sk is k's length)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"{name}: want q (B, H, S, D) and k, v "
-                         f"(B, KV, S, D), got {tuple(q.shape)}, "
+        raise ValueError(f"{name}: want q (B, H, Sq, D) and k, v "
+                         f"(B, KV, Sk, D), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, H, S, D = q.shape
-    KV = k.shape[1]
-    if (k.shape[0], k.shape[2], k.shape[3]) != (B, S, D) or KV == 0 \
-            or H % KV:
+    KV, Sk = k.shape[1], k.shape[2]
+    if (k.shape[0], k.shape[3]) != (B, D) or KV == 0 or H % KV:
         raise ValueError(f"{name}: k/v {tuple(k.shape)} do not fit q "
                          f"{tuple(q.shape)} (H % KV must be 0)")
+    _offset(name, q_start, S, Sk)
     if q.dtype not in (torch.float32, torch.bfloat16) \
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name} takes fp32 or bf16 q, k, v of one dtype, "
@@ -111,6 +128,17 @@ def _check(name, q, k, v):
         raise ValueError(f"{name}: the head dim must be dense (stride 1) in "
                          f"q, k and v")
     return B, H, KV, S, D
+
+
+def _offset(name, q_start, Sq: int, Sk: int) -> int:
+    """The kernels' q_start: an int >= 0 with q_start + Sq <= Sk (Sq ==
+    Sk when it is 0 and the keys are the queries'), or ValueError."""
+    if isinstance(q_start, bool) or not isinstance(q_start, int) \
+            or q_start < 0 or q_start + Sq > Sk:
+        raise ValueError(f"{name}: q_start must be an int >= 0 with q_start "
+                         f"+ Sq <= Sk, got q_start={q_start!r}, Sq={Sq}, "
+                         f"Sk={Sk}")
+    return q_start
 
 
 def _strides(*tensors):
@@ -147,8 +175,9 @@ def _window(name, causal, window) -> int:
     return window
 
 
-def _forward(name, q, k, v, causal, window, lse):
-    B, H, KV, S, D = _check(name, q, k, v)
+def _forward(name, q, k, v, causal, window, lse, q_start=0):
+    B, H, KV, S, D = _check(name, q, k, v, q_start)
+    Sk = k.shape[2]
     out = torch.empty_like(q)
     if out.stride(3) != 1:
         raise ValueError(f"{name}: the head dim must be dense in q")
@@ -158,64 +187,70 @@ def _forward(name, q, k, v, causal, window, lse):
         err = _build.load("flash_attention", "flash_attention_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            int(q.dtype == torch.bfloat16), B, H, KV, S, D, int(causal),
-            window, D ** -0.5, *_strides(q, k, v, out), _stream(q))
+            int(q.dtype == torch.bfloat16), B, H, KV, S, Sk, q_start, D,
+            int(causal), window, D ** -0.5, *_strides(q, k, v, out),
+            _stream(q))
         _build.check(err, name)
     return out
 
 
-def flash_attention(q, k, v, causal: bool = True, window=None):
+def flash_attention(q, k, v, causal: bool = True, window=None,
+                    q_start: int = 0):
     """Attention with an online fp32 softmax, over the keys of each
-    query's `window` when one is given; returns (B, H, S, D) in q's
-    dtype. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (fp32 or bf16, D in HEAD_DIMS) or raise."""
+    query's `window` when one is given, q's rows at positions q_start..
+    against k, v's Sk keys; returns (B, H, Sq, D) in q's dtype. CPU
+    tensors take the plain version; CUDA tensors launch the kernel (fp32
+    or bf16, D in HEAD_DIMS) or raise."""
     w = _window("flash_attention", causal, window)
+    _offset("flash_attention", q_start, q.shape[2], k.shape[2])
     if _on_cpu("flash_attention", q, k, v):
-        return flash_attention_ref(q, k, v, causal, window)
-    out = _forward("flash_attention", q, k, v, causal, w, None)
+        return flash_attention_ref(q, k, v, causal, window, q_start)
+    out = _forward("flash_attention", q, k, v, causal, w, None, q_start)
     if q.shape[2]:
         flash_attention.launches += 1
     return out
 
 
-def flash_fwd_lse(q, k, v, causal: bool = True, window=None):
+def flash_fwd_lse(q, k, v, causal: bool = True, window=None,
+                  q_start: int = 0):
     """`flash_attention` plus each row's logsumexp: returns (o in q's
-    dtype (B, H, S, D), lse dense fp32 (B, H, S)). CPU tensors take the
+    dtype (B, H, Sq, D), lse dense fp32 (B, H, Sq)). CPU tensors take the
     plain version; CUDA tensors launch the kernel or raise."""
     w = _window("flash_fwd_lse", causal, window)
+    _offset("flash_fwd_lse", q_start, q.shape[2], k.shape[2])
     if _on_cpu("flash_fwd_lse", q, k, v):
-        return flash_fwd_lse_ref(q, k, v, causal, window)
+        return flash_fwd_lse_ref(q, k, v, causal, window, q_start)
     B, H, S = q.shape[:3]
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    out = _forward("flash_fwd_lse", q, k, v, causal, w, lse)
+    out = _forward("flash_fwd_lse", q, k, v, causal, w, lse, q_start)
     if S:
         flash_fwd_lse.launches += 1
     return out, lse
 
 
-def _bwd_dkv(q, k, v, do, lse, delta, causal, window=0):
-    """dK and dV as dense fp32 partials (B, KV, chunks, S, D), chunk c
+def _bwd_dkv(q, k, v, do, lse, delta, causal, window=0, q_start=0):
+    """dK and dV as dense fp32 partials (B, KV, chunks, Sk, D), chunk c
     summing its share of each group's query heads (the first of the
     backward's two kernels); the caller sums the chunks."""
     B, H, S, D = q.shape
-    KV = k.shape[1]
+    KV, Sk = k.shape[1], k.shape[2]
     bf16 = int(q.dtype == torch.bfloat16)
     chunks = _build.load("flash_attention_bwd", "flash_bwd_dkv_chunks")(
-        bf16, B, H, KV, S, D)
-    dk = torch.empty((B, KV, chunks, S, D), dtype=torch.float32,
+        bf16, B, H, KV, Sk, D)
+    dk = torch.empty((B, KV, chunks, Sk, D), dtype=torch.float32,
                      device=q.device)
     dv = torch.empty_like(dk)
     err = _build.load("flash_attention_bwd", "flash_bwd_dkv_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        bf16, B, H, KV, S, D, int(causal), window, chunks, D ** -0.5,
-        *_strides(q, k, v, do), _stream(q))
+        bf16, B, H, KV, S, Sk, q_start, D, int(causal), window, chunks,
+        D ** -0.5, *_strides(q, k, v, do), _stream(q))
     _build.check(err, "flash_bwd_dkv")
     _bwd_dkv.launches += 1
     return dk, dv
 
 
-def _bwd_dq(q, k, v, do, lse, delta, causal, window=0):
+def _bwd_dq(q, k, v, do, lse, delta, causal, window=0, q_start=0):
     """dQ in q's dtype and strides (the second of the backward's two
     kernels)."""
     B, H, S, D = q.shape
@@ -228,26 +263,29 @@ def _bwd_dq(q, k, v, do, lse, delta, causal, window=0):
     err = _build.load("flash_attention_bwd", "flash_bwd_dq_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        int(q.dtype == torch.bfloat16), B, H, k.shape[1], S, D, int(causal),
-        window, D ** -0.5, *_strides(q, k, v, do, dq), _stream(q))
+        int(q.dtype == torch.bfloat16), B, H, k.shape[1], S, k.shape[2],
+        q_start, D, int(causal), window, D ** -0.5,
+        *_strides(q, k, v, do, dq), _stream(q))
     _build.check(err, "flash_bwd_dq")
     _bwd_dq.launches += 1
     return dq
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
-                        window=None):
+                        window=None, q_start: int = 0):
     """The flash backward: (dq, dk, dv) in the dtypes of q, k and v, from
-    the forward's o and lse and the output gradient do (B, H, S, D).
+    the forward's o and lse and the output gradient do (B, H, Sq, D).
     delta = rowsum(do * o) in fp32 is a torch op, as JAX computes it
     outside its kernels; dK/dV are the first kernel's fp32 partials
     summed over the chunks in order (deterministic, no float atomics).
     CPU tensors take the plain version; CUDA tensors launch both kernels
     or raise."""
     w = _window("flash_attention_bwd", causal, window)
+    _offset("flash_attention_bwd", q_start, q.shape[2], k.shape[2])
     if _on_cpu("flash_attention_bwd", q, k, v, o, lse, do):
-        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal, window)
-    B, H, KV, S, D = _check("flash_attention_bwd", q, k, v)
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal, window,
+                                       q_start)
+    B, H, KV, S, D = _check("flash_attention_bwd", q, k, v, q_start)
     if o.shape != q.shape or do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"flash_attention_bwd: o and do must be q's shape "
                          f"{tuple(q.shape)} and do q's dtype, got "
@@ -265,17 +303,17 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     if S == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     delta = (do.float() * o.float()).sum(dim=-1).contiguous()
-    dk, dv = _bwd_dkv(q, k, v, do, lse, delta, causal, w)
-    dq = _bwd_dq(q, k, v, do, lse, delta, causal, w)
+    dk, dv = _bwd_dkv(q, k, v, do, lse, delta, causal, w, q_start)
+    dq = _bwd_dq(q, k, v, do, lse, delta, causal, w, q_start)
     return dq, dk.sum(dim=2).to(k.dtype), dv.sum(dim=2).to(v.dtype)
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        o, lse = flash_fwd_lse(q, k, v, causal, window)
+    def forward(ctx, q, k, v, causal, window, q_start):
+        o, lse = flash_fwd_lse(q, k, v, causal, window, q_start)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.q_start = causal, window, q_start
         return o
 
     @staticmethod
@@ -284,16 +322,18 @@ class _FlashAttention(torch.autograd.Function):
         if do.stride(3) != 1:
             do = do.contiguous()
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal,
-                                         ctx.window)
-        return dq, dk, dv, None, None
+                                         ctx.window, ctx.q_start)
+        return dq, dk, dv, None, None, None
 
 
-def flash_attention_trainable(q, k, v, causal: bool = True, window=None):
+def flash_attention_trainable(q, k, v, causal: bool = True, window=None,
+                              q_start: int = 0):
     """Differentiable flash attention: `flash_fwd_lse` forward,
     `flash_attention_bwd` backward (both kernels on the card, both plain
-    versions on the CPU). Returns o (B, H, S, D) in q's dtype."""
+    versions on the CPU). Returns o (B, H, Sq, D) in q's dtype."""
     _window("flash_attention_trainable", causal, window)
-    return _FlashAttention.apply(q, k, v, causal, window)
+    _offset("flash_attention_trainable", q_start, q.shape[2], k.shape[2])
+    return _FlashAttention.apply(q, k, v, causal, window, q_start)
 
 
 flash_attention.launches = 0

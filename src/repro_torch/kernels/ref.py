@@ -92,42 +92,49 @@ def spike_matmul_ref(counts, weights, max_elems: int = 1 << 24):
     return out.reshape(counts.shape[:-1] + (npost,))
 
 
-def flash_attention_ref(q, k, v, causal: bool = True, window=None):
-    """Attention with an fp32 softmax. q (B, H, S, D); k, v (B, KV, S, D)
-    with H % KV == 0, query head h reading KV head h // (H // KV) (the
+def flash_attention_ref(q, k, v, causal: bool = True, window=None,
+                        q_start: int = 0):
+    """Attention with an fp32 softmax. q (B, H, Sq, D); k, v (B, KV, Sk,
+    D) with H % KV == 0, query head h reading KV head h // (H // KV) (the
     grouping of `repro.models.attention._sdpa`; KV == H is the TPU
     kernel's contract). q is scaled by D**-0.5 before q.k^T and masked
-    scores are -1e30; with a `window`, query i sees keys i - window < j
-    <= i, `_sdpa`'s mask. Returns (B, H, S, D) in q's dtype."""
+    scores are -1e30; query row i sits at position q_start + i (q_start +
+    Sq <= Sk) and, when causal, sees keys j <= q_start + i, with a
+    `window` also j > q_start + i - window: `_sdpa(q_start=..., kv_len=Sk)`'s
+    mask. Returns (B, H, Sq, D) in q's dtype."""
     B, H, S, D = q.shape
-    p = torch.softmax(_scores(q, k, causal, window), dim=-1)
+    p = torch.softmax(_scores(q, k, causal, window, q_start), dim=-1)
     o = torch.einsum("bgrqk,bgkd->bgrqd", p, v.float())
     return o.reshape(B, H, S, D).to(q.dtype)
 
 
-def _scores(q, k, causal: bool, window=None):
-    """fp32 scores (B, KV, H // KV, S, S) of q scaled by D**-0.5 against
-    k, masked to -1e30 past the diagonal when causal and, with a window,
-    at keys j <= i - window."""
+def _scores(q, k, causal: bool, window=None, q_start: int = 0):
+    """fp32 scores (B, KV, H // KV, Sq, Sk) of q scaled by D**-0.5 against
+    k, masked to -1e30 past each row's position q_start + i when causal
+    and, with a window, at keys j <= q_start + i - window."""
     B, H, S, D = q.shape
     KV = k.shape[1]
     qg = q.reshape(B, KV, H // KV, S, D).float() * D ** -0.5
     s = torch.einsum("bgrqd,bgkd->bgrqk", qg, k.float())
     if causal:
-        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        pos = q_start + torch.arange(S, device=q.device)[:, None]
+        key = torch.arange(k.shape[2], device=q.device)[None, :]
+        mask = key <= pos
         if window is not None:
-            mask = mask.triu(1 - window)
+            mask &= key > pos - window
         s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
     return s
 
 
-def flash_fwd_lse_ref(q, k, v, causal: bool = True, window=None):
+def flash_fwd_lse_ref(q, k, v, causal: bool = True, window=None,
+                      q_start: int = 0):
     """`flash_attention_ref` plus each row's logsumexp: returns (o in q's
-    dtype (B, H, S, D), lse fp32 (B, H, S)), lse = m + log(max(l, 1e-30))
-    with m the row's max scaled score and l its sum of exp(s - m), as the
-    TPU kernel's `_kernel_lse` finishes (JAX keeps lse as (B*H, S))."""
+    dtype (B, H, Sq, D), lse fp32 (B, H, Sq)), lse = m + log(max(l,
+    1e-30)) with m the row's max scaled score and l its sum of exp(s -
+    m), as the TPU kernel's `_kernel_lse` finishes (JAX keeps lse as
+    (B*H, S))."""
     B, H, S, D = q.shape
-    s = _scores(q, k, causal, window)
+    s = _scores(q, k, causal, window, q_start)
     m = s.amax(dim=-1)
     l = torch.exp(s - m[..., None]).sum(dim=-1)
     lse = m + torch.log(l.clamp(min=1e-30))
@@ -137,17 +144,18 @@ def flash_fwd_lse_ref(q, k, v, causal: bool = True, window=None):
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
-                            window=None):
+                            window=None, q_start: int = 0):
     """The flash backward by its explicit formula (not autograd): p from
     the lse rows, delta = rowsum(dO * O), ds = p * (dO V^T - delta),
     dV = p^T dO, dK = ds^T q_hat with q_hat = q * D**-0.5, dQ = D**-0.5 *
-    ds K, all in fp32. q, o, do (B, H, S, D); k, v (B, KV, S, D); lse
-    (B, H, S). dK and dV sum each KV head's H // KV query heads. Returns
-    (dq, dk, dv) in the dtypes of q, k and v."""
+    ds K, all in fp32. q, o, do (B, H, Sq, D); k, v (B, KV, Sk, D); lse
+    (B, H, Sq); the rows at positions q_start.. as `flash_attention_ref`.
+    dK and dV sum each KV head's H // KV query heads (zeros for keys no
+    query sees). Returns (dq, dk, dv) in the dtypes of q, k and v."""
     B, H, S, D = q.shape
     KV = k.shape[1]
     shape = (B, KV, H // KV, S)
-    s = _scores(q, k, causal, window)
+    s = _scores(q, k, causal, window, q_start)
     p = torch.exp(s - lse.reshape(shape)[..., None])
     dof = do.reshape(shape + (D,)).float()
     delta = (dof * o.reshape(shape + (D,)).float()).sum(dim=-1)

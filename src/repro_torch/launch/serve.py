@@ -29,6 +29,14 @@ servers give the same tokens:
     once a prompt token (MLA's compressed rows are overwritten as K/V
     rows are);
   * `tick` decodes all slots at one position, the first active slot's.
+
+On a mesh with a model axis (the context mesh when the server is made,
+JAX's `Server` under `make_local_mesh`: (1, tp), every rank running the
+same server) each rank holds its blocks of the weights (the
+`attn_layout` JAX's launcher picks, unless given), the caches by
+`cache_specs` (their T rows over 'model' when max_len >= 4,096), and the
+decode step is tensor-parallel; every rank gets the whole logits, so
+the greedy tokens agree.
 """
 from __future__ import annotations
 
@@ -39,7 +47,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_arch, get_reduced
-from repro_torch.device import resolve
+from repro_torch.distributed import mesh as pg
+from repro_torch.distributed.context import batch_axes, get_mesh, \
+    mesh_context
+from repro_torch.launch.sharding import attn_layout
 from repro_torch.launch.steps import make_decode_step
 from repro_torch.models import lm
 from repro_torch.serve.queue import BufferFull, SlotPool
@@ -48,18 +59,30 @@ from repro_torch.serve.queue import BufferFull, SlotPool
 class Server:
     """Slots of an LM on `device` (the card unless "cpu" is asked for),
     its weights drawn from `seed` in `dtype`, or `params`, an `lm.LM`
-    module already on `device`, served as it is; `self.params` is the
-    module (`params.load_state_dict` serves other weights)."""
+    module already on `device` (a rank's held blocks under a mesh),
+    served as it is; `self.params` is the module (`params.
+    load_state_dict` serves other weights). Under a mesh with a model
+    axis: the module docstring."""
 
     def __init__(self, cfg, max_len=128, slots=4, dtype=torch.float32,
-                 seed=0, device=None, params=None):
+                 seed=0, device=None, params=None, layout=None):
         self.cfg = cfg
         self.max_len = max_len
         self.slots = slots
-        self.device = resolve(device)
-        self.params = params if params is not None else lm.init_params(
-            cfg, seed, dtype, self.device)
-        self.cache = lm.init_cache(cfg, slots, max_len, dtype, self.device)
+        self.mesh = get_mesh()
+        if self.mesh.axis_size(batch_axes()) > 1:
+            raise ValueError(f"the server's slots are one batch: it runs "
+                             f"on a (1, tp) mesh, not {self.mesh.shape}")
+        self.layout = attn_layout(cfg, self.mesh.shape["model"]) \
+            if layout is None else layout
+        self.device = pg.rank_device(device)
+        with mesh_context(self.mesh):
+            self.params = params if params is not None else \
+                lm.init_params(cfg, seed, dtype, self.device,
+                               mesh=self.mesh, layout=self.layout)
+            self.cache = lm.init_cache(cfg, slots, max_len, dtype,
+                                       self.device)
+            self._decode = make_decode_step(cfg, self.layout, max_len)
         self.pos = np.zeros((slots,), np.int32)
         # decode slots come from the same SlotPool primitive the spike
         # server uses for session lanes; its mask is the `active` vector
@@ -67,7 +90,6 @@ class Server:
         self.pool = SlotPool(slots)
         self.tokens = np.zeros((slots,), np.int32)
         self.outputs = [[] for _ in range(slots)]
-        self._decode = make_decode_step(cfg)
 
     @property
     def active(self) -> np.ndarray:
@@ -85,9 +107,10 @@ class Server:
                              what="decode slot pool")
         self.outputs[slot] = []
         for t in prompt:
-            lg, self.cache = self._decode(
-                self.params, self._tok_batch(slot, t), self.cache,
-                int(self.pos[slot]))
+            with mesh_context(self.mesh):
+                lg, self.cache = self._decode(
+                    self.params, self._tok_batch(slot, t), self.cache,
+                    int(self.pos[slot]))
             self.pos[slot] += 1
         self.tokens[slot] = int(lg[slot, :self.cfg.vocab_size].argmax())
         return slot
@@ -106,7 +129,9 @@ class Server:
         pos = int(self.pos[self.active][0])
         batch = torch.as_tensor(self.tokens[:, None], dtype=torch.long,
                                 device=self.device)
-        lg, self.cache = self._decode(self.params, batch, self.cache, pos)
+        with mesh_context(self.mesh):
+            lg, self.cache = self._decode(self.params, batch, self.cache,
+                                          pos)
         nxt = lg[:, :self.cfg.vocab_size].argmax(dim=1).cpu().numpy()
         for s in range(self.slots):
             if self.active[s]:

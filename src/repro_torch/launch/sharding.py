@@ -29,13 +29,17 @@ bytes.
 `local_slice` and `assemble` are the port's `to_named` / `device_put`:
 a rank's block of a leaf under a spec, and the blocks put back together.
 
-What the port holds. This slice keeps the model axis replicated outside
-the MoE layer and holds FSDP configs' parameters whole (ROADMAP item
-10.3b shards them): `held_spec` is the spec a parameter is held in (the
-rules' spec with only the routed experts' 'model' axis kept) and
-`held_moment_spec` its AdamW moments' (ZeRO-1 over 'data' on the first
-other dim that divides, FSDP configs included). On a mesh whose model
-axis has size 1 a TP config's held specs are the rules' own.
+What the port holds (`held_spec`). The families whose every layer is
+GQA attention plus an MLP or MoE (`model_axis`: dense, VLM, audio and
+the GQA MoE) are held by the rules' own `param_spec`: heads, d_ff and
+vocab over 'model', and for an FSDP config the residual dim over
+'data'; their moments by `zero1_spec` (`held_moment_spec`). The other
+families (MLA's `w_uq/w_uk/w_uv/w_o`, the SSM's `w_out`, the RG-LRU's
+`w_x/w_y/w_i/w_r`, `lam`, `conv_b`: deepseek_v2_236b, mamba2_780m,
+recurrentgemma_2b) keep every leaf whole but the routed experts' E
+dim (ROADMAP item 10.3c), their moments ZeRO-1 over 'data' on the first
+other dim that divides. `shard_params` cuts a whole state to a rank's
+held blocks (`assemble` puts blocks back together).
 """
 from __future__ import annotations
 
@@ -203,17 +207,25 @@ class ShardingRules:
 
     def held_spec(self, name: str, shape) -> Spec:
         """The spec the port holds a parameter in (its global shape):
-        the rules' 'model' axis on a routed expert leaf's E dim, every
-        other dim whole."""
+        `param_spec` for a `model_axis` family; for the others (MLA,
+        SSM, RG-LRU: ROADMAP item 10.3c) the rules' 'model' axis on a
+        routed expert leaf's E dim and every other dim whole."""
         spec = self.param_spec(name, shape)
+        if model_axis(self.cfg):
+            return spec
         keep = self._is_expert(name, shape)
         return tuple(a if keep and i == 0 and a == "model" else None
                      for i, a in enumerate(spec))
 
     def held_moment_spec(self, name: str, shape) -> Spec:
-        """The spec the port holds a parameter's AdamW moments in: its
-        held spec with 'data' on the first other dim that divides."""
-        return _zero1(self.held_spec(name, shape), _shape(shape), self.mesh)
+        """The spec the port holds a parameter's AdamW moments in:
+        `zero1_spec` of its held spec for a `model_axis` family (nothing
+        more for an FSDP config); for the others the held spec with
+        'data' on the first other dim that divides."""
+        spec = self.held_spec(name, shape)
+        if model_axis(self.cfg):
+            return self.zero1_spec(spec, shape)
+        return _zero1(spec, _shape(shape), self.mesh)
 
     def held_params_specs(self, params_shapes):
         return {n: self.held_spec(n, l) for n, l in params_shapes.items()}
@@ -222,6 +234,35 @@ class ShardingRules:
         mom = {n: self.held_moment_spec(n, l)
                for n, l in params_shapes.items()}
         return {"mu": mom, "nu": dict(mom), "step": ()}
+
+
+def model_axis(cfg) -> bool:
+    """Whether the port holds `cfg`'s dense leaves by the rules' 'model'
+    (and FSDP 'data') axes: every layer GQA attention plus an MLP or
+    MoE."""
+    return cfg.family in ("dense", "vlm", "audio", "moe") \
+        and cfg.attn_kind != "mla"
+
+
+def attn_layout(cfg, tp: int) -> str:
+    """JAX's `_attn_layout`: "heads" when the heads divide over the
+    model axis, "seq" otherwise."""
+    return "heads" if cfg.n_heads % max(tp, 1) == 0 else "seq"
+
+
+def shard_params(state, cfg, mesh: Mesh, layout: str = "heads",
+                 coords: Optional[Dict[str, int]] = None) -> dict:
+    """A rank's blocks (`local_slice` of `held_spec`) of a whole state
+    {name: tensor or array}, copies; the whole leaves on a mesh of one
+    rank."""
+    rules = ShardingRules(cfg, mesh, layout)
+    return {n: _copy(t[local_slice(rules.held_spec(n, t.shape),
+                                   t.shape, mesh, coords)])
+            for n, t in state.items()}
+
+
+def _copy(t):
+    return t.clone() if hasattr(t, "clone") else t.copy()
 
 
 def _entry(axes: tuple):

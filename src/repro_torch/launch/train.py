@@ -8,14 +8,18 @@
         --compress int8
 
 Wires together: config -> mesh (`--mesh local`: (1, world size) over
-the live world; `single` and `multi` the production (16, 16) and (2, 16,
-16) meshes, which need 256 and 512 ranks) -> parameters (drawn from
-seed 0 on every rank; fp32 with --reduced, bf16 otherwise; an MoE
-model's routed experts cut to the rank's blocks) and AdamW state (the
-rank's ZeRO-1 blocks) -> `make_train_step` (gradient-accumulation
-microbatches on one rank, optional gradient compression with error
-feedback; data and expert parallelism under a mesh of more than one
-rank) -> the resumable `TokenPipeline` (the global batch on every rank;
+the live world, every rank on the model axis; `single` and `multi` the
+production (16, 16) and (2, 16, 16) meshes, which need 256 and 512
+ranks) and the attention layout JAX's `train.py` picks
+(`sharding.attn_layout`: "heads" when the heads divide over 'model',
+else "seq") -> parameters (drawn from seed 0 on every rank, each rank
+keeping its held blocks, `lm.init_params(mesh=)`: heads, d_ff and vocab
+over 'model' for the families of the model axis, the routed experts'
+blocks for the MoE ones; fp32 with --reduced, bf16 otherwise) and AdamW
+state (the rank's ZeRO-1 blocks) -> `make_train_step` (gradient-
+accumulation microbatches on one rank, optional gradient compression
+with error feedback; data, tensor and expert parallelism under a mesh
+of more than one rank) -> the resumable `TokenPipeline` (the global batch on every rank;
 the step takes the rank's rows) -> `CheckpointManager` (async, atomic,
 retention; JAX's layout, each rank its blocks) -> `StepWatchdog`
 (straggler detection). On restart it resumes from the latest checkpoint
@@ -40,10 +44,10 @@ from repro_torch.distributed.compression import ErrorFeedback
 from repro_torch.distributed.context import mesh_context
 from repro_torch.distributed.elastic import StepWatchdog, reshard_tree
 from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+from repro_torch.launch.sharding import attn_layout
 from repro_torch.launch.steps import (held_specs, init_opt_state,
                                       make_train_step)
 from repro_torch.models import lm
-from repro_torch.models.moe import shard_experts
 from repro_torch.optim import AdamWConfig
 
 
@@ -103,10 +107,12 @@ def _train(args):
             return out
 
     with mesh_context(mesh):
-        params = shard_experts(lm.init_params(cfg, 0, dtype, dev), cfg, mesh)
-        opt = init_opt_state(params, oc, cfg, mesh)
-        specs = held_specs(params, cfg, mesh)
-        step_fn = make_train_step(cfg, oc, microbatches=args.microbatches,
+        layout = attn_layout(cfg, mesh.shape["model"])
+        params = lm.init_params(cfg, 0, dtype, dev, mesh=mesh, layout=layout)
+        opt = init_opt_state(params, oc, cfg, mesh, layout)
+        specs = held_specs(params, cfg, mesh, layout)
+        step_fn = make_train_step(cfg, oc, layout=layout,
+                                  microbatches=args.microbatches,
                                   compressor=compressor, device=dev)
         pipe = TokenPipeline(cfg.vocab_size, args.seq, args.batch, seed=0)
         mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
@@ -118,8 +124,9 @@ def _train(args):
                             "step": None}}
             restored, aux = mgr.restore(like)
             params.load_state_dict(reshard_tree(
-                restored["params"], cfg, mesh, "params", device=dev))
-            opt = reshard_tree(restored["opt"], cfg, mesh, "opt", device=dev)
+                restored["params"], cfg, mesh, "params", layout, dev))
+            opt = reshard_tree(restored["opt"], cfg, mesh, "opt", layout,
+                               dev)
             pipe.load_state_dict({k: aux[k] for k in ("seed", "step")})
             start = int(aux["step_counter"])
             if lead:

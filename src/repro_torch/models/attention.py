@@ -34,9 +34,32 @@ q_nope through w_uk into the latent space, fp32 scores against c_kv and
 k_rope, the output back through w_uv. Its new row is written in place
 at `cache_pos`, clamped into the cache as the GQA decode writes.
 
-JAX's sharding hints (`constrain`, `_seq_shard`) have no counterpart on
-one device. The shard-mapped sequence-parallel attention comes with the
-distribution slice.
+The model axis (ROADMAP item 10.3b; tp > 1 on the context mesh), in
+JAX's two layouts (`gqa_apply(..., layout=)`, chosen by
+`launch.sharding.attn_layout` as JAX's `_attn_layout`):
+  * "heads" (Megatron): `wq`/`bq`/`wo` held as the rank's H/tp heads,
+    `wk`/`wv`/`bk`/`bv` as its KV/tp heads when KV % tp == 0 and whole
+    otherwise, each local query head then reading global KV head
+    (rank H/tp + h) // (H/KV) (JAX's replicated narrow GQA); the input
+    enters through f, `wo` is row-parallel through g (with a sequence-
+    parallel residual the rank's rows are gathered along S instead and
+    the output reduce-scattered back). A whole `wk`'s gradient is
+    partial on each rank: the step sums it over 'model'.
+  * "seq" (JAX's `_shardmap_seq_attention`, for head counts that do not
+    divide): every leaf whole; the rank projects its S/tp rows at their
+    RoPE positions, K/V are gathered over 'model' along S (the gather's
+    backward a reduce-scatter), kernels 4-6 run at q_start = rank S/tp
+    against the gathered K/V, `wo` takes the rank's rows, and the rows
+    are gathered back (`Mesh.gather_from`) or kept where the residual is
+    sequence-parallel. JAX's contiguous split is kept: the last rank
+    does ~2 tp - 1 times the first's causal work.
+The prefill's cache holds every KV head (JAX's `cache_specs`), its T
+rows over 'model' when T >= 4,096 and T % tp == 0 (`_seq_shard`). Decode
+over such a cache (`cache_len` the whole length, the rank holding rows
+rank T/tp ..) writes position cache_pos on the rank that owns it; each
+rank computes its partial softmax over its rows (max, sum, weighted V)
+and the ranks combine them over 'model'. With tp = 1 every path is the
+one-device one.
 """
 from __future__ import annotations
 
@@ -44,6 +67,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.context import get_mesh
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_trainable)
 from repro_torch.models.layers import (Norm, apply_norm, apply_rope,
@@ -122,51 +146,206 @@ def _masked_decode_attend(q, k, v, mask):
 
 
 def gqa_apply(p, x, cfg, positions, window=None, cache=None,
-              cache_pos=None):
+              cache_pos=None, layout="heads", seq_sharded=False,
+              with_cache=True, cache_len=None):
     """Causal GQA, over each query's last `window` keys when given.
     Returns (out, kv). Decode — a cache and one token (S == 1) at
     cache_pos — updates the cache in place and returns it (a window's
     cache is a ring of T = min(window, max_len) slots); otherwise
     attention runs over the sequence itself (the flash kernels) and kv
     is its {k, v} (B, S, KV, hd), or with a window its last min(window,
-    S) rows, the prefill's cache."""
+    S) rows, the prefill's cache (None under tp > 1 without
+    `with_cache`). Under tp > 1: the module docstring (`seq_sharded`: x
+    is the rank's S/tp rows of a sequence-parallel residual;
+    `cache_len`: a decode cache's whole length, its rows sharded over
+    'model' when it differs from the rank's). Every collective below is
+    the identity at tp = 1."""
+    mesh = get_mesh()
+    tp = mesh.shape.get("model", 1)
+    r = mesh.coords["model"] if tp > 1 else 0
+    heads = p.wq.shape[1] < cfg.n_heads       # the "heads" layout's blocks
+    kv_cut = p.wk.shape[1] < cfg.n_kv_heads
     B, S, _ = x.shape
+    decode = cache is not None and S == 1
+    if tp > 1 and layout == "seq" and not heads and not decode:
+        return _seq_attention(p, x, cfg, positions, window, seq_sharded,
+                              with_cache, mesh)
+    if heads and seq_sharded and not decode:
+        x = mesh.all_gather(x, "model", dim=1)
+    elif heads:
+        x = mesh.copy_to(x, "model")
     q, k, v = _qkv(p, x, cfg, positions)
-    if cache is not None and S == 1:
+    if decode:
+        if kv_cut:                            # the new row, every KV head
+            k = mesh.all_gather(k.contiguous(), "model", dim=2)
+            v = mesh.all_gather(v.contiguous(), "model", dim=2)
         T = cache["k"].shape[1]
-        slot = cache_pos % T if window is not None \
-            else min(max(cache_pos, 0), T - 1)
-        cache["k"][:, slot] = k[:, 0]
-        cache["v"][:, slot] = v[:, 0]
-        if window is not None:
-            # the absolute position each ring slot holds, masked to the
-            # ones written, causal and inside the window
-            slots = torch.arange(T, device=x.device)
-            abs_pos = cache_pos - torch.remainder(slot - slots, T)
-            mask = (abs_pos >= 0) & (abs_pos <= cache_pos) \
-                & (abs_pos > cache_pos - window)
-            out = _masked_decode_attend(q, cache["k"], cache["v"], mask)
+        if tp > 1 and window is None and cache_len not in (None, T):
+            # the cache's T rows held over 'model'
+            out = _sharded_decode(q, k, v, cache, cache_pos, cache_len, cfg,
+                                  heads, mesh)
         else:
-            out = attend(q, cache["k"], cache["v"], q_start=cache_pos,
-                         kv_len=cache_pos + 1)
+            slot = cache_pos % T if window is not None \
+                else min(max(cache_pos, 0), T - 1)
+            cache["k"][:, slot] = k[:, 0]
+            cache["v"][:, slot] = v[:, 0]
+            kc, vc = cache["k"], cache["v"]
+            if kv_cut:
+                n = cfg.n_kv_heads // tp
+                kc = kc[:, :, r * n:(r + 1) * n]
+                vc = vc[:, :, r * n:(r + 1) * n]
+            elif heads:
+                kc, vc = _local_kv(p, cfg, kc, vc, tp, r)
+            if window is not None:
+                # the absolute position each ring slot holds, masked to
+                # the ones written, causal and inside the window
+                slots = torch.arange(T, device=x.device)
+                abs_pos = cache_pos - torch.remainder(slot - slots, T)
+                mask = (abs_pos >= 0) & (abs_pos <= cache_pos) \
+                    & (abs_pos > cache_pos - window)
+                out = _masked_decode_attend(q, kc, vc, mask)
+            else:
+                out = attend(q, kc, vc, q_start=cache_pos,
+                             kv_len=cache_pos + 1)
         kv = cache
     else:
+        kq, vq = _local_kv(p, cfg, k, v, tp, r) if heads else (k, v)
+        out = _flash(q, kq, vq, window)
         kv = {"k": k, "v": v}
         if window is not None:
             kv = {n: t[:, S - min(window, S):] for n, t in kv.items()}
-        out = _flash(q, k, v, window)
-    return out.flatten(2) @ p.wo.flatten(0, 1), kv
+        if heads:
+            kv = _held_kv(kv, kv_cut, with_cache, mesh)
+    y = out.flatten(2) @ p.wo.flatten(0, 1)
+    if heads and seq_sharded and not decode:
+        y = mesh.reduce_scatter(y, "model", dim=1)
+    elif heads:
+        y = mesh.reduce_from(y, "model")
+    return y, kv
 
 
-def _flash(q, k, v, window=None):
+def _kv_heads(cfg, tp: int, r: int) -> list:
+    """The global KV heads rank r's H/tp query heads read, to take from
+    K/V held whole: one per group of local query heads when the groups
+    are even (the kernels then read the narrow K/V), else one per local
+    query head."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    hl, rep = H // tp, H // KV
+    idx = [(r * hl + h) // rep for h in range(hl)]
+    uniq = sorted(set(idx))
+    g = hl // len(uniq)
+    if hl % len(uniq) == 0 and all(idx[i] == uniq[i // g]
+                                   for i in range(hl)):
+        return uniq
+    return idx
+
+
+def _local_kv(p, cfg, k, v, tp: int, r: int):
+    """K/V (B, T, ., hd) for the rank's query heads: its KV heads as held
+    when `wk` is its block, else `_kv_heads`' selection of the whole."""
+    if p.wk.shape[1] < cfg.n_kv_heads:
+        return k, v
+    idx = _kv_heads(cfg, tp, r)
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _seq_rows(t, tp: int, r: int):
+    """The rank's T/tp rows of a prefill cache leaf (B, T, ...) when T
+    >= 4,096 divides over 'model' (JAX's `_seq_shard`), else t."""
+    T = t.shape[1]
+    if T >= 4096 and T % tp == 0:
+        n = T // tp
+        return t[:, r * n:(r + 1) * n]
+    return t
+
+
+def _held_kv(kv, kv_cut: bool, with_cache: bool, mesh):
+    """The "heads" prefill's cache: None without `with_cache`, else every
+    KV head (gathered over 'model' when the rank computed its block), its
+    T rows the rank's (`_seq_rows`)."""
+    if not with_cache:
+        return None
+    tp, r = mesh.shape["model"], mesh.coords["model"]
+    with torch.no_grad():
+        if kv_cut:
+            kv = {n: mesh.all_gather(t.contiguous(), "model", dim=2)
+                  for n, t in kv.items()}
+        return {n: _seq_rows(t, tp, r) for n, t in kv.items()}
+
+
+def _seq_attention(p, x, cfg, positions, window, seq_sharded, with_cache,
+                   mesh):
+    """The "seq" layout over a sequence: the rank's rows against K/V
+    gathered along S (the module docstring). Returns (out, kv)."""
+    tp, r = mesh.shape["model"], mesh.coords["model"]
+    xr = x if seq_sharded else mesh.split(x, "model", dim=1)
+    n = xr.shape[1]
+    q, k, v = _qkv(p, xr, cfg, positions[..., r * n:(r + 1) * n])
+    kf = mesh.all_gather(k, "model", dim=1)
+    vf = mesh.all_gather(v, "model", dim=1)
+    out = _flash(q, kf, vf, window, q_start=r * n)
+    y = out.flatten(2) @ p.wo.flatten(0, 1)
+    if not seq_sharded:
+        y = mesh.gather_from(y, "model", dim=1)
+    kv = None
+    if with_cache:
+        T = kf.shape[1]
+        own = T >= 4096 and T % tp == 0
+        kv = {"k": (k if own else kf).detach(),
+              "v": (v if own else vf).detach()}
+    return y, kv
+
+
+def _sharded_decode(q, k, v, cache, cache_pos: int, cache_len: int, cfg,
+                    heads: bool, mesh):
+    """A decode tick over a cache whose T rows are held over 'model' (the
+    rank's T = cache_len/tp from rank T ..): the new row k/v written on
+    the rank that owns position cache_pos, then `_sharded_decode_attend`
+    over every query head, the rank's heads kept in the "heads" layout."""
+    tp, r = mesh.shape["model"], mesh.coords["model"]
+    T = cache["k"].shape[1]
+    slot = min(max(cache_pos, 0), cache_len - 1)
+    if slot // T == r:
+        cache["k"][:, slot - r * T] = k[:, 0]
+        cache["v"][:, slot - r * T] = v[:, 0]
+    qa = mesh.all_gather(q.contiguous(), "model", dim=2) if heads else q
+    out = _sharded_decode_attend(qa, cache["k"], cache["v"], r * T,
+                                 cache_pos, mesh)
+    if heads:
+        hl = cfg.n_heads // tp
+        out = out[:, :, r * hl:(r + 1) * hl]
+    return out
+
+
+def _sharded_decode_attend(q, k, v, r0: int, cache_pos: int, mesh):
+    """q (B, 1, H, hd) against the rank's rows r0.. of a cache k/v (B,
+    T/tp, KV, hd), rows past cache_pos masked: each rank's partial
+    softmax (its max, its sum of exp, its weighted V) combined over
+    'model'. Returns (B, 1, H, hd) in q's dtype."""
+    B, _, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, KV, H // KV, hd)
+    s = torch.einsum("bgrk,btgk->bgrt", qg.float() * hd ** -0.5, k.float())
+    rows = r0 + torch.arange(T, device=q.device)
+    s = torch.where(rows <= cache_pos, s,
+                    torch.full((), NEG_INF, device=q.device))
+    m = mesh.pmax(s.amax(dim=-1), "model")
+    e = torch.exp(s - m[..., None])
+    num = mesh.psum(torch.einsum("bgrt,btgk->bgrk", e, v.float()), "model")
+    den = mesh.psum(e.sum(dim=-1), "model")
+    return (num / den[..., None]).reshape(B, 1, H, hd).to(q.dtype)
+
+
+def _flash(q, k, v, window=None, q_start=0):
     """Causal attention of a whole sequence, q (B, S, H, hd) and k, v
-    (B, S, KV, hd), on the flash kernels: the trainable one (forward with
-    lse, the backward kernels) when grad is on and an input requires it,
-    the forward alone otherwise. Returns (B, S, H, hd)."""
+    (B, Sk, KV, hd), q's rows at positions q_start.., on the flash
+    kernels: the trainable one (forward with lse, the backward kernels)
+    when grad is on and an input requires it, the forward alone
+    otherwise. Returns (B, S, H, hd)."""
     qkv = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     train = torch.is_grad_enabled() and any(t.requires_grad for t in qkv)
     fn = flash_attention_trainable if train else flash_attention
-    return fn(*qkv, window=window).transpose(1, 2)
+    return fn(*qkv, window=window, q_start=q_start).transpose(1, 2)
 
 
 def gqa_cache_shape(cfg, batch, max_len, dtype=torch.bfloat16, device=None,

@@ -39,10 +39,30 @@ and per tail block, and for `remat_policy` "dots" the outputs of mm, bmm
 and addmm saved, after JAX's `dots_with_no_batch_dims_saveable`),
 `init_cache`, `prefill` and `decode_step`. They run on the card unless
 the caller asks for the CPU (`device="cpu"`, or a model already there).
+
+The model axis (ROADMAP item 10.3b). Under a context mesh whose 'model'
+axis has size tp > 1, a `launch.sharding.model_axis` family runs on the
+blocks its rank holds (`init_params(..., mesh=)`, or
+`launch.sharding.shard_params` of a whole state): `layout` ("heads" or
+"seq", JAX's argument, default "heads"; `launch.sharding.attn_layout`
+picks it as JAX's `_attn_layout`) is the attention's
+(`models.attention`); the MLPs, the shared experts and the vocab are
+tensor-parallel (`models.layers`). With `cfg.seq_parallel` the residual
+is held S/tp-sharded over 'model' between blocks (JAX's `lm.py:88-91`),
+from the embedding to the final norm. An FSDP config's leaves held over
+'data' too are gathered over 'data' just before use, inside each
+layer's checkpoint (so the backward gathers them again), their
+gradients reduce-scattered over 'data' (the gather's backward). The
+prefill's caches are held by JAX's `cache_specs`: every KV head, T over
+'model' when T >= 4,096 and T % tp == 0; a decode over such a cache
+takes its whole length (`cache_len`). The other families keep every
+dense leaf whole and compute as on one device. At tp = 1 every path is
+the one-device one.
 """
 from __future__ import annotations
 
 import functools
+import types
 from typing import Any, Dict, Tuple
 
 import torch
@@ -51,14 +71,16 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve
+from repro_torch.distributed.context import get_mesh, mesh_context
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (MLP, Embed, Norm,  # noqa: F401
-                                       chunked_ce_loss, chunked_ce_sums,
+from repro_torch.models.layers import (META, MLP, Embed,  # noqa: F401
+                                       Norm, chunked_ce_loss,
+                                       chunked_ce_sums, cut_draws,
                                        embed_lookup, sinusoidal_positions,
-                                       unembed)
+                                       unembed, unembed_gathered)
 
 
 def _mix_kind(cfg) -> str:
@@ -151,25 +173,66 @@ class LM(nn.Module):
             setattr(self, name, nn.ModuleList(layers))
 
 
-def init_params(cfg, seed: int = 0, dtype=torch.bfloat16, device=None):
+def init_params(cfg, seed: int = 0, dtype=torch.bfloat16, device=None,
+                mesh=None, layout: str = "heads"):
     """An LM with weights drawn from a torch.Generator seeded with
     `seed` on `device` (the card unless "cpu" is asked for): JAX's
     scales, not its bits, in `dtype` but for the MoE routers and the
     SSM's and RG-LRU's decay parameters (fp32). The same seed on one
     device gives the same weights; `.to(device)` moves a model to
-    another."""
+    another. With `mesh` (a rank's mesh), the rank's held blocks
+    (`launch.sharding.held_spec` under `layout`) of those same weights:
+    each leaf is drawn whole in turn and cut at once, so the whole model
+    never exists. `device="meta"` gives the shapes only."""
+    if device is not None and torch.device(device).type == "meta":
+        return LM(cfg, META, dtype)
     gen = torch.Generator(device=resolve(device))
     gen.manual_seed(seed)
-    return LM(cfg, gen, dtype)
+    if mesh is None or mesh.size == 1:
+        return LM(cfg, gen, dtype)
+    from repro_torch.launch.sharding import ShardingRules, local_slice
+    rules = ShardingRules(cfg, mesh, layout)
+    skel = LM(cfg, META, dtype)
+    cuts = {n: local_slice(rules.held_spec(n, p.shape), p.shape, mesh)
+            for n, p in skel.named_parameters()}
+    with cut_draws([cuts[n] for n, p in skel.named_parameters()
+                    if getattr(p, "drawn", False)]):
+        model = LM(cfg, gen, dtype)
+    for n, p in list(model.named_parameters()):
+        if tuple(p.shape) == tuple(skel.get_parameter(n).shape):
+            _set_leaf(model, n, p.data[cuts[n]].clone())
+    return model
+
+
+@functools.lru_cache(maxsize=None)
+def param_shapes(cfg) -> Dict[str, tuple]:
+    """{name: the global shape} of `cfg`'s parameters (a meta model)."""
+    return {n: tuple(p.shape)
+            for n, p in LM(cfg, META, torch.float32).named_parameters()}
+
+
+def _set_leaf(model: nn.Module, name: str, value: torch.Tensor) -> None:
+    """Put `value` in as the parameter `name` of `model` (keeping its
+    requires_grad)."""
+    *path, leaf = name.split(".")
+    owner = model
+    for part in path:
+        owner = getattr(owner, part)
+    old = getattr(owner, leaf)
+    setattr(owner, leaf, nn.Parameter(value,
+                                      requires_grad=old.requires_grad))
 
 
 def block_apply(p, x, cfg, positions, cache=None, cache_pos=None,
-                kind="attn", with_cache=False):
+                kind="attn", with_cache=False, layout="heads",
+                seq_sharded=False, cache_len=None):
     """Returns (x, cache, aux): aux is the MoE layer's router loss, None
     for other blocks. cache is the block's new cache (decode: updated in
     place for attention, a new state for the recurrent kinds); for a
     pass over a sequence the attention's {k, v} and, with `with_cache`,
-    the recurrent kinds' final state; None otherwise."""
+    the recurrent kinds' final state; None otherwise. `layout`,
+    `seq_sharded` (x is the rank's rows of a sequence-parallel residual)
+    and `cache_len`: the module docstring's model axis."""
     h = p.ln1(x)
     if kind in ("ssm", "rglru") and cache is None and with_cache:
         # a prefill starts from a zero state, as JAX's from init_cache's
@@ -185,17 +248,21 @@ def block_apply(p, x, cfg, positions, cache=None, cache_pos=None,
     else:
         window = cfg.rglru.window if kind == "local_attn" else None
         y, new = attn.gqa_apply(p.attn, h, cfg, positions, window=window,
-                                cache=cache, cache_pos=cache_pos)
+                                cache=cache, cache_pos=cache_pos,
+                                layout=layout, seq_sharded=seq_sharded,
+                                with_cache=with_cache or cache is not None,
+                                cache_len=cache_len)
     x = x + y
     h = p.ln2(x)
     if hasattr(p, "moe"):
         y, aux = moe_mod.moe_apply(p.moe, h, cfg)
         return x + y, new, aux
-    return x + p.mlp(h), new, None
+    return x + p.mlp(h, seq_sharded), new, None
 
 
 def layer_apply(layer, x, cfg, blocks, positions, cache=None,
-                cache_pos=None, with_cache=False):
+                cache_pos=None, with_cache=False, layout="heads",
+                seq_sharded=False, cache_len=None):
     """One layer of a segment: its `blocks` (`layer_blocks`) in order.
     Returns (x, cache, aux) as `block_apply`, cache and aux gathered
     over the blocks (cache by block name for a group)."""
@@ -204,7 +271,7 @@ def layer_apply(layer, x, cfg, blocks, positions, cache=None,
         blk = layer if name is None else getattr(layer, name)
         cl = cache if cache is None or name is None else cache[name]
         x, nc, a = block_apply(blk, x, cfg, positions, cl, cache_pos, kind,
-                               with_cache)
+                               with_cache, layout, seq_sharded, cache_len)
         new[name] = nc
         if a is not None:
             aux = a if aux is None else aux + a
@@ -260,11 +327,13 @@ def _n_patch(cfg, batch) -> int:
         and "patch_embeds" in batch else 0
 
 
-def _embed_input(params, cfg, batch, positions):
-    """The token embeddings, after the patch embeddings (cast to their
-    dtype) when `_n_patch` has any, plus the sinusoidal positions for a
-    `pos` "sinusoidal" config: JAX's `_embed_input`."""
-    h = embed_lookup(params.embed, batch["tokens"])
+def _embed_input(params, cfg, batch, positions, emb=None):
+    """The token embeddings (from `emb`, the view of `params.embed` with
+    its FSDP leaves gathered, when given), after the patch embeddings
+    (cast to their dtype) when `_n_patch` has any, plus the sinusoidal
+    positions for a `pos` "sinusoidal" config: JAX's `_embed_input`."""
+    h = embed_lookup(params.embed if emb is None else emb,
+                     batch["tokens"])
     if _n_patch(cfg, batch):
         h = torch.cat([batch["patch_embeds"].to(h.dtype), h], dim=1)
     if cfg.pos == "sinusoidal":
@@ -272,8 +341,92 @@ def _embed_input(params, cfg, batch, positions):
     return h
 
 
+class _Apply(nn.Module):
+    """`layer_apply` as a module call, so that `functional_call` can put
+    a layer's gathered FSDP leaves in for one call."""
+
+    def __init__(self, layer):
+        super().__init__()
+        self.layer = layer
+
+    def forward(self, *args, **kwargs):
+        return layer_apply(self.layer, *args, **kwargs)
+
+
+@functools.lru_cache(maxsize=None)
+def _fsdp_dims(cfg, shape: tuple, names: tuple, layout: str
+               ) -> Dict[str, int]:
+    """{name: the dim a leaf is held over 'data' on} for an FSDP config
+    of the model axis on a mesh of `shape` over `names`."""
+    from repro_torch.distributed.context import Mesh
+    from repro_torch.launch.sharding import ShardingRules, model_axis
+    mesh = Mesh(shape, names)
+    if not (cfg.fsdp and model_axis(cfg) and mesh.shape.get("data", 1) > 1):
+        return {}
+    rules = ShardingRules(cfg, mesh, layout)
+    out = {}
+    for n, shp in param_shapes(cfg).items():
+        spec = rules.held_spec(n, shp)
+        if "data" in spec:
+            out[n] = spec.index("data")
+    return out
+
+
+def _layout_dims(cfg, layout: str):
+    """(the layout the model runs, its FSDP dims)."""
+    from repro_torch.launch.sharding import model_axis
+    mesh = get_mesh()
+    axis = mesh.shape.get("model", 1) > 1 and model_axis(cfg)
+    layout = layout if axis else "heads"
+    return layout, _fsdp_dims(cfg, tuple(mesh.shape.values()),
+                              mesh.axis_names, layout)
+
+
+def _prepare(params, cfg, layout: str):
+    """(the layout the model runs, its FSDP dims, the embedding to use:
+    `params.embed` or its leaves gathered over 'data')."""
+    layout, dims = _layout_dims(cfg, layout)
+    emb = params.embed
+    if any(n.startswith("embed.") for n in dims):
+        mesh = get_mesh()
+        view = types.SimpleNamespace(vocab=emb.vocab)
+        for leaf, t in emb.named_parameters():
+            n = "embed." + leaf
+            setattr(view, leaf, mesh.all_gather(t, "data", dim=dims[n])
+                    if n in dims else t)
+        emb = view
+    return layout, dims, emb
+
+
+def _run_layer(layer, prefix: str, dims, x, *args, **kwargs):
+    """`layer_apply` of layer (named `prefix`..), its leaves held over
+    'data' (FSDP) gathered first."""
+    own = {n[len(prefix):]: t for n, t in
+           layer.named_parameters(prefix=prefix[:-1])
+           if n in dims}
+    if not own:
+        return layer_apply(layer, x, *args, **kwargs)
+    mesh = get_mesh()
+    full = {"layer." + n: mesh.all_gather(t, "data",
+                                          dim=dims[prefix + n])
+            for n, t in own.items()}
+    return torch.func.functional_call(_Apply(layer), full, (x, *args),
+                                      kwargs)
+
+
+def _remat_layer(layer, prefix, dims, x, cfg, blocks, positions, mesh,
+                 kw):
+    """(h, aux) of `_run_layer` under the forward's mesh: a checkpoint's
+    recompute runs with the backward, on whatever thread autograd takes
+    (the CUDA backward has one of its own, which opened no context)."""
+    with mesh_context(mesh):
+        return _run_layer(layer, prefix, dims, x, cfg, blocks, positions,
+                          **kw)[::2]
+
+
 def backbone(params, cfg, batch, positions=None, caches=None,
-             cache_pos=None, with_cache=False, remat=None):
+             cache_pos=None, with_cache=False, remat=None,
+             layout="heads", cache_len=None, emb=None):
     """Returns (h, aux, caches): h over the patch positions (when
     `_n_patch` has any) then the tokens', at positions 0.. unless given;
     aux the sum of the MoE layers' router losses (a zero for the other
@@ -284,30 +437,41 @@ def backbone(params, cfg, batch, positions=None, caches=None,
     None. With `remat` (default `cfg.remat`) and grad enabled, each
     layer of a segment (a block, or a hybrid group) runs under
     `torch.utils.checkpoint` (`_remat_kwargs`) and is recomputed in the
-    backward."""
+    backward. `layout`, `cache_len` and `emb` (`_prepare`'s): the module
+    docstring's model axis."""
     remat = cfg.remat if remat is None else remat
     remat = remat and torch.is_grad_enabled() and caches is None \
         and not with_cache
+    if emb is None:
+        layout, dims, emb = _prepare(params, cfg, layout)
+    else:
+        layout, dims = _layout_dims(cfg, layout)
+    mesh = get_mesh()
     tokens = batch["tokens"]
     if positions is None:
         positions = torch.arange(tokens.shape[1] + _n_patch(cfg, batch),
                                  device=tokens.device)
-    h = _embed_input(params, cfg, batch, positions)
+    h = _embed_input(params, cfg, batch, positions, emb)
+    sp = _seq_parallel(cfg, mesh, caches, h)
+    if sp:
+        h = mesh.split(h, "model", dim=1)
+    kw = {"layout": layout, "seq_sharded": sp, "cache_len": cache_len}
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     new = {}
     for name in segment_layers(cfg):
         blocks = layer_blocks(cfg, name)
         layers = []
         for i, layer in enumerate(getattr(params, name)):
+            pre = f"{name}.{i}."
             if remat:
-                h, a = checkpoint(
-                    lambda x, layer=layer, blocks=blocks: layer_apply(
-                        layer, x, cfg, blocks, positions)[::2], h,
-                    use_reentrant=False, **_remat_kwargs(cfg))
+                h, a = checkpoint(_remat_layer, layer, pre, dims, h, cfg,
+                                  blocks, positions, mesh, kw,
+                                  use_reentrant=False, **_remat_kwargs(cfg))
             else:
                 cl = None if caches is None else _index(caches[name], i)
-                h, nc, a = layer_apply(layer, h, cfg, blocks, positions, cl,
-                                       cache_pos, with_cache)
+                h, nc, a = _run_layer(layer, pre, dims, h, cfg, blocks,
+                                      positions, cl, cache_pos, with_cache,
+                                      **kw)
                 if cl is not None:
                     _write(cl, nc)
                 elif with_cache:
@@ -316,38 +480,49 @@ def backbone(params, cfg, batch, positions=None, caches=None,
                 aux = aux + a
         if layers:
             new[name] = _stack(layers)
+    if sp:
+        h = mesh.gather_from(h, "model", dim=1)
     h = params.final_norm(h)
     if caches is None and with_cache:
         caches = new
     return h, aux, caches
 
 
-def loss_fn(params, cfg, batch):
+def _seq_parallel(cfg, mesh, caches, h) -> bool:
+    """Whether the residual is held S/tp-sharded over 'model' (JAX's
+    `cfg.seq_parallel`, over a sequence: not in decode)."""
+    from repro_torch.launch.sharding import model_axis
+    return bool(cfg.seq_parallel) and mesh.shape.get("model", 1) > 1 \
+        and model_axis(cfg) and caches is None and h.shape[1] > 1
+
+
+def loss_fn(params, cfg, batch, layout="heads"):
     """The training loss of batch["tokens"] (B, S): next-token cross
     entropy (labels are the tokens rolled by one, the last position
     masked, times batch["loss_mask"] when given) over the text positions
     only (after any patches), from `loss_terms`. Returns (ce + aux,
     {"ce", "aux"}); aux, the MoE layers' router loss, is 0 for the other
     families."""
-    tot, cnt, aux = loss_terms(params, cfg, batch)
+    tot, cnt, aux = loss_terms(params, cfg, batch, layout)
     ce = tot / cnt.clamp(min=1.0)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
-def loss_terms(params, cfg, batch):
+def loss_terms(params, cfg, batch, layout="heads"):
     """(the masked cross entropy summed over the batch's tokens, the
     count of tokens it covers, aux) as fp32 scalars, through
     `chunked_ce_sums`: what a data-parallel step adds over the ranks."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    h, aux, _ = backbone(params, cfg, batch)
+    layout, _, emb = _prepare(params, cfg, layout)
+    h, aux, _ = backbone(params, cfg, batch, layout=layout, emb=emb)
     h = h[:, h.shape[1] - S:]
     labels = torch.roll(tokens, -1, dims=1)
     mask = torch.ones((B, S), dtype=torch.float32, device=tokens.device)
     mask[:, -1] = 0.0
     if "loss_mask" in batch:
         mask = mask * batch["loss_mask"]
-    tot, cnt = chunked_ce_sums(params.embed, h, labels, mask, cfg)
+    tot, cnt = chunked_ce_sums(emb, h, labels, mask, cfg)
     return tot, cnt, aux
 
 
@@ -363,19 +538,58 @@ def _layer_cache(cfg, kind, batch_size, max_len, dtype, device):
                                 window=window)
 
 
+def held_cache_len(cfg, max_len: int) -> int:
+    """The cache rows a rank holds under the context mesh: max_len/tp
+    for a `model_axis` family when max_len >= 4,096 divides over 'model'
+    (JAX's `cache_specs`), max_len otherwise."""
+    from repro_torch.launch.sharding import model_axis
+    tp = get_mesh().shape.get("model", 1)
+    if tp > 1 and model_axis(cfg) and max_len >= 4096 and max_len % tp == 0:
+        return max_len // tp
+    return max_len
+
+
 def init_cache(cfg, batch_size, max_len, dtype=torch.bfloat16, device=None):
     """Zero caches in JAX's layer-stacked layout (module docstring): K/V
     (L, B, max_len, KV, hd), MLA's {c_kv, k_rope} (L, B, max_len, .), a
     windowed layer's ring (L, B, min(window, max_len), KV, hd), the
-    recurrent layers' states (L, B, ...)."""
+    recurrent layers' states (L, B, ...); under the context mesh the
+    rank's rows (`held_cache_len`)."""
     dev = resolve(device)
+    rows = held_cache_len(cfg, max_len)
     out = {}
     for name, L in segment_layers(cfg).items():
-        tree = {n: _layer_cache(cfg, kind, batch_size, max_len, dtype, dev)
+        tree = {n: _layer_cache(cfg, kind, batch_size, rows, dtype, dev)
                 for n, kind in layer_blocks(cfg, name)}
         tree = tree[None] if None in tree else tree
         out[name] = _expand(tree, L)
     return out
+
+
+def extend_cache(caches, cfg, length: int, max_len: int):
+    """The caches a prefill of `length` positions returned (leaves (L, B,
+    length, ...), or a rank's rows of them, `held_cache_len`) as decode
+    caches of `max_len` rows, the prefill's first and zeros after, held
+    as `init_cache` holds them. Attention leaves only (K/V, MLA's {c_kv,
+    k_rope}); a windowed layer's ring and the recurrent states are not
+    taken."""
+    mesh = get_mesh()
+
+    def one(t):
+        if held_cache_len(cfg, length) != length:   # rows over 'model'
+            t = mesh.all_gather(t.contiguous(), "model", dim=2)
+        pad = [0, 0] * (t.dim() - 3) + [0, max_len - length]
+        full = torch.nn.functional.pad(t, pad)
+        rows = held_cache_len(cfg, max_len)
+        if rows != max_len:
+            r = mesh.coords["model"]
+            full = full[:, :, r * rows:(r + 1) * rows]
+        return full.contiguous()
+
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict) else one(v)
+                for k, v in tree.items()}
+    return walk(caches)
 
 
 def _expand(tree, L):
@@ -385,27 +599,34 @@ def _expand(tree, L):
 
 
 @torch.no_grad()
-def prefill(params, cfg, batch) -> tuple:
+def prefill(params, cfg, batch, layout="heads") -> tuple:
     """Full-sequence forward of batch["tokens"] (B, S), after
     batch["patch_embeds"] for a vision_patches config; returns (the last
     token's fp32 logits over the padded vocab, caches). The caches'
     sequence length is S plus the patches (extend them before decoding
-    further); a windowed layer's holds the last min(window, S)
-    positions."""
-    h, _, caches = backbone(params, cfg, batch, with_cache=True)
-    logits = unembed(params.embed, h[:, -1], cfg)
+    further; under the model axis a rank's rows, `held_cache_len`); a
+    windowed layer's holds the last min(window, S) positions."""
+    layout, _, emb = _prepare(params, cfg, layout)
+    h, _, caches = backbone(params, cfg, batch, with_cache=True,
+                            layout=layout, emb=emb)
+    logits = unembed_gathered(emb, h[:, -1], cfg)
     return logits.float(), caches
 
 
 @torch.no_grad()
-def decode_step(params, cfg, token, cache: Dict[str, Any], cache_pos: int):
+def decode_step(params, cfg, token, cache: Dict[str, Any], cache_pos: int,
+                layout="heads", cache_len=None):
     """token (B, 1) integer tensor; cache from init_cache(cfg, B,
     max_len), updated in place and returned; cache_pos = the number of
-    tokens already in the cache. Returns (fp32 logits (B, Vp), cache)."""
+    tokens already in the cache; `cache_len` the caches' whole length
+    when their rows are held over 'model' (`held_cache_len`). Returns
+    (fp32 logits (B, Vp), cache)."""
     cache_pos = int(cache_pos)
+    layout, _, emb = _prepare(params, cfg, layout)
     positions = cache_pos + torch.arange(1, device=token.device)
     h, _, cache = backbone(params, cfg, {"tokens": token},
                            positions=positions, caches=cache,
-                           cache_pos=cache_pos)
-    logits = unembed(params.embed, h[:, -1], cfg)
+                           cache_pos=cache_pos, layout=layout,
+                           cache_len=cache_len, emb=emb)
+    logits = unembed_gathered(emb, h[:, -1], cfg)
     return logits.float(), cache

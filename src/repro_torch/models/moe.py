@@ -19,10 +19,11 @@ rank's blocks). `moe_apply` takes JAX's branches:
     drops differ from tp = 1, as in JAX), packs, and one all_to_all of
     the (tp, E_loc·C, d) buffer over 'model' delivers each expert's
     tokens to its owner; the FFN runs on (E_loc, tp·C, d), a second
-    all_to_all brings the results back, and the layer's output is
-    gathered over 'model' (the port keeps the model axis replicated
-    outside the MoE layer; ROADMAP item 10.3b). `_hiaer_exchange` is
-    that exchange on a multi-pod mesh with `moe.hierarchical_a2a`.
+    all_to_all brings the results back, and the routed output is
+    gathered over 'model' (`Mesh.split` in, `Mesh.gather_from` out: the
+    replicated input's and output's gradients are whole on every rank,
+    the router's partial). `_hiaer_exchange` is that exchange on a
+    multi-pod mesh with `moe.hierarchical_a2a`.
   * decode on an FSDP config with a 'data' axis (`_decode_moe_2d`):
     experts 2-D (E over 'model', d over 'data'); tokens gathered over
     'data', partial pre-activations summed over 'data'. The shared
@@ -30,10 +31,13 @@ rank's blocks). `moe_apply` takes JAX's branches:
     routed experts' are, so each row's pre-activation sums its own
     d-slices. (JAX's code sums the data shards' different rows there;
     the port does not copy that: ROADMAP §3.)
-The aux loss is averaged over every axis of the mesh (JAX's pmean). The
-collectives are the mesh's autograd-aware ones, so the layer trains
-under tp > 1 (the backward of the all_to_all is the reverse all_to_all,
-of the output's gather a reduce-scatter).
+The shared experts (and the MoE family's dense first layer, an `MLP`)
+are the model axis's tensor-parallel MLP when held in their d_ff blocks
+(`layers.mlp_apply`): on the whole replicated input, column- then
+row-parallel; held whole they compute as on one device. The aux loss is
+averaged over every axis of the mesh (JAX's pmean). The collectives are
+the mesh's autograd-aware ones, so the layer trains under tp > 1 (the
+backward of the all_to_all is the reverse all_to_all).
 
 `moe_apply_sharded_ref` runs every shard's routing, exchange and FFN in
 one process with no collectives: the yardstick the ranks are held to.
@@ -66,6 +70,7 @@ class Shared(nn.Module):
 
     def __init__(self, d: int, f: int, gen: torch.Generator, dtype):
         super().__init__()
+        self.d_ff = f                    # the whole width, held or not
         self.w_in = dense_init(gen, (d, f), dtype)
         self.w_gate = dense_init(gen, (d, f), dtype)
         self.w_out = dense_init(gen, (f, d), dtype)
@@ -164,6 +169,13 @@ def _expert_ffn(p, cfg, toks):
 
 
 def _shared_ffn(sp, cfg, x):
+    """The shared experts on x (B, S, d): `layers.mlp_apply`'s gated
+    FFN, tensor-parallel when held in d_ff blocks."""
+    if sp.w_out.shape[0] < getattr(sp, "d_ff", sp.w_out.shape[0]):
+        mesh = get_mesh()
+        x = mesh.copy_to(x, "model")
+        return mesh.reduce_from(
+            _act(cfg, x @ sp.w_gate, x @ sp.w_in) @ sp.w_out, "model")
     return _act(cfg, x @ sp.w_gate, x @ sp.w_in) @ sp.w_out
 
 
@@ -281,8 +293,7 @@ def _seq_sharded(p, x, cfg, mesh: Mesh):
     if S % tp:
         raise ValueError(f"S = {S} does not split over {tp} model ranks")
     e_loc, s = E // tp, S // tp
-    j = mesh.coords["model"]
-    xl = x[:, j * s:(j + 1) * s]
+    xl = mesh.split(x, "model", dim=1)
     T = B * s
     xt = xl.reshape(T, d)
     w, ids, aux = _route(xt, p.router, cfg)
@@ -302,9 +313,9 @@ def _seq_sharded(p, x, cfg, mesh: Mesh):
     back = mesh.all_to_all(back, "model")
     y = _unpack(back.reshape(E * C, d), slot, keep, w, T,
                 mo.top_k).reshape(B, s, d)
+    y = mesh.gather_from(y, "model", dim=1)
     if hasattr(p, "shared"):
-        y = y + _shared_ffn(p.shared, cfg, xl)
-    y = mesh.all_gather(y, "model", dim=1)
+        y = y + _shared_ffn(p.shared, cfg, x)
     return y, mesh.pmean(aux, mesh.axis_names), keep
 
 

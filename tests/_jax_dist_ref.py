@@ -6,6 +6,7 @@ before jax is imported).
     python tests/_jax_dist_ref.py moe DIR
     python tests/_jax_dist_ref.py ckpt DIR
     python tests/_jax_dist_ref.py dp DIR
+    python tests/_jax_dist_ref.py tp DIR
 
 `moe`: for each case of DIR/cases.json, one MoE layer (`moe_init`,
 fp32) and a seeded input through `moe_apply` under `shard_map` on the
@@ -24,6 +25,16 @@ from both ranks' ZeRO-1 blocks); the batch `dp_batch` sharded by
 `batch_specs`, the parameters and the AdamW state by `params_specs` and
 `opt_specs`: the loss, parameters, mu and nu after each step. Writes
 DIR/jax_dp.npz.
+`tp`: each case of `tests/_torch_dist_ranks.py`'s `TP_CASES` on its
+(data, model) mesh of virtual devices, from the port's seeded parameters
+(its `lm.init_params`, seed 5, through `weights.params_to_jax`), placed
+by `params_specs` (the batch by `batch_specs`, the caches by
+`cache_specs`, the AdamW state by `opt_specs`): the jitted
+`make_prefill_step(cfg, layout)`'s logits and caches, `TP_TICKS` ticks
+of the jitted `make_decode_step` over the prefill's caches written into
+`init_cache(cfg, B, max_len)` (fp32), and for a case that trains the
+gradients of `loss_fn(..., layout)` and one jitted `make_train_step(cfg,
+oc, layout)`: loss, parameters, mu and nu. Writes DIR/jax_tp.npz.
 `ckpt`: for every family, reduced parameters (the shapes and dtypes of
 `lm.init_params`, the values drawn from numpy) and a random AdamW state
 saved with `save_tree` unsharded (DIR/<arch>/plain) and sharded over a
@@ -213,6 +224,70 @@ def run_dp(d):
     np.savez(d / "jax_dp.npz", **out)
 
 
+def run_tp(d):
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch
+    from _torch_dist_ranks import (TP_TICKS, tp_batch, tp_cases, tp_cfg,
+                                   tp_length, tp_ticks)
+    from repro.launch.steps import make_decode_step, make_prefill_step
+    from repro.optim import AdamWConfig as JOC
+    from repro_torch.configs import get_reduced as tget_reduced
+    from repro_torch.models import lm as tlm
+    from repro_torch.models.weights import params_to_jax
+    out = {}
+    for c in tp_cases():
+        t0 = time.perf_counter()
+        name, layout = c["name"], c["layout"]
+        cfg, tcfg = tp_cfg(get_reduced, c), tp_cfg(tget_reduced, c)
+        mesh = mesh_of(c["shape"], ("data", "model"))
+        batch0 = tp_batch(tcfg, c)
+        with mesh_context(mesh):
+            rules = ShardingRules(cfg, mesh, layout)
+            params = jax.tree.map(
+                lambda t: jnp.asarray(t.numpy()),
+                params_to_jax(tlm.init_params(tcfg, 5, torch.float32,
+                                              "cpu").state_dict(), tcfg))
+            shapes = jax.tree.map(
+                lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), params)
+            ps = rules.params_specs(shapes)
+            put = lambda t, s: jax.tree.map(  # noqa: E731
+                lambda a, sh: jax.device_put(a, sh), t, to_named(s, mesh))
+            params = put(params, ps)
+            batch = put({k: jnp.asarray(v) for k, v in batch0.items()},
+                        rules.batch_specs(batch0))
+            logits, caches = jax.jit(make_prefill_step(cfg, layout))(
+                params, batch)
+            out[f"{name}/logits"] = np.asarray(logits)
+            out.update(flat(caches, f"{name}/cache/"))
+            S_tot, T = tp_length(cfg, c), c["max_len"]
+            full = lm.init_cache(cfg, c["B"], T, dtype=jnp.float32)
+            full = jax.tree.map(lambda z, p: z.at[:, :, :S_tot].set(p),
+                                full, caches)
+            cache = put(full, rules.cache_specs(full))
+            dstep = jax.jit(make_decode_step(cfg, layout))
+            for t, tok in enumerate(tp_ticks(cfg, c)):
+                lg, cache = dstep(params, jnp.asarray(tok[:, None]), cache,
+                                  jnp.int32(S_tot + t))
+                out[f"{name}/tick{t}"] = np.asarray(lg)
+            out.update(flat(cache, f"{name}/decoded/"))
+            if c["train"]:
+                oc = JOC(**OC)
+                grads = jax.jit(jax.grad(lambda p, b: lm.loss_fn(
+                    p, cfg, b, layout=layout)[0]))(params, batch)
+                out.update(flat(grads, f"{name}/grad/"))
+                opt = put(adamw_init(params, oc),
+                          rules.opt_specs(shapes, ps))
+                params, opt, m = jax.jit(make_train_step(
+                    cfg, oc, layout=layout))(params, opt, batch)
+                out[f"{name}/loss"] = np.asarray(m["loss"])
+                out.update(flat(params, f"{name}/params/"))
+                out.update(flat(opt["mu"], f"{name}/mu/"))
+                out.update(flat(opt["nu"], f"{name}/nu/"))
+        print(f"{name}: {time.perf_counter() - t0:.1f} s ({TP_TICKS} "
+              f"ticks)", flush=True)
+    np.savez(d / "jax_tp.npz", **out)
+
+
 def run_ckpt(d):
     mesh = mesh_of((2, 4), ("data", "model"))
     for i, arch in enumerate(FAMILIES):
@@ -245,5 +320,5 @@ def run_ckpt(d):
 
 if __name__ == "__main__":
     mode, d = sys.argv[1], Path(sys.argv[2])
-    {"moe": run_moe, "ckpt": run_ckpt, "dp": run_dp}[mode](d)
+    {"moe": run_moe, "ckpt": run_ckpt, "dp": run_dp, "tp": run_tp}[mode](d)
     print("JAX-REF-OK")

@@ -4,6 +4,7 @@ jax.
 
     python tests/_torch_dist_ranks.py moe DIR STORE    # four ranks
     python tests/_torch_dist_ranks.py dp DIR STORE     # two ranks
+    python tests/_torch_dist_ranks.py tp DIR STORE     # four ranks
 
 `moe`: DIR holds `cases.json` (the expert-parallel cases: name, mesh
 shape and axis names, arch, config changes, B, S) and `jax_moe.npz`
@@ -27,6 +28,21 @@ state after step 2 saved by both ranks (each its ZeRO-1 blocks), then
 saved again over what an interrupted save of it left (zeroed blocks,
 every rank's marker), and restored on rank 0 through `reshard_tree`
 onto world size 1, then stepped once more.
+`tp` (the model axis): for each case of `TP_CASES` (arch, config
+changes, (data, model) mesh, attention layout, B, S, decode length,
+whether it trains) the case's ranks build the model's held blocks from the seed
+(`lm.init_params(..., mesh=)`), then write to `rank{r}.npz`: the
+prefill's logits and caches (`make_prefill_step`), the logits of
+`tp_ticks`' decode ticks over the prefill's caches extended to the
+decode length (`lm.extend_cache`, `make_decode_step`) and the caches
+after them, and for a case that trains the reduced gradients
+(`reduced_grads`), then one `make_train_step`'s loss, parameters and
+moments; rank 0 also runs the last case (the 2-D cache) at world size
+1 as "cache2d_w1". Ranks 0 and 1 take one case's gradients on a thread
+that opened no mesh context (`tp_threaded_backward`). Then `TP_SERVE`'s
+servers: each mesh's ranks serve
+two requests (`tp_serve`), and rank 0 serves them at world size 1. `tests/_jax_dist_ref.py tp` runs the same cases in
+JAX.
 Prints DIST-RANKS-OK when every rank passed.
 """
 import dataclasses
@@ -50,6 +66,7 @@ from repro_torch.distributed.context import (Mesh,  # noqa: E402
                                              batch_axes, mesh_context)
 from repro_torch.distributed.elastic import reshard_tree  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.sharding import shard_params  # noqa: E402
 from repro_torch.launch.steps import (held_specs,  # noqa: E402
                                       init_opt_state, make_train_step)
 from repro_torch.models import lm  # noqa: E402
@@ -129,10 +146,11 @@ def ep_train(rank, ref, out):
     if mesh is None:
         return
     tree = nest({k: ref[k] for k in ref.files}, "ep/init/")
-    model = lm.init_params(cfg, dtype=torch.float32, device="cpu")
-    model.load_state_dict(params_from_jax(tree, cfg))
+    model = lm.init_params(cfg, dtype=torch.float32, device="cpu",
+                           mesh=mesh)
+    model.load_state_dict(shard_params(params_from_jax(tree, cfg), cfg,
+                                       mesh))
     with mesh_context(mesh):
-        moe.shard_experts(model, cfg, mesh)
         oc = AdamWConfig(**OC)
         opt = init_opt_state(model, oc, cfg, mesh)
         step = make_train_step(cfg, oc, device="cpu")
@@ -249,6 +267,183 @@ def dp_and_elastic(rank, d, out):
         out[f"el/2/params/{n}"] = p.numpy()
 
 
+# the model axis's cases: name, arch, config changes, (data, model),
+# layout, B, S, decode length (every case decodes `TP_TICKS` ticks),
+# whether it trains
+TP_TICKS = 4
+TP_CASES = [
+    ("qwen25_heads_1x4", "qwen2_5_3b", {}, (1, 4), "heads", 2, 16, 24, True),
+    ("qwen2_heads_1x2", "qwen2_7b", {}, (1, 2), "heads", 2, 16, 24, True),
+    ("qwen2_seq_1x4", "qwen2_7b", {}, (1, 4), "seq", 2, 16, 24, True),
+    ("gemma_heads_2x2", "gemma_7b", {}, (2, 2), "heads", 2, 16, 24, True),
+    ("llava_seq_2x2", "llava_next_mistral_7b", {}, (2, 2), "seq", 2, 16,
+     32, True),
+    ("musicgen_seq_1x2", "musicgen_medium", {}, (1, 2), "seq", 2, 16, 24,
+     True),
+    ("moe_heads_1x2", "deepseek_moe_16b", {}, (1, 2), "heads", 2, 16, 24,
+     True),
+    ("moe_heads_1x4", "deepseek_moe_16b", {}, (1, 4), "heads", 2, 16, 24,
+     False),
+    ("qwen25_seq_2x2", "qwen2_5_3b", {}, (2, 2), "seq", 2, 16, 24, True),
+    ("llama_fsdp_2x2", "llama3_405b", {"fsdp": True}, (2, 2), "heads", 2,
+     16, 24, True),
+    ("cache2d_1x2", "qwen2_7b", {}, (1, 2), "heads", 1, 4096, 8192, False),
+]
+TP_KEYS = ("name", "arch", "cfg", "shape", "layout", "B", "S", "max_len",
+           "train")
+
+
+def tp_cases():
+    return [dict(zip(TP_KEYS, c)) for c in TP_CASES]
+
+
+def tp_cfg(get_reduced_fn, c):
+    """A case's config from a package's `get_reduced`."""
+    return dataclasses.replace(get_reduced_fn(c["arch"]), **c["cfg"])
+
+
+def tp_batch(cfg, c):
+    """A case's global batch (numpy): tokens, and 8 seeded patch
+    embeddings a row for a vision_patches config."""
+    rng = np.random.default_rng(c["S"] + 31 * c["B"])
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (c["B"], c["S"]))}
+    if cfg.frontend == "vision_patches":
+        out["patch_embeds"] = rng.normal(
+            0, 1, (c["B"], cfg.n_patch_tokens, cfg.d_model)).astype(
+                np.float32)
+    return out
+
+
+def tp_ticks(cfg, c):
+    """The decode ticks' tokens (TP_TICKS, B)."""
+    rng = np.random.default_rng(7 + c["B"])
+    return rng.integers(0, cfg.vocab_size, (TP_TICKS, c["B"]))
+
+
+def tp_length(cfg, c) -> int:
+    """The prefill's positions: S plus the patches."""
+    return c["S"] + (cfg.n_patch_tokens if cfg.frontend == "vision_patches"
+                     else 0)
+
+
+def flat_tree(tree, prefix, out):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            flat_tree(v, f"{prefix}{k}/", out)
+        else:
+            out[prefix + k] = v.detach().numpy().copy()
+
+
+def tp_case(c, mesh, out):
+    from repro_torch.launch.steps import (make_decode_step,
+                                          make_prefill_step, reduced_grads)
+    name, layout = c["name"], c["layout"]
+    cfg = tp_cfg(get_reduced, c)
+    batch = {k: torch.from_numpy(v) for k, v in tp_batch(cfg, c).items()}
+    model = lm.init_params(cfg, 5, torch.float32, "cpu", mesh=mesh,
+                           layout=layout)
+    logits, caches = make_prefill_step(cfg, layout)(model, batch)
+    out[f"{name}/logits"] = logits.numpy()
+    flat_tree(caches, f"{name}/cache/", out)
+    S_tot = tp_length(cfg, c)
+    cache = lm.extend_cache(caches, cfg, S_tot, c["max_len"])
+    step = make_decode_step(cfg, layout, max_len=c["max_len"])
+    for t, tok in enumerate(tp_ticks(cfg, c)):
+        lg, cache = step(model, torch.from_numpy(tok[:, None]), cache,
+                         S_tot + t)
+        out[f"{name}/tick{t}"] = lg.numpy()
+    flat_tree(cache, f"{name}/decoded/", out)
+    if not c["train"]:
+        return
+    oc = AdamWConfig(**OC)
+    opt = init_opt_state(model, oc, cfg, mesh, layout)
+    _, grads, _ = reduced_grads(model, cfg, batch, mesh, layout=layout)
+    for n, g in grads.items():
+        out[f"{name}/grad/{n}"] = g.numpy()
+    model, opt, m = make_train_step(cfg, oc, layout=layout,
+                                    device="cpu")(model, opt, batch)
+    out[f"{name}/loss"] = m["loss"].numpy()
+    for n, p in model.state_dict().items():
+        out[f"{name}/params/{n}"] = p.numpy()
+    for k in ("mu", "nu"):
+        for n, t in opt[k].items():
+            out[f"{name}/{k}/{n}"] = t.numpy()
+
+
+# the Server on a mesh with a model axis: arch, (data, model), layout
+TP_SERVE = [("qwen2_5_3b", (1, 4), "heads"), ("qwen2_7b", (1, 2), "seq")]
+
+
+def tp_serve(arch, layout, out, key):
+    """Two requests through a 2-slot `Server` (seed 5, fp32), 4 ticks:
+    the slots' greedy tokens into `out`."""
+    from repro_torch.launch.serve import Server
+    cfg = get_reduced(arch)
+    srv = Server(cfg, max_len=24, slots=2, seed=5, device="cpu",
+                 layout=layout)
+    rng = np.random.default_rng(11)
+    for _ in range(2):
+        srv.admit(rng.integers(1, cfg.vocab_size, 6).tolist())
+    for _ in range(4):
+        srv.tick()
+    out[key] = np.asarray(srv.outputs)
+
+
+def tp_threaded_backward(mesh, out):
+    """The "qwen2_heads_1x2" case's loss (remat on) under the mesh's
+    context, its gradients taken, while the context is open, on a thread
+    that opened none (as autograd's CUDA backward thread, which runs the
+    checkpoints' recompute): "threaded/grad/<name>"."""
+    import threading
+    c = next(c for c in tp_cases() if c["name"] == "qwen2_heads_1x2")
+    cfg = tp_cfg(get_reduced, c)
+    assert cfg.remat
+    batch = {k: torch.from_numpy(v) for k, v in tp_batch(cfg, c).items()}
+    model = lm.init_params(cfg, 5, torch.float32, "cpu", mesh=mesh)
+    names, leaves = zip(*model.named_parameters())
+    got = {}
+    with mesh_context(mesh):
+        loss, _ = lm.loss_fn(model, cfg, batch)
+        t = threading.Thread(target=lambda: got.update(zip(
+            names, torch.autograd.grad(loss, leaves))))
+        t.start()
+        t.join()
+    for n, g in got.items():
+        out[f"threaded/grad/{n}"] = g.numpy()
+
+
+def tp_body(rank, world, d):
+    torch.set_num_threads(1)
+    d = Path(d)
+    out = {}
+    for c in tp_cases():
+        n = int(np.prod(c["shape"]))
+        mesh = make_mesh(c["shape"], ("data", "model"), ranks=list(range(n)))
+        if mesh is None:
+            continue
+        with mesh_context(mesh):
+            tp_case(c, mesh, out)
+    for arch, shape, layout in TP_SERVE:
+        n = int(np.prod(shape))
+        mesh = make_mesh(shape, ("data", "model"), ranks=list(range(n)))
+        if mesh is not None:
+            with mesh_context(mesh):
+                tp_serve(arch, layout, out, f"serve/{arch}/{layout}")
+        if rank == 0:
+            with mesh_context(Mesh((1, 1), ("data", "model"))):
+                tp_serve(arch, layout, out, f"serve/{arch}/w1")
+    mesh = make_mesh((1, 2), ("data", "model"), ranks=[0, 1])
+    if mesh is not None:
+        tp_threaded_backward(mesh, out)
+    if rank == 0:       # the 2-D cache case again at world size 1
+        c = dict(tp_cases()[-1], name="cache2d_w1")
+        one = Mesh((1, 1), ("data", "model"))
+        with mesh_context(one):
+            tp_case(c, one, out)
+    np.savez(d / f"rank{rank}.npz", **out)
+    torch.distributed.barrier()
+
+
 def moe_body(rank, world, d):
     torch.set_num_threads(1)
     d = Path(d)
@@ -271,7 +466,8 @@ def dp_body(rank, world, d):
 
 def main(argv):
     mode, d, store = argv[1], argv[2], argv[3]
-    body, world = {"moe": (moe_body, 4), "dp": (dp_body, 2)}[mode]
+    body, world = {"moe": (moe_body, 4), "dp": (dp_body, 2),
+                   "tp": (tp_body, 4)}[mode]
     pg.spawn(body, world, store, args=(d,), timeout_s=240.0,
              collective_timeout_s=120.0)
     print("DIST-RANKS-OK")

@@ -33,7 +33,7 @@ from repro_torch.configs import get_reduced
 from repro_torch.distributed.context import Mesh
 from repro_torch.distributed.elastic import reshard_tree
 from repro_torch.launch import train as ttrain
-from repro_torch.launch.sharding import ShardingRules
+from repro_torch.launch.sharding import ShardingRules, model_axis
 from repro_torch.models.weights import (opt_state_from_jax, opt_state_to_jax,
                                         params_from_jax, params_to_jax)
 
@@ -139,7 +139,7 @@ def test_jax_restores_port_checkpoints(saved, tmp_path, arch, sharded):
         specs = {"params": rules.held_params_specs(state),
                  "opt": rules.held_opt_specs(state)}
         assert any("model" in s for s in specs["params"].values()) == \
-            (cfg.moe is not None)
+            (cfg.moe is not None or model_axis(cfg))
         for r in reversed(range(8)):          # rank 0 last: the index
             m = Mesh((2, 4), ("data", "model"), rank=r)
             blocks = {"params": reshard_tree(state, cfg, m, "params",
@@ -155,6 +155,52 @@ def test_jax_restores_port_checkpoints(saved, tmp_path, arch, sharded):
                                jax_like(arch))
     assert jaux == {**aux, "step": 7}
     assert_tree_bits(as_numpy(tree), ref)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_port_restores_its_blocks_of_a_sharded_jax_save(saved, arch,
+                                                        monkeypatch):
+    """JAX's save sharded by `ShardingRules` on (data 2, model 4):
+    `restore_blocks` gives each rank the blocks it holds (`held_spec`,
+    `held_moment_spec`) bit for bit equal to the slices of JAX's own
+    restore, reading only the shard files that overlap each block (a
+    model-sharded leaf: one shard of four), never the whole leaf."""
+    from repro_torch.checkpoint import store
+    from repro_torch.launch.sharding import local_slice, rank_coords
+    ref, aux = jax_state(saved, arch)
+    cfg = get_reduced(arch)
+    state = params_from_jax(ref["params"], cfg)
+    opt = opt_state_from_jax(ref["opt"], cfg)
+    mesh = Mesh((2, 4), ("data", "model"))
+    rules = ShardingRules(cfg, mesh, "heads")
+    specs = {"params": rules.held_params_specs(state),
+             "opt": rules.held_opt_specs(state)}
+    read = []
+    load = store.np.load
+    monkeypatch.setattr(store.np, "load", lambda f, *a, **k: (
+        read.append(Path(f).name), load(f, *a, **k))[1])
+    monkeypatch.setattr(store, "_load", None)      # no whole-leaf reads
+    for r in range(8):
+        coords = rank_coords(mesh, r)
+        read.clear()
+        got, gaux = store.restore_blocks(saved / arch / "sharded",
+                                         port_like(state), specs, mesh,
+                                         coords)
+        assert gaux == aux
+        for kind, tree in (("params", state), ("mu", opt["mu"]),
+                           ("nu", opt["nu"])):
+            blocks = got["params"] if kind == "params" else got["opt"][kind]
+            sp = specs["params"] if kind == "params" else \
+                specs["opt"][kind]
+            for n, t in tree.items():
+                want = t[local_slice(sp[n], t.shape, mesh, coords)]
+                assert blocks[n].dtype == want.dtype, (kind, n)
+                assert np.array_equal(t_bits(blocks[n]), t_bits(want)), \
+                    (r, kind, n)
+        assert int(got["opt"]["step"]) == int(opt["step"])
+        if model_axis(cfg):
+            mine = [f for f in read if f.startswith("params__embed__table")]
+            assert len(mine) == 1, mine
 
 
 @pytest.mark.parametrize("arch", FAMILIES)

@@ -352,8 +352,9 @@ def test_launch_train_local_mesh_under_torchrun_then_world_one(tmp_path,
                                                               capsys):
     """`torchrun --nproc-per-node 2 -m repro_torch.launch.train --mesh
     local --compress int8` on the reduced MoE: a (1, 2) mesh, experts
-    split over the two ranks, rank 0 logging each step; its checkpoint
-    (the experts' blocks as shards) resumes at world size 1 through
+    and the dense layers' heads, d_ff and vocab split over the two
+    ranks, rank 0 logging each step; its checkpoint (the held blocks as
+    shards, the norms whole) resumes at world size 1 through
     `reshard_tree` and runs on."""
     import os
     import re
@@ -372,7 +373,8 @@ def test_launch_train_local_mesh_under_torchrun_then_world_one(tmp_path,
     assert [ln.split(":")[0] for ln in lines] == ["step 0", "step 1"], lines
     files = {p.name for p in (ck / "step_00000002").iterdir()}
     assert "params__blocks__moe__w_in.shard1.npy" in files
-    assert "params__embed__table.npy" in files
+    assert "params__embed__table.shard1.npy" in files
+    assert "params__final_norm__scale.npy" in files
     assert all(np.isfinite(float(re.search(r"loss=(\S+)", ln).group(1)))
                for ln in lines)
     from repro_torch.launch import train as ttrain
