@@ -105,14 +105,14 @@ raises and the script exits non-zero:
      seed's weights on the card and on the CPU (TF32 off; the CPU
      reference prefill on one thread, its seconds printed): `prefill` at
      S = 512, last-token logits within 1e-3 and K/V caches within 1e-4;
-     the slot `Server` answering 4 requests (prompt 8, max_new 8) with
+     the slot `Server` answering 2 requests (prompt 4, max_new 4) with
      the same greedy tokens, but where the CPU's top-2 logit margin is
      under 1e-3 (such near-ties are counted and reported); if the
      prefill check fails, both sides run once more first and the script
      prints card vs card, CPU vs CPU, the CPU's thread count, the fp32
      matmul precision and where the largest errors lie, then fails;
  12. the full 36-layer Qwen2.5-3B (3.09 B parameters) on the card: the
-     `Server` in fp32, 4 slots, prompt 16, max_new 16, every request
+     `Server` in fp32, 4 slots, prompt 8, max_new 8, every request
      answered; then the same weights in bf16 through `prefill` at B = 1,
      S = 4,096: finite logits, a (36, 1, 4096, 2, 128) cache, and the
      flash kernel launched once per layer (36);
@@ -132,7 +132,7 @@ raises and the script exits non-zero:
      the forward-with-lse kernel and both backward kernels;
  15. the full 36-layer Qwen2.5-3B training on the card: bf16 parameters,
      fp32 AdamW moments, `make_train_step` on `TokenPipeline` batches at
-     B = 1, S = 4,096, 4 steps: every loss and grad norm finite, the
+     B = 1, S = 4,096, 3 steps: every loss and grad norm finite, the
      parameters changed, and each step launches the forward-with-lse
      kernel 72 times (the remat recomputes it), each backward kernel 36
      times and the prefill's forward none; step time, tokens/s and peak
@@ -146,7 +146,7 @@ raises and the script exits non-zero:
      kept events, dropped-event count and output (within 1e-4 of its
      max) equal on the tokens before the first that parted, logits within
      1e-3 and caches within 1e-4 when none parted; the `Server` as in
-     phase 11 (4 requests, prompt 8, max_new 8), a stream free to part
+     phase 11 (2 requests, prompt 4, max_new 4), a stream free to part
      from the first decode call whose routing parted at a near-tie; the
      training parity of phase 14 at B = 1, S = 128 (gradients, the fp32
      routers included, the aux loss within 1e-5 relative, one
@@ -185,11 +185,11 @@ raises and the script exits non-zero:
      held each step; the `Server` as in phase 11; the training parity of
      phase 14 at B = 1, S = 512 (gradients, one `make_train_step`); (d)
      the full model (48 / 26 layers, 0.78 B / 2.68 B parameters) in bf16,
-     weights drawn on the card: the `Server` with 4 slots, prompt 16,
-     max_new 16 (ms a tick); `prefill` at B = 1, S = 4,096 (finite
+     weights drawn on the card: the `Server` with 4 slots, prompt 8,
+     max_new 8 (ms a tick); `prefill` at B = 1, S = 4,096 (finite
      logits, every cache leaf's shape, the flash kernel once per
      attention layer: 0 / 8; ms, tokens/s); training with fp32 moments,
-     `make_train_step` on `TokenPipeline` at B = 1, S = 4,096, 3 steps:
+     `make_train_step` on `TokenPipeline` at B = 1, S = 4,096, 2 steps:
      finite losses and grad norms, weights of the first and last layers
      changed, per step the forward with lse launched twice and each
      backward kernel once per attention layer (remat); step ms,
@@ -213,9 +213,9 @@ raises and the script exits non-zero:
      and 16 routed experts (1 dense + 1 MoE layer; routing recorded and
      held but at near-ties), LLaVA with 576 seeded patch embeddings
      before the text; then the model at full width in bf16, served (4
-     slots, prompt 16, max_new 16), prefilled at B = 1 and 4,096
+     slots, prompt 8, max_new 8), prefilled at B = 1 and 4,096
      positions (LLaVA: 576 patches + 3,520 tokens; finite logits, every
-     cache leaf's shape, the flash kernel once a layer) and trained 3
+     cache leaf's shape, the flash kernel once a layer) and trained 2
      steps at B = 1, S = 4,096 (finite losses and grad norms, the first
      and last layers' weights changed, per step the forward with lse
      twice and each backward kernel once a layer): DeepSeek-V2 cut to 4
@@ -280,10 +280,10 @@ raises and the script exits non-zero:
      GRAD_TOL, the step on rank 0's blocks within STEP_TOL of lr; then
      Qwen2-7B whole in bf16 in both layouts: prefill at B = 1, S =
      4,096, a tick over a 4,128-row cache held over 'model', and a
-     train step at TP_FULL's 14 layers (fp32 moments): ms, peak bytes a
+     train step at TP_FULL's 6 layers (fp32 moments): ms, peak bytes a
      rank, each collective's calls, bytes and ms (`distributed.mesh.
      tally`); (c) the 2-layer fp32 model's prefill at 4,096 positions
-     into a T = 8,192 cache (2,048 rows a rank) and 16 greedy ticks,
+     into a T = 8,192 cache (2,048 rows a rank) and 8 greedy ticks,
      equal to world size 1's; (d) llama3-405b with FSDP and its
      sequence-parallel residual on (data 2, model 2): at its published
      widths cut to 1 layer in bf16, a prefill at B = 2, S = 4,096; its
@@ -292,6 +292,25 @@ raises and the script exits non-zero:
      the ranks). Every rank launches kernels 4-6 on every path.
      `[dist tp*]` lines, `[phase 26]`; phase 6 times the seq blocks at
      every q_start (`[time offset kernels]`, `[time offset imbalance]`);
+ 27. the model axis on MLA, the SSM and the RG-LRU (item 10.3c), in the
+     same ranks after phase 26: (a) DeepSeek-V2 (24(b)'s narrowed
+     widths, 2 layers, its MoE at a capacity of every token and without
+     the aux loss, both per-shard by design) on (1, 4) and with FSDP on
+     (2, 2), Mamba2-780m at 2 layers on (1, 4), RecurrentGemma-2B at 3
+     layers in "seq" on (1, 4) (10 heads; its gates cut mid-block) and in
+     "heads" on (1, 2), fp32 against world size 1 on rank 0: prefill
+     logits and caches, 4 decode ticks, on (1, tp) a Server's greedy
+     tokens, one train step's loss, gradients and step (phase 26(b)'s
+     tolerances); (b) the three at published widths in bf16 on (1, 4)
+     (DeepSeek-V2 at MLA_SERVE layers): a prefill at B = 1, S = 4,096, a
+     tick at 4 slots, a train step at TP27_TRAIN's layers; (c) MLA's
+     2-D compressed cache: a prefill at 4,096 positions into 8,192 rows
+     held over 'model', greedy ticks == world size 1's; (d)
+     RecurrentGemma-2B's seq block at tp = 4 (q (1, 10, 1,024, 256)
+     against k/v (1, 1, 4,096, 256), window 2,048) at every q_start among
+     26(a)'s cases, and timed in phase 6 (`[time offset imbalance
+     hybrid]`). Kernels 4-6 launch on every rank of every path that
+     attends. `[dist tp27*]` lines, `[phase 27]`;
  17. the serving tier at full width: one `SpikeServer` (max_batch 8,
      max_wait 2 ms, window 16) holding the core on the fused engine (8
      session lanes) and the MLP on the simulator (4), both deployed by
@@ -344,8 +363,8 @@ raises and the script exits non-zero:
      simulator, every output potential or spike count equal to
      `apply_quantized` / `simulate_quantized`, HiAER accuracy (and the
      DQN's score) equal to software's, each path's kernel and
-     split_randint launched once a step; 8 samples of each row equal
-     on the CPU port; then 8 steps of STDP on the converted MLP and on
+     split_randint launched once a step; 4 samples of each row equal
+     on the CPU port; then 4 steps of STDP on the converted MLP and on
      tests/test_learning.py's network, card and CPU port in lockstep
      (spikes and weight columns every step, then the traces); train,
      compile and inference times, accuracies, peak device memory and
@@ -370,8 +389,8 @@ raises and the script exits non-zero:
      (`distributed_engine`) on a (data 2, model 4) `DeviceMesh` over the
      same ranks, W = 512, int16 weights, at 625,000 neurons a rank
      (160 M / 256, the dense bool wire) and 625,024 (the packed wire):
-     4 steps with every rank's V and spikes equal to its plain step over
-     the gathered spikes, spike_matmul and lif_step once a step, then 4
+     2 steps with every rank's V and spikes equal to its plain step over
+     the gathered spikes, spike_matmul and lif_step once a step, then 2
      timed steps. Then (phase 21(c)) the same ranks serve the artifact
      at n_devices 8: rank 0 leads a `SpikeServer` behind an in-process
      `Portal`, every other rank deploys it and replays rank 0's calls
@@ -489,24 +508,24 @@ BF16_TC_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 HEAD_START_CYCLES = 2_000_000  # ~1 ms of the card's clock before a timing
 LM_ARCH = "qwen2_5_3b"        # configs/qwen2_5_3b.py at its published widths
 LM_PREFILL = (1, 4096)        # prefill batch and length on the full model
-LM_SERVE = (4, 16, 16)        # Server slots, prompt length, max_new
-PARITY_SERVE = (4, 8, 8)      # the same on the 2-layer card-vs-CPU model
+LM_SERVE = (4, 8, 8)          # Server slots, prompt length, max_new
+PARITY_SERVE = (2, 4, 4)      # the same on the 2-layer card-vs-CPU model
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 LM_TOL = 1e-3                 # 2-layer fp32 logits, card vs CPU
-LM_TRAIN = (1, 4096, 4)       # training batch, length and steps, full model
+LM_TRAIN = (1, 4096, 3)       # training batch, length and steps, full model
 PARITY_TRAIN = (1, 256)       # the same on the 2-layer card-vs-CPU model
 STEP_TOL = 1e-4               # an AdamW step against its formula, of its max
 MOE_ARCH = "deepseek_moe_16b"  # its published widths (configs/)
 # card vs CPU in fp32: the layers (1 dense + 2 MoE), the prefill length
 # (C = 40 there, so events drop) and the training parity's B, S
 MOE_PARITY = (2, 256, (1, 128))
-MOE_SERVE = (4, 16, 16)       # the full model's Server: slots, prompt, max_new
+MOE_SERVE = (4, 8, 8)         # the full model's Server: slots, prompt, max_new
 MOE_PREFILL = (1, 4096)       # the full model's bf16 prefill: B, S
 # training at full width: layers, B, S, steps. The most layers that fit:
 # peak device memory grows 7.06 GB a layer (44.70 GB at 6, 58.81 GB at
 # 8 on the H100), so 10 layers peak near 73 GB, and 11 (~80 GB) would
 # leave too little of the card's 85.5 GB beside the earlier phases' tensors
-MOE_TRAIN = (10, 1, 4096, 3)
+MOE_TRAIN = (10, 1, 4096, 2)
 ROUTE_NEAR = 1e-5             # a CPU probability margin under it: a near-tie
 MHA_SHAPE = (1, 4096, 16, 16, 128)  # its attention's (B, S, H, KV, D)
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # of max |ref|
@@ -2400,9 +2419,9 @@ FAMILY_PARITY = {SSM_ARCH: (1, 512, 4, (1, 512)),
                  HYBRID_ARCH: (4, 512, 4, (1, 512))}
 PARITY_WINDOW = 256
 CACHE_TOL = 1e-4               # 23(c): a cache leaf, of max(1, its max |.|)
-FAMILY_SERVE = (4, 16, 16)     # the full models' Server: slots, prompt, max_new
+FAMILY_SERVE = (4, 8, 8)       # the full models' Server: slots, prompt, max_new
 FAMILY_PREFILL = (1, 4096)     # their bf16 prefill: B, S
-FAMILY_TRAIN = (1, 4096, 3)    # their bf16 training: B, S, steps
+FAMILY_TRAIN = (1, 4096, 2)    # their bf16 training: B, S, steps
 
 
 def family_config(arch, n_layers=None, window=None):
@@ -2919,7 +2938,7 @@ def run_families(dev, seed: int, zero_counts, read_counts, card: str,
     """Per model of `models` (tag, arch, parity config and shape, served
     config, trained config): (c) card vs CPU at a cut depth
     (`family_parity`), then (d) served and prefilled in bf16
-    (`run_family_full`) and trained 3 steps at FAMILY_TRAIN
+    (`run_family_full`) and trained FAMILY_TRAIN's steps
     (`run_lm_train`: finite losses and grad norms, `train_watch`'s
     weights changed, per step the forward with lse twice and each
     backward kernel once per attention layer). Adds each path's launch
@@ -3129,7 +3148,7 @@ EP_CASES = (
      {"capacity_factor": 0.5}),
 )
 EP_TOL = 1e-5                  # of max |ref|, fp32, ranks vs the reference
-EP_REPS = 3                    # timed bf16 calls of each case's layer
+EP_REPS = 1                    # timed bf16 calls of each case's layer
 DP_PARITY = (2, 2, 1024)       # 25(b) fp32 parity: layers, B, S
 DP_TRAIN = (2, 4096)           # 25(b) bf16 MusicGen: global B, S
 DP_STEPS = (("int8", 2), ("topk", 1))   # compressor, steps
@@ -3566,10 +3585,10 @@ def dp_train(rank, seed: int, dev, mesh, kernels) -> dict:
 
 
 def dist_rank(rank: int, world: int, work: str, seed: int) -> None:
-    """Phases 25 and 26 on one of the DIST_RANKS ranks that share the
-    card (spawned, gloo, started once for both): 25(a) on every rank,
-    then 25(b) and (c) on ranks 0 and 1 while the others wait, then
-    phase 26's ranks (`tp_rank`) on all. Writes its numbers to
+    """Phases 25, 26 and 27 on one of the DIST_RANKS ranks that share the
+    card (spawned, gloo, started once for all three): 25(a) on every
+    rank, then 25(b) and (c) on ranks 0 and 1 while the others wait, then
+    phase 26's ranks (`tp_rank`) and phase 27's (`tp27_rank`) on all. Writes its numbers to
     `work`/dist<r>.json; any check that fails raises, which fails the
     phase."""
     sys.path.insert(0, str(ROOT / "src"))
@@ -3598,12 +3617,16 @@ def dist_rank(rank: int, world: int, work: str, seed: int) -> None:
     torch.cuda.empty_cache()
     report["tp"] = tp_rank(rank, seed, dev)          # phase 26
     dist.barrier()
+    torch.cuda.empty_cache()
+    report["tp27"] = tp27_rank(rank, seed, dev)      # phase 27
+    dist.barrier()
     (work / f"dist{rank}.json").write_text(json.dumps(report))
 
 
 def phase_dist(seed: int, card: str) -> dict:
-    """Phases 25 (the distribution slice) and 26 (the model axis,
-    `phase_tp`): DIST_RANKS gloo ranks on the card (`dist_rank`). Logs
+    """Phases 25 (the distribution slice), 26 and 27 (the model axis,
+    `phase_tp`, `phase_tp27`): DIST_RANKS gloo ranks on the card
+    (`dist_rank`). Logs
     `[dist*]` lines; returns the ranks' launch counts by path."""
     from repro_torch.distributed import mesh
     t_phase = time.perf_counter()
@@ -3688,11 +3711,13 @@ def phase_dist(seed: int, card: str) -> dict:
             f"second from the residual its first left); peak "
             f"{tr['peak_bytes'] / 1e9:.2f} GB; on {card}")
     paths.update(phase_tp(reps, card))
+    paths.update(phase_tp27(reps, card))
     log(f"[dist] {DIST_RANKS} gloo ranks on {reps[0]['device']}: "
         f"{ranks_s:.1f} s with their start (25(a) "
         f"{reps[0]['ep_s']:.1f} s, parity and elastic "
         f"{reps[0]['parity_s']:.1f} s, training {reps[0]['train_s']:.1f} "
-        f"s, phase 26 {reps[0]['tp']['s']:.1f} s); phases 25 and 26 "
+        f"s, phase 26 {reps[0]['tp']['s']:.1f} s, phase 27 "
+        f"{reps[0]['tp27']['s']:.1f} s); phases 25-27 "
         f"{time.perf_counter() - t_phase:.1f} s on {card}")
     return paths
 
@@ -3708,10 +3733,17 @@ FSDP_ARCH = "llama3_405b"      # configs/llama3_405b.py, published widths
 # window, ragged and unaligned offsets, D = 192 and 64, and a block
 # whose later keys no query sees (their dK/dV must be 0)
 SEQ_BLOCK = (1, 1024, 4096, 28, 4, 128)
+HYBRID_SEQ_BLOCK = (1, 1024, 4096, 10, 1, 256)   # its window: 2,048
+HYBRID_WINDOW = 2048
 OFFSET_CASES = [
     *(("seq block", SEQ_BLOCK, r * 1024, None, (1.0, 1.0))
       for r in range(4)),
     ("hybrid window", (1, 1024, 4096, 10, 1, 256), 2048, 2048, (1.0, 1.0)),
+    # 27(d): RecurrentGemma-2B's seq block at tp = 4 (10 heads do not
+    # divide over 4): the window and the query offset together, at every
+    # rank's q_start
+    *(("hybrid seq block", HYBRID_SEQ_BLOCK, r * 1024, 2048, (1.0, 1.0))
+      for r in range(4)),
     ("ragged, unaligned", (2, 333, 1500, 8, 2, 64), 1001, None, (1.0, 1.0)),
     ("ragged window", (1, 200, 1000, 4, 4, 192), 450, 129, (1.0, 1.0)),
     ("keys past the queries", (1, 300, 1000, 4, 2, 128), 77, None,
@@ -3796,8 +3828,8 @@ def check_offset_cases(dev, seed: int, cases=None) -> dict:
                  and max(e["dq"], e["dk"], e["dv"]) <= gtol,
                  f"26(a): flash kernels != plain versions on {tag}: {e} "
                  f"(tolerances {tol}, {gtol} of max |ref|)")
-            if name == "seq block":
-                blocks.setdefault(dtype, {})[q0] = (q, k, v, o)
+            if name.endswith("seq block"):
+                blocks.setdefault((name, W, dtype), {})[q0] = (q, k, v, o)
             errs[tag] = e
             log(f"[dist tp kernels] kernels == plain on {tag} (B, Sq, Sk, "
                 f"H, KV, D), q, k x {mul}: o {e['o']:.3g}, o with lse "
@@ -3812,23 +3844,26 @@ def check_offset_cases(dev, seed: int, cases=None) -> dict:
     # the seq blocks were drawn from one generator: put each block's q
     # into one sequence with the last block's k, v and compare the blocks
     # against the whole pass over it
-    for dtype, bl in blocks.items():
+    for (name, W, dtype), bl in blocks.items():
         if len(bl) < 2:
             continue
         _, k, v, _ = bl[max(bl)]
         q = torch.cat([bl[s][0] for s in sorted(bl)], dim=2)
         if q.shape[2] != k.shape[2]:
             continue
-        whole = flash_attention(q, k, v)
-        parts = torch.cat([flash_attention(bl[s][0], k, v, q_start=s)
+        whole = flash_attention(q, k, v, window=W)
+        parts = torch.cat([flash_attention(bl[s][0], k, v, window=W,
+                                           q_start=s)
                            for s in sorted(bl)], dim=2)
         d = float((whole.float() - parts.float()).abs().max())
-        need(d <= FLASH_TOL[dtype], f"26(a): the seq blocks != the whole "
+        need(d <= FLASH_TOL[dtype], f"26(a): the {name}s != the whole "
                                     f"pass ({d}) in {dtype}")
-        errs[f"blocks == whole {str(dtype)[6:]}"] = {
+        pre = "" if name == "seq block" else f"{name} "
+        errs[f"{pre}blocks == whole {str(dtype)[6:]}"] = {
             "o": d, "same_bits": bool(torch.equal(whole, parts))}
-        log(f"[dist tp kernels] {len(bl)} seq blocks == the whole causal "
-            f"pass in {str(dtype)[6:]}: max |d| {d:.3g}"
+        log(f"[dist tp kernels] {len(bl)} {name}s == the whole causal "
+            f"pass{f' (window {W})' if W else ''} in {str(dtype)[6:]}: max "
+            f"|d| {d:.3g}"
             + (" (the same bits)" if torch.equal(whole, parts) else ""))
     q, k, v = (torch.zeros((1, 2, 64, 64), device=dev) for _ in range(3))
     for q0 in (1, -1):
@@ -3843,56 +3878,66 @@ def check_offset_cases(dev, seed: int, cases=None) -> dict:
 
 
 def time_offset_kernels(dev, seed: int, flush, card: str, shape, q0: int,
-                        dtypes=(torch.bfloat16, torch.float32)) -> dict:
+                        dtypes=(torch.bfloat16, torch.float32),
+                        window=None) -> dict:
     """Kernels 4-6 on one seq block: (B, Sq, Sk, H, KV, D) at q_start q0,
-    causal: each kernel, its plain version and the library yardstick
-    (SDPA with the offset band as a boolean mask, the KV heads repeated;
+    causal, over each query's last `window` keys when given: each kernel,
+    its plain version and the library yardstick (SDPA with the offset
+    band, and the window, as a boolean mask, the KV heads repeated;
     autograd through it for the backward, its forward excluded). The
     bound counts B H D 2 pairs flops a product, pairs = Sq q0 + Sq (Sq +
-    1) / 2, at the card's peak rate for the type."""
+    1) / 2 without a window (each query's keys up to its position, at
+    most `window` of them with one), at the card's peak rate for the
+    type."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                          flash_attention_ref,
                                          flash_fwd_lse_ref)
     B, Sq, Sk, H, KV, D = shape
-    prod = 2 * B * H * D * offset_pairs(Sq, q0)   # flops of one product
-    out = {"shape": list(shape), "q_start": q0,
-           "pairs_per_head": offset_pairs(Sq, q0)}
+    W = window
+    pairs = offset_pairs(Sq, q0) if W is None else sum(
+        min(q0 + i + 1, W) for i in range(Sq))
+    prod = 2 * B * H * D * pairs                  # flops of one product
+    out = {"shape": list(shape), "q_start": q0, "window": W,
+           "pairs_per_head": pairs}
     for dtype in dtypes:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         q, k, v, do = offset_inputs(dev, gen, shape, dtype)
-        o, lse = fa.flash_fwd_lse(q, k, v, q_start=q0)
+        o, lse = fa.flash_fwd_lse(q, k, v, window=W, q_start=q0)
         delta = (do.float() * o.float()).sum(dim=-1).contiguous()
         rate = BF16_TC_FLOPS_PER_S if dtype == torch.bfloat16 \
             else SCALAR_OPS_PER_S
-        r = {"fwd": (time_ms(lambda: fa.flash_attention(q, k, v,
-                                                        q_start=q0),
-                             flush=flush),
-                     time_ms(lambda: flash_attention_ref(q, k, v, True, None,
+        r = {"fwd": (time_ms(lambda: fa.flash_attention(
+                         q, k, v, window=W, q_start=q0), flush=flush),
+                     time_ms(lambda: flash_attention_ref(q, k, v, True, W,
                                                          q0), flush=flush),
                      *bound(nbytes(q, k, v, q), 2 * prod, rate)),
-             "lse": (time_ms(lambda: fa.flash_fwd_lse(q, k, v, q_start=q0),
-                             flush=flush),
-                     time_ms(lambda: flash_fwd_lse_ref(q, k, v, True, None,
+             "lse": (time_ms(lambda: fa.flash_fwd_lse(
+                         q, k, v, window=W, q_start=q0), flush=flush),
+                     time_ms(lambda: flash_fwd_lse_ref(q, k, v, True, W,
                                                        q0), flush=flush),
                      *bound(nbytes(q, k, v, o, lse), 2 * prod, rate))}
         bwd_in = nbytes(q, k, v, do, lse, delta)
         r["dkv"] = (time_ms(lambda: fa._bwd_dkv(q, k, v, do, lse, delta,
-                                                True, 0, q0), flush=flush),
+                                                True, W or 0, q0),
+                            flush=flush),
                     *bound(bwd_in + nbytes(k, v), 4 * prod, rate))
         r["dq"] = (time_ms(lambda: fa._bwd_dq(q, k, v, do, lse, delta, True,
-                                              0, q0), flush=flush),
+                                              W or 0, q0), flush=flush),
                    *bound(bwd_in + nbytes(q), 3 * prod, rate))
         r["bwd"] = (time_ms(lambda: fa.flash_attention_bwd(
-            q, k, v, o, lse, do, q_start=q0), flush=flush),
+            q, k, v, o, lse, do, window=W, q_start=q0), flush=flush),
             time_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do,
-                                                    True, None, q0),
+                                                    True, W, q0),
                     flush=flush),
             *bound(nbytes(q, k, v, o, do, lse, q, k, v), 5 * prod, rate))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         i = torch.arange(Sk, device=dev)
-        band = i[None, :] <= (q0 + torch.arange(Sq, device=dev))[:, None]
+        qpos = (q0 + torch.arange(Sq, device=dev))[:, None]
+        band = i[None, :] <= qpos
+        if W is not None:
+            band &= i[None, :] > qpos - W
         qe = q.contiguous().requires_grad_()
         ke, ve = (t.repeat_interleave(H // KV, dim=1).contiguous()
                   .requires_grad_() for t in (k, v))
@@ -3907,7 +3952,9 @@ def time_offset_kernels(dev, seed: int, flush, card: str, shape, q0: int,
         name = str(dtype)[6:]
         f, fl, bw = r["fwd"], r["lse"], r["bwd"]
         log(f"[time offset kernels {name}] (B, Sq, Sk, H, KV, D) = "
-            f"{tuple(shape)}, q_start = {q0}: flash_attention {f[0]:.4f} ms "
+            f"{tuple(shape)}, q_start = {q0}"
+            f"{'' if W is None else f', window {W}'}: flash_attention "
+            f"{f[0]:.4f} ms "
             f"({2 * prod / f[0] / 1e9:.1f} TFLOP/s), plain {f[1]:.4f} ms, "
             f"bound {1e3 * f[2]:.2f} us ({f[3]}: {2 * prod} flops), "
             f"{f[0] / f[2]:.2f}x the bound, SDPA with the offset band "
@@ -3927,10 +3974,10 @@ def time_offset_kernels(dev, seed: int, flush, card: str, shape, q0: int,
 
 
 TP_PARITY = (2, 1024)          # 26(b) fp32 parity: layers, prefill/train S
-TP_SERVE = (4, 8, 8)           # its Server: slots, prompt, max_new
-TP_FULL = (4096, 14, 4128)     # 26(b) bf16 whole: prefill S, train layers,
+TP_SERVE = (2, 4, 4)           # its Server: slots, prompt, max_new
+TP_FULL = (4096, 6, 4128)      # 26(b) bf16 whole: prefill S, train layers,
 #                                the tick's cache rows (its T over 'model')
-TP_CACHE = (4096, 8192, 16)    # 26(c): prefill S, cache T, greedy ticks
+TP_CACHE = (4096, 8192, 8)     # 26(c): prefill S, cache T, greedy ticks
 FSDP_SHAPE = (1, 2, 4096)      # 26(d) bf16 at full width: layers, B, S
 # 26(d)'s training, fp32 against world size 1 at narrowed widths (a
 # layer's state at the published widths does not fit the card beside
@@ -3996,79 +4043,100 @@ def tp_compare(rank, mesh, cfg, layout, got, want, what, tol):
     return worst
 
 
-def tp_parity(rank, seed: int, dev, arch: str, layout: str, kernels
+def tp_parity(rank, seed: int, dev, cfg, shape, layout: str, S: int,
+              kernels, serve_shape, ticks: int = 0, what: str = "26(b)"
               ) -> dict:
-    """26(b)'s fp32 parity on the (1, 4) mesh: `arch` at its published
-    widths cut to TP_PARITY's layers, each rank its held blocks in
-    `layout`, against world size 1 on rank 0 (the whole weights of the
-    same seed): prefill logits (LM_TOL) and caches (CACHE_TOL), a
-    TP_SERVE Server's greedy tokens (parting only at a near-tie), and
-    one train step: loss (1e-5), every gradient gathered (GRAD_TOL of
-    its max), the parameters after it on rank 0's blocks (STEP_TOL of
-    the step's max where well-conditioned, 2 lr elsewhere: the update is
-    elementwise on the gradients held)."""
-    import dataclasses
-    from repro_torch.configs import get_arch
+    """fp32 parity of the model axis: `cfg` on a (data, model) mesh of
+    `shape` over the first ranks (the others idle), each rank its held
+    blocks in `layout`, against world size 1 on rank 0 (the whole
+    weights of the same seed): prefill logits (LM_TOL) and caches
+    (CACHE_TOL) of the rank's rows at S positions, `ticks` decode ticks
+    over them (LM_TOL), on a (1, tp) mesh a Server of `serve_shape`
+    (slots, prompt, max_new; its greedy tokens parting only at a
+    near-tie), and one train step: loss (1e-5), every gradient gathered
+    (GRAD_TOL of its max, from the step's first moments), the parameters
+    on rank 0's blocks (STEP_TOL of lr where well-conditioned, 2 lr
+    elsewhere: the update is elementwise on the gradients held)."""
     from repro_torch.distributed.context import Mesh, mesh_context
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.serve import Server
-    from repro_torch.launch.steps import (init_opt_state, make_prefill_step,
-                                          make_train_step)
+    from repro_torch.launch.steps import (init_opt_state, make_decode_step,
+                                          make_prefill_step, make_train_step)
     from repro_torch.models import lm
     from repro_torch.optim import AdamWConfig
-    L, S = TP_PARITY
-    cfg = dataclasses.replace(get_arch(arch), n_layers=L)
-    mesh = make_mesh((1, DIST_RANKS), DM)
+    n = int(np.prod(shape))
+    mesh = make_mesh(shape, DM, ranks=list(range(n)))
     one = Mesh((1, 1), DM)
+    B = shape[0]                                   # a row a data rank
     rng = np.random.default_rng(seed + 261)
     batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
-                                                    (1, S)), device=dev)}
-    res = {"layout": layout}
+                                                    (B, S)), device=dev)}
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (ticks, B, 1)),
+                           device=dev)
+    res = {"arch": cfg.name, "shape": list(shape), "layout": layout,
+           "fsdp": bool(cfg.fsdp) and shape[0] > 1}
+    if mesh is None:
+        return res
+    t0 = time.perf_counter()
+
+    def run(mm, model):
+        """Prefill, then the ticks: (logits, caches, [tick logits])."""
+        with mesh_context(mm):
+            lg, caches = make_prefill_step(cfg, layout)(model, batch)
+            tl = []
+            if ticks:
+                cache = lm.extend_cache(caches, cfg, S, S + ticks)
+                step = make_decode_step(cfg, layout, max_len=S + ticks)
+                for t in range(ticks):
+                    lgt, cache = step(model, toks[t], cache, S + t)
+                    tl.append(lgt)
+            return lg, caches, tl
     with mesh_context(mesh):
         model = lm.init_params(cfg, seed, torch.float32, dev, mesh=mesh,
                                layout=layout)
-        for k in kernels.values():
-            k.launches = 0
-        lg, caches = make_prefill_step(cfg, layout)(model, batch)
-        res["prefill_launches"] = {n: k.launches for n, k in kernels.items()}
+    for k in kernels.values():
+        k.launches = 0
+    lg, caches, tl = run(mesh, model)
+    res["prefill_launches"] = {n_: k.launches for n_, k in kernels.items()}
     w1 = None
     if rank == 0:
         with mesh_context(one):
             w1 = lm.init_params(cfg, seed, torch.float32, dev)
-            lg1, caches1 = lm.prefill(w1, cfg, batch)
-        res["logits_err"] = float((lg - lg1).abs().max())
-        need(res["logits_err"] <= LM_TOL, f"26(b) {arch} {layout}: prefill "
-                                          f"logits off by {res['logits_err']}")
-        res["cache_err"] = max(
-            float((caches["blocks"][n] - caches1["blocks"][n]).abs().max())
-            / max(1.0, float(caches1["blocks"][n].abs().max()))
-            for n in ("k", "v"))
-        need(res["cache_err"] <= CACHE_TOL, f"26(b) {arch} {layout}: caches "
-                                            f"off by {res['cache_err']}")
-        del lg1, caches1
-    del lg, caches
-    # the Server: every rank the same slots; rank 0 also at world size 1
-    slots, plen, max_new = TP_SERVE
-    prompts = prompts_for(cfg, slots, plen, seed + 263)
-    with mesh_context(mesh):
-        for k in kernels.values():
-            k.launches = 0
-        srv = Server(cfg, max_len=plen + max_new + 2, slots=slots,
-                     params=model, device=dev, layout=layout)
-        calls = record_decisions(srv)
-        got = serve(srv, prompts, max_new)
-        res["serve_launches"] = {n: k.launches for n, k in kernels.items()}
-        del srv
-    if rank == 0:
-        with mesh_context(one):
-            srv1 = Server(cfg, max_len=plen + max_new + 2, slots=slots,
-                          params=w1, device=dev)
-            calls1 = record_decisions(srv1)
-            serve(srv1, prompts, max_new)
-            del srv1
-        res["greedy"] = greedy_agreement(calls, calls1, prompts, got[0],
-                                         got[1])
-    # one train step
+        lg1, caches1, tl1 = run(one, w1)
+        rows = slice(0, lg.shape[0])         # rank 0's rows of the batch
+        res["logits_err"] = float((lg - lg1[rows]).abs().max())
+        res["cache_err"] = tree_gap(caches, caches1, rows)
+        res["tick_err"] = max([float((a - b[rows]).abs().max())
+                               for a, b in zip(tl, tl1)], default=0.0)
+        need(max(res["logits_err"], res["tick_err"]) <= LM_TOL
+             and res["cache_err"] <= CACHE_TOL,
+             f"{what} {cfg.name} {shape} {layout}: logits "
+             f"{res['logits_err']}, caches {res['cache_err']}, ticks "
+             f"{res['tick_err']}")
+        del lg1, caches1, tl1
+    del lg, caches, tl
+    if B == 1:                        # the Server: slots, one batch
+        slots, plen, max_new = serve_shape
+        prompts = prompts_for(cfg, slots, plen, seed + 263)
+        with mesh_context(mesh):
+            for k in kernels.values():
+                k.launches = 0
+            srv = Server(cfg, max_len=plen + max_new + 2, slots=slots,
+                         params=model, device=dev, layout=layout)
+            calls = record_decisions(srv)
+            got = serve(srv, prompts, max_new)
+            res["serve_launches"] = {n_: k.launches
+                                     for n_, k in kernels.items()}
+            del srv
+        if rank == 0:
+            with mesh_context(one):
+                srv1 = Server(cfg, max_len=plen + max_new + 2, slots=slots,
+                              params=w1, device=dev)
+                calls1 = record_decisions(srv1)
+                serve(srv1, prompts, max_new)
+                del srv1
+            res["greedy"] = greedy_agreement(calls, calls1, prompts, got[0],
+                                             got[1])
     oc = AdamWConfig(**PARITY_OC)
     with mesh_context(mesh):
         opt = init_opt_state(model, oc, cfg, mesh, layout)
@@ -4076,7 +4144,7 @@ def tp_parity(rank, seed: int, dev, arch: str, layout: str, kernels
             k.launches = 0
         model, opt, m = make_train_step(cfg, oc, layout=layout)(
             model, opt, batch)
-        res["train_launches"] = {n: k.launches for n, k in kernels.items()}
+        res["train_launches"] = {n_: k.launches for n_, k in kernels.items()}
     o1 = None
     if rank == 0:
         with mesh_context(one):
@@ -4084,23 +4152,32 @@ def tp_parity(rank, seed: int, dev, arch: str, layout: str, kernels
             w1, o1, m1 = make_train_step(cfg, oc)(w1, o1, batch)
         res["loss"], res["loss_w1"] = float(m["loss"]), float(m1["loss"])
         need(abs(res["loss"] - res["loss_w1"]) <= 1e-5,
-             f"26(b) {arch} {layout}: loss {res['loss']} vs {res['loss_w1']}")
+             f"{what} {cfg.name} {shape}: loss {res['loss']} vs "
+             f"{res['loss_w1']}")
     res["grad_err"] = tp_compare(rank, mesh, cfg, layout, opt["mu"],
                                  None if o1 is None else o1["mu"],
-                                 f"{arch} {layout} gradients",
+                                 f"{what} {cfg.name} {layout} gradients",
                                  GRAD_TOL[torch.float32])
     torch.cuda.empty_cache()
-    # the step on rank 0's blocks: each leaf's gap against the step's
-    # size where Adam is well-conditioned (sqrt(nu_hat) >= ILL), within
-    # 2 lr elsewhere
     if rank == 0:
         res["step_err"], res["n_ill"] = tp_step_gap(
             rank, mesh, cfg, layout, model.state_dict(), w1.state_dict(),
-            o1["nu"], f"{arch} {layout}")
-        del o1
-    del model, opt, w1
+            o1["nu"], f"{what} {cfg.name} {layout}")
+    del model, opt, w1, o1
     torch.cuda.empty_cache()
+    res["s"] = time.perf_counter() - t0
     return res
+
+
+def tree_gap(got, want, rows=None) -> float:
+    """The largest gap of a cache tree's leaves, each of max(1, its max
+    |want|), `want`'s batch rows (dim 1 of a stacked leaf) cut to `rows`
+    when given."""
+    if isinstance(got, dict):
+        return max(tree_gap(got[k], want[k], rows) for k in got)
+    w = want if rows is None else want[:, rows]
+    return float((got.float() - w.float()).abs().max()) / max(
+        1.0, float(w.float().abs().max()))
 
 
 def tp_step_gap(rank, mesh, cfg, layout, params, p1, nu1, what,
@@ -4139,20 +4216,19 @@ def tp_step_gap(rank, mesh, cfg, layout, params, p1, nu1, what,
     return worst / lr, n_ill / n_all
 
 
-def tp_cache2d(rank, seed: int, dev, kernels) -> dict:
-    """26(c): TP_PARITY's 2-layer fp32 Qwen2-7B in "heads" on (1, 4): a
-    prefill at TP_CACHE's 4,096 positions (its cache T over 'model',
-    1,024 rows a rank) written into a cache of 8,192 rows (2,048 a
-    rank), then greedy ticks: every rank's tokens == world size 1's on
-    rank 0 (a stream may part only at a near-tie, LM_TOL)."""
-    import dataclasses
-    from repro_torch.configs import get_arch
+def tp_cache2d(rank, seed: int, dev, kernels, cfg, leaf: str, shape
+               ) -> dict:
+    """The 2-D cache: `cfg` in fp32 on (1, DIST_RANKS), "heads": a
+    prefill at `shape`'s S positions (the cache's rows over 'model', S/tp
+    a rank) written into a cache of T rows (T/tp a rank; `leaf` the
+    cache leaf whose rows are counted), then `shape`'s greedy ticks:
+    every rank's tokens == world size 1's on rank 0 (a stream may part
+    only at a near-tie, LM_TOL)."""
     from repro_torch.distributed.context import Mesh, mesh_context
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import lm
-    S, T, ticks = TP_CACHE
-    cfg = dataclasses.replace(get_arch(TP_ARCH), n_layers=TP_PARITY[0])
+    S, T, ticks = shape
     mesh = make_mesh((1, DIST_RANKS), DM)
     rng = np.random.default_rng(seed + 267)
     batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
@@ -4163,9 +4239,9 @@ def tp_cache2d(rank, seed: int, dev, kernels) -> dict:
         with mesh_context(mm):
             model = lm.init_params(cfg, seed, torch.float32, dev, mesh=mm)
             lg, caches = make_prefill_step(cfg)(model, batch)
-            rows = (caches["blocks"]["k"].shape[2],)
+            rows = (caches["blocks"][leaf].shape[2],)
             cache = lm.extend_cache(caches, cfg, S, T)
-            rows += (cache["blocks"]["k"].shape[2],)
+            rows += (cache["blocks"][leaf].shape[2],)
             del caches
             step = make_decode_step(cfg, max_len=T)
             toks, margins = [], []
@@ -4184,28 +4260,29 @@ def tp_cache2d(rank, seed: int, dev, kernels) -> dict:
     res = {"tokens": toks, "rows": rows,
            "launches": {n: k.launches for n, k in kernels.items()}}
     need(rows == (S // DIST_RANKS, T // DIST_RANKS),
-         f"26(c): cache rows a rank {rows}")
+         f"2-D cache of {cfg.name}: cache rows a rank {rows}")
     if rank == 0:
         toks1, margins1, _ = run(Mesh((1, 1), DM))
         res["tokens_w1"] = toks1
         parted = [i for i, (a, b) in enumerate(zip(toks, toks1)) if a != b]
         need(not parted or margins1[parted[0]] < LM_TOL,
-             f"26(c): tokens part at tick {parted[:1]} with a margin "
-             f"{margins1[parted[0]] if parted else None}")
+             f"2-D cache of {cfg.name}: tokens part at tick {parted[:1]} "
+             f"with a margin {margins1[parted[0]] if parted else None}")
         res["parted_at"] = parted[0] if parted else None
     torch.cuda.empty_cache()
     return res
 
 
-def tp_full(rank, seed: int, dev, kernels) -> dict:
-    """26(b) whole and in bf16: Qwen2-7B at its published widths on (1,
-    4) in both layouts: prefill at B = 1, S = TP_FULL's 4,096, one decode
-    tick over a cache of TP_FULL's rows (T over 'model'), then a train
-    step at TP_FULL's layers (fp32 moments): ms, the rank's peak bytes,
-    each collective's calls, bytes and ms (`distributed.mesh.tally`;
-    gloo ranks sharing one card: this wire, not NVLink), launches."""
+def tp_full(rank, seed: int, dev, kernels, cfg, layout: str, S: int,
+            T: int, train_layers=None) -> dict:
+    """`cfg` in bf16 on (1, DIST_RANKS) in `layout`: a prefill at B = 1,
+    S positions, one decode tick at 4 slots over a cache of T positions
+    (its rows over 'model' at T >= 4,096), then, with `train_layers`, a
+    train step at that depth (the config's moment dtype): ms, the rank's
+    peak bytes, each collective's calls, bytes and ms (`distributed.
+    mesh.tally`; gloo ranks sharing one card: this wire, not NVLink),
+    launches."""
     import dataclasses
-    from repro_torch.configs import get_arch
     from repro_torch.data.synthetic import TokenPipeline
     from repro_torch.distributed import mesh as pg
     from repro_torch.distributed.context import mesh_context
@@ -4214,13 +4291,12 @@ def tp_full(rank, seed: int, dev, kernels) -> dict:
                                           make_prefill_step, make_train_step)
     from repro_torch.models import lm
     from repro_torch.optim import AdamWConfig
-    S, n_train, T = TP_FULL
-    cfg = get_arch(TP_ARCH)
     mesh = make_mesh((1, DIST_RANKS), DM)
+    torch.distributed.barrier()      # every rank's clock starts together
     rng = np.random.default_rng(seed + 269)
     batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                                     (1, S)), device=dev)}
-    res = {}
+    r = {"layout": layout}
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -4228,67 +4304,63 @@ def tp_full(rank, seed: int, dev, kernels) -> dict:
         out = fn()
         torch.cuda.synchronize()
         return out, 1e3 * (time.perf_counter() - t0)
-    for layout in ("heads", "seq"):
-        r = res[layout] = {}
+    torch.cuda.reset_peak_memory_stats()
+    with mesh_context(mesh):
+        model = lm.init_params(cfg, seed, torch.bfloat16, dev, mesh=mesh,
+                               layout=layout)
+        torch.cuda.empty_cache()            # the whole leaves drawn to cut
+        r["held_bytes"] = sum(p.numel() * p.element_size()
+                              for p in model.parameters())
+        prefill = make_prefill_step(cfg, layout)
+        for k in kernels.values():
+            k.launches = 0
+        with pg.tally() as wire:                     # the first call
+            (lg, _), r["prefill_ms"] = timed(lambda: prefill(model, batch))
+        r["prefill_wire"] = wire
+        r["prefill_launches"] = {n: k.launches for n, k in kernels.items()}
+        need(bool(torch.isfinite(lg).all()), f"{cfg.name} {layout} bf16: "
+                                             f"prefill logits")
+        cache = lm.init_cache(cfg, 4, T, torch.bfloat16, dev)
+        r["cache_rows"] = lm.held_cache_len(cfg, T)
+        step = make_decode_step(cfg, layout, max_len=T)
+        tok = torch.zeros((4, 1), dtype=torch.long, device=dev)
+        step(model, tok, cache, 7)
+        with pg.tally() as wire:
+            (lgt, _), r["tick_ms"] = timed(lambda: step(model, tok, cache, 8))
+        need(bool(torch.isfinite(lgt).all()), f"{cfg.name} {layout} bf16: "
+                                              f"tick logits")
+        r["tick_wire"] = wire
+        r["prefill_peak"] = torch.cuda.max_memory_allocated()
+        del model, cache, lg, lgt
+        torch.cuda.empty_cache()
+        if train_layers is None:
+            return r
+        tcfg = dataclasses.replace(cfg, n_layers=train_layers)
         torch.cuda.reset_peak_memory_stats()
-        with mesh_context(mesh):
-            model = lm.init_params(cfg, seed, torch.bfloat16, dev,
-                                   mesh=mesh, layout=layout)
-            torch.cuda.empty_cache()     # the whole leaves drawn to cut
-            r["held_bytes"] = sum(p.numel() * p.element_size()
-                                  for p in model.parameters())
-            prefill = make_prefill_step(cfg, layout)
-            for k in kernels.values():
-                k.launches = 0
-            with pg.tally() as wire:                 # the first call
-                (lg, _), r["prefill_ms"] = timed(lambda: prefill(model,
-                                                                 batch))
-            r["prefill_wire"] = wire
-            r["prefill_launches"] = {n: k.launches
-                                     for n, k in kernels.items()}
-            need(bool(torch.isfinite(lg).all()), f"26(b) {layout}: logits")
-            cache = lm.init_cache(cfg, 4, T, torch.bfloat16, dev)
-            r["cache_rows"] = cache["blocks"]["k"].shape[2]
-            step = make_decode_step(cfg, layout, max_len=T)
-            tok = torch.zeros((4, 1), dtype=torch.long, device=dev)
-            step(model, tok, cache, 7)
-            with pg.tally() as wire:
-                _, r["tick_ms"] = timed(lambda: step(model, tok, cache, 8))
-            r["tick_wire"] = wire
-            r["prefill_peak"] = torch.cuda.max_memory_allocated()
-            del model, cache, lg
-            torch.cuda.empty_cache()
-            if layout == "seq":
-                continue          # the train step: "heads", TP_FULL[1] layers
-            tcfg = dataclasses.replace(cfg, n_layers=n_train)
-            torch.cuda.reset_peak_memory_stats()
-            model = lm.init_params(tcfg, seed, torch.bfloat16, dev,
-                                   mesh=mesh, layout=layout)
-            torch.cuda.empty_cache()
-            oc = AdamWConfig(moment_dtype=tcfg.opt_dtype, total_steps=2)
-            opt = init_opt_state(model, oc, tcfg, mesh, layout)
-            train = make_train_step(tcfg, oc, layout=layout)
-            pipe = TokenPipeline(cfg.vocab_size, S, 1, seed=seed)
-            r["train"] = []
-            for _ in range(1):
-                for k in kernels.values():
-                    k.launches = 0
-                with pg.tally() as wire:
-                    (_, _, m), ms = timed(lambda: train(model, opt,
-                                                        pipe.next_batch()))
-                need(np.isfinite(float(m["loss"])), "26(b): a train loss")
-                r["train"].append({
-                    "ms": ms, "loss": float(m["loss"]), "wire": wire,
-                    "grad_wire": dict(train.wire),
-                    "launches": {n: k.launches for n, k in kernels.items()}})
-            r["train_layers"] = n_train
-            r["train_peak"] = torch.cuda.max_memory_allocated()
-            r["free_after_train"] = torch.cuda.mem_get_info()[0]
-            r["n_params"] = sum(int(np.prod(s)) for s in
-                                lm.param_shapes(tcfg).values())
-            del model, opt
-            torch.cuda.empty_cache()
-    return res
+        model = lm.init_params(tcfg, seed, torch.bfloat16, dev, mesh=mesh,
+                               layout=layout)
+        torch.cuda.empty_cache()
+        oc = AdamWConfig(moment_dtype=tcfg.opt_dtype, total_steps=2)
+        opt = init_opt_state(model, oc, tcfg, mesh, layout)
+        train = make_train_step(tcfg, oc, layout=layout)
+        pipe = TokenPipeline(cfg.vocab_size, S, 1, seed=seed)
+        for k in kernels.values():
+            k.launches = 0
+        with pg.tally() as wire:
+            (_, _, m), r["train_ms"] = timed(lambda: train(
+                model, opt, pipe.next_batch()))
+        need(np.isfinite(float(m["loss"])), f"{cfg.name} {layout} bf16: a "
+                                            f"train loss")
+        r.update(train_loss=float(m["loss"]), train_wire=wire,
+                 grad_wire=dict(train.wire), train_layers=train_layers,
+                 train_launches={n: k.launches for n, k in kernels.items()},
+                 train_peak=torch.cuda.max_memory_allocated(),
+                 free_after_train=torch.cuda.mem_get_info()[0],
+                 n_params=sum(int(np.prod(s)) for s in
+                              lm.param_shapes(tcfg).values()))
+        del model, opt
+    torch.cuda.empty_cache()
+    return r
 
 
 def tp_fsdp(rank, seed: int, dev, kernels) -> dict:
@@ -4377,19 +4449,28 @@ def tp_rank(rank: int, seed: int, dev) -> dict:
     """Phase 26 on one of phase 25's ranks (`dist_rank`): (b) the fp32
     parities and the whole bf16 model on (1, 4), (c) the 2-D cache, (d)
     FSDP on (2, 2). Any failed check raises."""
+    import dataclasses
+    from repro_torch.configs import get_arch
     kernels = tp_kernels()
     out, t0 = {"held_at_start": torch.cuda.memory_allocated()}, \
         time.perf_counter()
-    out["parity"] = [tp_parity(rank, seed, dev, TP_ARCH, lay, kernels)
-                     for lay in ("heads", "seq")]
-    out["parity"].append(tp_parity(rank, seed, dev, TP_KV_REP_ARCH, "heads",
-                                   kernels))
+    L, S = TP_PARITY
+    out["parity"] = [tp_parity(
+        rank, seed, dev, dataclasses.replace(get_arch(a), n_layers=L),
+        (1, DIST_RANKS), lay, S, kernels, TP_SERVE)
+        for a, lay in ((TP_ARCH, "heads"), (TP_ARCH, "seq"),
+                       (TP_KV_REP_ARCH, "heads"))]
     out["parity_s"] = time.perf_counter() - t0
     t1 = time.perf_counter()
-    out["cache2d"] = tp_cache2d(rank, seed, dev, kernels)
+    out["cache2d"] = tp_cache2d(
+        rank, seed, dev, kernels,
+        dataclasses.replace(get_arch(TP_ARCH), n_layers=L), "k", TP_CACHE)
     out["cache2d_s"] = time.perf_counter() - t1
     t1 = time.perf_counter()
-    out["full"] = tp_full(rank, seed, dev, kernels)
+    S, n_train, T = TP_FULL
+    out["full"] = {lay: tp_full(rank, seed, dev, kernels, get_arch(TP_ARCH),
+                                lay, S, T, n_train if lay == "heads" else None)
+                   for lay in ("heads", "seq")}
     out["full_s"] = time.perf_counter() - t1
     t1 = time.perf_counter()
     out["fsdp"] = tp_fsdp(rank, seed, dev, kernels)
@@ -4424,11 +4505,10 @@ def phase_tp(reps, card: str) -> dict:
             need(c["flash_attention"] > 0, f"26 rank {r} {lay} bf16 prefill "
                                            f"launches {c}")
             paths[f"tp {lay} prefill bf16 rank {r}"] = c
-        for i, st in enumerate(f["heads"]["train"]):
-            c = st["launches"]
-            need(min(c["flash_fwd_lse"], c["flash_bwd_dkv"],
-                     c["flash_bwd_dq"]) > 0, f"26 rank {r} train {c}")
-            paths[f"tp heads train bf16 step {i} rank {r}"] = c
+        c = f["heads"]["train_launches"]
+        need(min(c["flash_fwd_lse"], c["flash_bwd_dkv"],
+                 c["flash_bwd_dq"]) > 0, f"26 rank {r} train {c}")
+        paths[f"tp heads train bf16 rank {r}"] = c
         paths[f"tp cache2d rank {r}"] = tp["cache2d"]["launches"]
         paths[f"tp fsdp prefill bf16 rank {r}"] = tp["fsdp"][
             "prefill_launches"]
@@ -4472,17 +4552,17 @@ def phase_tp(reps, card: str) -> dict:
             f" {fmt_wire(per[0]['tick_wire'])}); peak GB a rank "
             f"{[round(p['prefill_peak'] / 1e9, 2) for p in per]} on {card}")
     per = [rep["tp"]["full"]["heads"] for rep in reps]
-    tr = per[0]["train"]
-    log(f"[dist tp train bf16] {TP_ARCH} cut to {per[0]['train_layers']} "
-        f"layers ({per[0]['n_params']:,} parameters), heads, fp32 moments, "
-        f"B=1 S={TP_FULL[0]}: step ms rank 0 "
-        f"{[round(s['ms'], 1) for s in tr]}, losses "
-        f"{[round(s['loss'], 4) for s in tr]}; the model's collectives "
-        f"(rank 0, step 2): {fmt_wire(tr[-1]['wire'])}; gradient "
-        f"all-reduce {tr[-1]['grad_wire']['all_reduce']:,} B in "
-        f"{tr[-1]['grad_wire']['all_reduce_ms']:.1f} ms; peak GB a rank "
+    f0 = per[0]
+    log(f"[dist tp train bf16] {TP_ARCH} cut to {f0['train_layers']} "
+        f"layers ({f0['n_params']:,} parameters), heads, fp32 moments, "
+        f"B=1 S={TP_FULL[0]}: step ms a rank "
+        f"{[round(p['train_ms'], 1) for p in per]}, loss "
+        f"{f0['train_loss']:.4f}; the model's collectives (rank 0): "
+        f"{fmt_wire(f0['train_wire'])}; gradient all-reduce "
+        f"{f0['grad_wire']['all_reduce']:,} B in "
+        f"{f0['grad_wire']['all_reduce_ms']:.1f} ms; peak GB a rank "
         f"{[round(p['train_peak'] / 1e9, 2) for p in per]}, the card's "
-        f"free GB after it {per[0]['free_after_train'] / 1e9:.2f} (ranks "
+        f"free GB after it {f0['free_after_train'] / 1e9:.2f} (ranks "
         f"held {[round(r['tp']['held_at_start'] / 1e9, 2) for r in reps]} "
         f"GB at phase 26's start); gloo ranks sharing one card, so the "
         f"wire is that, not NVLink, on {card}")
@@ -4505,6 +4585,215 @@ def phase_tp(reps, card: str) -> dict:
         f"{t0['parity_s']:.1f}, 2-D cache {t0['cache2d_s']:.1f}, bf16 whole "
         f"{t0['full_s']:.1f}, FSDP {t0['fsdp_s']:.1f}) on {card}")
     return paths
+
+
+# ------------------------------ phase 27: the model axis on MLA, SSM, RG-LRU
+# 27(a): fp32 parity against world size 1 on the same card at the
+# published widths cut in depth: DeepSeek-V2 at 24(b)'s narrowed widths
+# (`mla_parity_config`: MLA and expert widths as published; a published-
+# width MoE layer's fp32 training state does not fit beside the ranks),
+# 2 layers (dense + MoE); Mamba2-780m at 2; RecurrentGemma-2B at 3
+# (rglru, rglru, local_attn), its window cut to TP27_WINDOW so that it
+# binds at TP27_S and reaches over the seq layout's blocks. Each case:
+# arch, (data, model), layout, config changes
+TP27_CASES = [
+    (MLA_ARCH, (1, 4), "heads", {}),
+    (MLA_ARCH, (2, 2), "heads", {"fsdp": True}),
+    (SSM_ARCH, (1, 4), "heads", {}),
+    (HYBRID_ARCH, (1, 4), "seq", {}),        # 10 heads; gates cut mid-block
+    (HYBRID_ARCH, (1, 2), "heads", {}),      # 5 heads and 5 blocks a rank
+]
+TP27_LAYERS = {SSM_ARCH: 2, HYBRID_ARCH: 3}
+TP27_S = 1024                  # prefill and train S of 27(a)
+TP27_TICKS = 4                 # 27(a)'s decode ticks after the prefill
+TP27_WINDOW = 256              # RecurrentGemma's window in 27(a)
+# 27(b): bf16 at published widths, (data 1, model 4): Mamba2-780m and
+# RecurrentGemma-2B whole, DeepSeek-V2 at MLA_SERVE layers; a prefill at
+# B = 1, S = 4,096 and a tick at 4 slots over T = TP27_TICK_T positions
+# (DeepSeek-V2's compressed rows over 'model'); one train step at
+# TP27_TRAIN's layers (None: whole)
+TP27_FULL_S = 4096
+TP27_TICK_T = 4128
+TP27_TRAIN = {MLA_ARCH: MLA_TRAIN, SSM_ARCH: 8, HYBRID_ARCH: 6}
+TP27_CACHE = (4096, 8192, 8)   # 27(c): prefill S, cache T, greedy ticks
+TP27_SERVE = (2, 4, 4)         # 27(a)'s Server: slots, prompt, max_new
+
+
+def tp27_config(arch: str, extra=None):
+    """27(a)'s config of `arch` (the phase's comment), with `extra`. Its
+    MoE layer drops no event at any world size (capacity_factor E /
+    top_k: a capacity of every token) and adds no router aux loss: both
+    are per-shard by design (each rank routes and counts its own
+    positions, JAX's semantics), so they would part a tensor-parallel
+    step from world size 1's where the model axis itself does not."""
+    import dataclasses
+    if arch != MLA_ARCH:
+        cfg = family_config(arch, TP27_LAYERS[arch],
+                            TP27_WINDOW if arch == HYBRID_ARCH else None)
+        return dataclasses.replace(cfg, **(extra or {}))
+    cfg = mla_parity_config()
+    mo = cfg.moe
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        mo, capacity_factor=mo.n_routed / mo.top_k, router_aux_weight=0.0))
+    return dataclasses.replace(cfg, **(extra or {}))
+
+
+def tp27_rank(rank: int, seed: int, dev) -> dict:
+    """Phase 27 on one of phase 25's ranks (`dist_rank`): (a) the fp32
+    parities, (b) the whole bf16 models, (c) MLA's 2-D compressed cache.
+    Any failed check raises."""
+    from repro_torch.launch.sharding import attn_layout
+    kernels = tp_kernels()
+    out, t0 = {}, time.perf_counter()
+    out["parity"] = [tp_parity(rank, seed, dev, tp27_config(a, extra), shape,
+                               lay, TP27_S, kernels, TP27_SERVE, TP27_TICKS,
+                               "27(a)")
+                     for a, shape, lay, extra in TP27_CASES]
+    out["parity_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    out["full"] = {}
+    for a in (MLA_ARCH, SSM_ARCH, HYBRID_ARCH):
+        cfg = family_config(a, MLA_SERVE if a == MLA_ARCH else None)
+        out["full"][a] = tp_full(rank, seed, dev, kernels, cfg,
+                                 attn_layout(cfg, DIST_RANKS), TP27_FULL_S,
+                                 TP27_TICK_T, TP27_TRAIN[a] or cfg.n_layers)
+    out["full_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["cache2d"] = tp_cache2d(rank, seed, dev, kernels,
+                                tp27_config(MLA_ARCH), "c_kv", TP27_CACHE)
+    out["cache2d_s"] = time.perf_counter() - t1
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def attends(arch: str) -> bool:
+    """Whether `arch`'s layers run kernels 4-6 (Mamba-2 has no
+    attention)."""
+    return arch != SSM_ARCH
+
+
+def phase_tp27(reps, card: str) -> dict:
+    """Phase 27's lines from the ranks' reports; kernels 4-6 launched on
+    every rank of every path that attends. Returns the launch counts by
+    path."""
+    paths = {}
+    for r, rep in enumerate(reps):
+        tp = rep["tp27"]
+        for p in tp["parity"]:
+            if "prefill_launches" not in p:
+                continue                     # outside the case's mesh
+            tag = f"{p['arch']} {tuple(p['shape'])} {p['layout']}"
+            for part in ("prefill", "train"):
+                c = p[f"{part}_launches"]
+                if attends(p["arch"]):
+                    need(c["flash_attention"] > 0 if part == "prefill" else
+                         min(c["flash_fwd_lse"], c["flash_bwd_dkv"],
+                             c["flash_bwd_dq"]) > 0,
+                         f"27 rank {r} {tag} {part}: launches {c}")
+                paths[f"tp27 {tag} {part} fp32 rank {r}"] = c
+        for a, f in tp["full"].items():
+            for part in ("prefill", "train"):
+                c = f[f"{part}_launches"]
+                if attends(a):
+                    need(c["flash_attention"] > 0 if part == "prefill" else
+                         min(c["flash_fwd_lse"], c["flash_bwd_dkv"],
+                             c["flash_bwd_dq"]) > 0,
+                         f"27 rank {r} {a} bf16 {part}: launches {c}")
+                paths[f"tp27 {a} {part} bf16 rank {r}"] = c
+        c = tp["cache2d"]["launches"]
+        need(c["flash_attention"] > 0, f"27(c) rank {r}: launches {c}")
+        paths[f"tp27 mla cache2d rank {r}"] = c
+    t0 = reps[0]["tp27"]
+    for p in t0["parity"]:
+        g = p.get("greedy")
+        log(f"[dist tp27 parity] {p['arch']} fp32 at 27(a)'s widths and "
+            f"depth, (data {p['shape'][0]}, model {p['shape'][1]}) "
+            f"{p['layout']}{' FSDP' if p['fsdp'] and p['shape'][0] > 1 else ''}"
+            f" vs world size 1: prefill S={TP27_S} logits "
+            f"{p['logits_err']:.3e} (<= {LM_TOL}), caches "
+            f"{p['cache_err']:.3e} (<= {CACHE_TOL}), {TP27_TICKS} ticks "
+            f"{p['tick_err']:.3e}; " + (
+                f"Server {TP27_SERVE[0]} slots: {g[0]} greedy decisions, "
+                f"parted at {g[1]} near-tie(s); " if g else
+                "no Server (its slots are one batch, data 1 only); ") +
+            f"train step loss {p['loss']:.7f} vs {p['loss_w1']:.7f}, "
+            f"gradients {p['grad_err']:.3e} of max |ref| (<= "
+            f"{GRAD_TOL[torch.float32]}), step {p['step_err']:.3e} of lr "
+            f"where well-conditioned (<= {STEP_TOL}; {100 * p['n_ill']:.2f}"
+            f" % not); launches rank 0 prefill {p['prefill_launches']}, "
+            f"train {p['train_launches']}; {p['s']:.1f} s on {card}")
+    for a in t0["full"]:
+        per = [rep["tp27"]["full"][a] for rep in reps]
+        f0 = per[0]
+        log(f"[dist tp27 {a} bf16] published widths"
+            f"{f' cut to {MLA_SERVE} layers' if a == MLA_ARCH else ''}, "
+            f"(data 1, model {DIST_RANKS}) {f0['layout']}, "
+            f"{f0['held_bytes']:,} B held a rank: prefill B=1 "
+            f"S={TP27_FULL_S} ms a rank "
+            f"{[round(p['prefill_ms'], 1) for p in per]} (wire rank 0: "
+            f"{fmt_wire(f0['prefill_wire'])}); a tick at 4 slots over "
+            f"T={TP27_TICK_T} ms {[round(p['tick_ms'], 2) for p in per]} "
+            f"(wire rank 0: {fmt_wire(f0['tick_wire'])}); peak GB a rank "
+            f"{[round(p['prefill_peak'] / 1e9, 2) for p in per]}; train "
+            f"step at {f0['train_layers']} layers ms "
+            f"{[round(p['train_ms'], 1) for p in per]}, loss "
+            f"{f0['train_loss']:.4f} (wire rank 0: "
+            f"{fmt_wire(f0['train_wire'])}; gradient all-reduce "
+            f"{f0['grad_wire']['all_reduce']:,} B in "
+            f"{f0['grad_wire']['all_reduce_ms']:.1f} ms), peak GB a rank "
+            f"{[round(p['train_peak'] / 1e9, 2) for p in per]}; launches "
+            f"rank 0 prefill {f0['prefill_launches']}, train "
+            f"{f0['train_launches']}; gloo ranks sharing one card on {card}")
+    c = t0["cache2d"]
+    log(f"[dist tp27 cache2d] {MLA_ARCH} at 27(a)'s widths, 2 layers fp32: "
+        f"prefill S={TP27_CACHE[0]} (compressed rows a rank "
+        f"{c['rows'][0]}), {TP27_CACHE[2]} greedy ticks over a "
+        f"T={TP27_CACHE[1]} cache ({c['rows'][1]} rows a rank): tokens "
+        f"{c['tokens']} == world size 1 {c['tokens_w1']}" +
+        ("" if c["parted_at"] is None else
+         f" but from tick {c['parted_at']} (a near-tie)") + f" on {card}")
+    log(f"[phase 27] the ranks' phase 27: {t0['s']:.1f} s (parity "
+        f"{t0['parity_s']:.1f}, bf16 whole {t0['full_s']:.1f}, 2-D cache "
+        f"{t0['cache2d_s']:.1f}) on {card}")
+    return paths
+
+
+def tp27_probe_rank(rank: int, world: int, work: str, seed: int) -> None:
+    """`tp27_probe`'s ranks: phase 27 alone."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch.distributed import mesh as pg
+    dev = pg.rank_device(None)
+    torch.cuda.set_device(dev)
+    report = {"rank": rank, "device": str(dev),
+              "tp27": tp27_rank(rank, seed, dev)}
+    dist.barrier()
+    (Path(work) / f"dist{rank}.json").write_text(json.dumps(report))
+
+
+def tp27_probe() -> int:
+    """Phase 27 alone (`python3 -c "import sys, chip_smoke as c;
+    sys.exit(c.tp27_probe())"`): the build, 27(d)'s kernel checks, then
+    the ranks' (a)-(c)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.distributed import mesh
+    from repro_torch.kernels import _build
+    _build.build_all(["flash_attention", "flash_attention_bwd"])
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    t0 = time.perf_counter()
+    check_offset_cases(dev, 0, [c for c in OFFSET_CASES
+                                if c[0].startswith("hybrid")])
+    log(f"[phase 27(d)] {time.perf_counter() - t0:.1f} s on {card}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp27_") as tmp:
+        work = Path(tmp)
+        mesh.spawn(tp27_probe_rank, DIST_RANKS, work / "store",
+                   (str(work), 0), timeout_s=900)
+        reps = [json.loads((work / f"dist{r}.json").read_text())
+                for r in range(DIST_RANKS)]
+    phase_tp27(reps, card)
+    print(json.dumps({"ok": True}))
+    return 0
 
 
 def offset_probe() -> int:
@@ -4857,7 +5146,7 @@ def phase_serve(compiled, sim_compiled, seed: int, zero_counts, read_counts,
 # ------------------------------------------------------- the hiaer tier
 HIAER = (2, 2, 2, 15_625)     # Hierarchy: 8 cores, every interconnect level
 HIAER_WINDOWS = 3             # run_lanes windows at B = 8, T = 16 a path
-HIAER_ROUNDS = 6              # timed rounds of one window on each path
+HIAER_ROUNDS = 3              # timed rounds of one window on each path
 HIAER_WRITE_CORES = (0, 3, 6)  # the cores phase 18's write batch reaches
 HIAER_SERVE = (4, 4, 2)       # session lanes, windows each, scratch requests
 
@@ -5258,7 +5547,7 @@ T2_DIGITS = (1200, 200, 4)   # train / test images, epochs (table2_vision.run's
 #                              1,200 train and 4 epochs; 200 test, not 60)
 T2_DVS = (330, 110, 6, 5e-3)  # train / test samples, epochs, lr
 T2_DQN = (400, 3)            # DQN episodes and seed (tests/test_rl.py)
-T2_PARITY = 8                # samples a row, and STDP steps, card vs CPU port
+T2_PARITY = 4                # samples a row, and STDP steps, card vs CPU port
 T2_PATHS = (("engine", False), ("engine", True), ("simulator", False))
 
 
@@ -5629,7 +5918,7 @@ MESH_DEVICES = (8, 2)         # n_devices in that world: a core a rank (NoC,
 #                               a rank (Ethernet only; ranks 2-7 hold none)
 POD_MESH = (2, 4)             # the pod-scale step's (data, model) mesh
 POD_NLOC = (625_000, 625_024)  # 160 M / 256 (bool wire), word-aligned
-POD_STEPS = 4
+POD_STEPS = 2
 POD_WINDOW_BLOCKS = 4         # x 128 = the 512-wide presynaptic window
 
 
@@ -7446,6 +7735,12 @@ def main(argv=None) -> int:
         dtypes=(torch.bfloat16,) + ((torch.float32,) if q0 == 3072 else ()))
         for q0 in range(0, SEQ_BLOCK[2], SEQ_BLOCK[1])}
     o16, o32 = seq_t[3072]["bfloat16"], seq_t[3072]["float32"]
+    # and on RecurrentGemma-2B's seq block at tp = 4 (phase 27(d)): the
+    # window and the offset together, at each rank's q_start, bf16
+    hyb_t = {q0: time_offset_kernels(
+        dev, args.seed + 103, flush, card, HYBRID_SEQ_BLOCK, q0,
+        dtypes=(torch.bfloat16,), window=HYBRID_WINDOW)
+        for q0 in range(0, HYBRID_SEQ_BLOCK[2], HYBRID_SEQ_BLOCK[1])}
     rank_ms = {q0: t["bfloat16"]["fwd"][0] + t["bfloat16"]["bwd"][0]
                for q0, t in seq_t.items()}
     log(f"[time offset imbalance] seq layout, bf16 forward + backward ms "
@@ -7453,6 +7748,15 @@ def main(argv=None) -> int:
             f"{q0}: {ms:.4f}" for q0, ms in rank_ms.items())
         + f" (last / first {rank_ms[3072] / rank_ms[0]:.2f}; pairs "
         f"{[t['pairs_per_head'] for t in seq_t.values()]}) on {card}")
+
+    hyb_ms = {q0: t["bfloat16"]["fwd"][0] + t["bfloat16"]["bwd"][0]
+              for q0, t in hyb_t.items()}
+    log(f"[time offset imbalance hybrid] RecurrentGemma-2B's seq block "
+        f"(window {HYBRID_WINDOW}), bf16 forward + backward ms of the rank "
+        f"at each q_start: " + ", ".join(
+            f"{q0}: {ms:.4f}" for q0, ms in hyb_ms.items())
+        + f" (last / first {hyb_ms[3072] / hyb_ms[0]:.2f}; pairs "
+        f"{[t['pairs_per_head'] for t in hyb_t.values()]}) on {card}")
 
     def offset_errs_of(kinds):
         return max(e[k] for t, e in offset_errs.items()
@@ -7464,7 +7768,20 @@ def main(argv=None) -> int:
         on the seq block at q_start 3,072 (phase 26)."""
         out = {"offset_shape": list(SEQ_BLOCK), "offset_q_start": 3072,
                "ms_offset_by_q_start": {q0: t["bfloat16"][part][0]
-                                        for q0, t in seq_t.items()}}
+                                        for q0, t in seq_t.items()},
+               # phase 27(d): RecurrentGemma-2B's seq block (window 2,048)
+               "hybrid_seq_shape": list(HYBRID_SEQ_BLOCK),
+               "hybrid_seq_window": HYBRID_WINDOW,
+               "ms_hybrid_seq_by_q_start": {
+                   q0: t["bfloat16"][part][0] for q0, t in hyb_t.items()},
+               "bound_ms_hybrid_seq_by_q_start": {
+                   q0: t["bfloat16"][part][2 if part in ("fwd", "lse")
+                                           else 1]
+                   for q0, t in hyb_t.items()},
+               "library_ms_hybrid_seq_by_q_start": {
+                   q0: t["bfloat16"]["lib"][0 if part in ("fwd", "lse")
+                                            else 1]
+                   for q0, t in hyb_t.items()}}
         if part in ("fwd", "lse"):
             out.update({
                 "max_abs_err_offset": offset_errs_of(

@@ -29,17 +29,16 @@ bytes.
 `local_slice` and `assemble` are the port's `to_named` / `device_put`:
 a rank's block of a leaf under a spec, and the blocks put back together.
 
-What the port holds (`held_spec`). The families whose every layer is
-GQA attention plus an MLP or MoE (`model_axis`: dense, VLM, audio and
-the GQA MoE) are held by the rules' own `param_spec`: heads, d_ff and
-vocab over 'model', and for an FSDP config the residual dim over
-'data'; their moments by `zero1_spec` (`held_moment_spec`). The other
-families (MLA's `w_uq/w_uk/w_uv/w_o`, the SSM's `w_out`, the RG-LRU's
-`w_x/w_y/w_i/w_r`, `lam`, `conv_b`: deepseek_v2_236b, mamba2_780m,
-recurrentgemma_2b) keep every leaf whole but the routed experts' E
-dim (ROADMAP item 10.3c), their moments ZeRO-1 over 'data' on the first
-other dim that divides. `shard_params` cuts a whole state to a rank's
-held blocks (`assemble` puts blocks back together).
+What the port holds (`held_spec`): the rules' own `param_spec` for
+every family of the registry (ROADMAP items 10.3b and 10.3c): heads,
+d_ff, the routed experts and the vocab over 'model'; MLA's `w_uq`,
+`w_uk`, `w_uv` over heads and `w_o` row-parallel; the SSM's `w_out` over
+d_in; the RG-LRU's `w_x`/`w_y`, `lam` and `conv_b` over its width W,
+`w_i`/`w_r` over their gate blocks where the blocks divide, and its
+`w_out` row-parallel; for an FSDP config the residual dim over 'data'
+too. The moments are held by `zero1_spec` (`held_moment_spec`).
+`shard_params` cuts a whole state to a rank's held blocks (`assemble`
+puts blocks back together).
 """
 from __future__ import annotations
 
@@ -199,33 +198,16 @@ class ShardingRules:
         return walk(cache_shapes)
 
     # ------------------------------------------------- what the port holds
-    def _is_expert(self, name: str, shape) -> bool:
-        parts = name.split(".")
-        return (self.cfg.moe is not None and len(_shape(shape)) == 3
-                and parts[-1] in ("w_in", "w_gate", "w_out")
-                and len(parts) > 1 and parts[-2] == "moe")
-
     def held_spec(self, name: str, shape) -> Spec:
         """The spec the port holds a parameter in (its global shape):
-        `param_spec` for a `model_axis` family; for the others (MLA,
-        SSM, RG-LRU: ROADMAP item 10.3c) the rules' 'model' axis on a
-        routed expert leaf's E dim and every other dim whole."""
-        spec = self.param_spec(name, shape)
-        if model_axis(self.cfg):
-            return spec
-        keep = self._is_expert(name, shape)
-        return tuple(a if keep and i == 0 and a == "model" else None
-                     for i, a in enumerate(spec))
+        `param_spec`."""
+        return self.param_spec(name, shape)
 
     def held_moment_spec(self, name: str, shape) -> Spec:
         """The spec the port holds a parameter's AdamW moments in:
-        `zero1_spec` of its held spec for a `model_axis` family (nothing
-        more for an FSDP config); for the others the held spec with
-        'data' on the first other dim that divides."""
-        spec = self.held_spec(name, shape)
-        if model_axis(self.cfg):
-            return self.zero1_spec(spec, shape)
-        return _zero1(spec, _shape(shape), self.mesh)
+        `zero1_spec` of its held spec (nothing more for an FSDP
+        config)."""
+        return self.zero1_spec(self.param_spec(name, shape), shape)
 
     def held_params_specs(self, params_shapes):
         return {n: self.held_spec(n, l) for n, l in params_shapes.items()}
@@ -234,14 +216,6 @@ class ShardingRules:
         mom = {n: self.held_moment_spec(n, l)
                for n, l in params_shapes.items()}
         return {"mu": mom, "nu": dict(mom), "step": ()}
-
-
-def model_axis(cfg) -> bool:
-    """Whether the port holds `cfg`'s dense leaves by the rules' 'model'
-    (and FSDP 'data') axes: every layer GQA attention plus an MLP or
-    MoE."""
-    return cfg.family in ("dense", "vlm", "audio", "moe") \
-        and cfg.attn_kind != "mla"
 
 
 def attn_layout(cfg, tp: int) -> str:

@@ -9,11 +9,11 @@ and the moments by `opt_specs` (ZeRO-1), on the layout the port holds
 (`ShardingRules.held_spec` under the step's attention `layout`):
   * each rank runs its rows of the batch (the batch axes' block; the
     whole batch where it does not divide) on the blocks it holds: at tp
-    > 1 a `model_axis` family's layers are tensor-parallel (Megatron's
-    f and g, `models.layers` and `models.attention`), the MoE layers
-    expert-parallel; an FSDP config's leaves are gathered over 'data'
-    inside each layer's checkpoint and their gradients reduce-scattered
-    back (`models.lm`);
+    > 1 the layers are tensor-parallel (Megatron's f and g,
+    `models.layers`, `models.attention`, `models.ssm`, `models.rglru`),
+    the MoE layers expert-parallel; an FSDP config's leaves are gathered
+    over 'data' inside each layer's checkpoint and their gradients
+    reduce-scattered back (`models.lm`);
   * the loss is the global token mean: the masked cross-entropy sums and
     the token counts are added over the batch axes (not a mean of the
     ranks' means, which is wrong when the masks differ), plus the MoE
@@ -25,10 +25,8 @@ and the moments by `opt_specs` (ZeRO-1), on the layout the port holds
     replicated value's gradient is whole on each of them;
   * each gradient is then summed over the batch axes its leaf is not
     held over (`_Plan.axes`), and over 'model' too where each rank's is
-    partial: a leaf held whole whose rank computed on its own rows or
-    heads (the "seq" layout's attention, a whole `wk`/`wv` beside query
-    heads held in blocks, the MoE router, the norms of a sequence-
-    parallel residual);
+    partial: a leaf held whole whose rank computed on its own rows,
+    heads or channels (`_partial`);
   * the global norm counts each block of a leaf held over an axis once
     and each replicated leaf once (JAX's value);
   * the compressor acts on the reduced gradients, as JAX's code does
@@ -52,8 +50,7 @@ import torch
 
 from repro_torch.distributed import mesh as pg
 from repro_torch.distributed.context import Mesh, batch_axes, get_mesh
-from repro_torch.launch.sharding import (ShardingRules, local_slice,
-                                         model_axis)
+from repro_torch.launch.sharding import ShardingRules, local_slice
 from repro_torch.models import lm
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.adamw import _square_sum, global_norm, named_leaves
@@ -70,7 +67,7 @@ class _Plan:
         rules = ShardingRules(cfg, mesh, layout)
         shapes = lm.param_shapes(cfg)
         tp = mesh.shape["model"]
-        seq = tp > 1 and model_axis(cfg) and layout == "seq"
+        seq = tp > 1 and layout == "seq"
         self.specs, self.sharded, self.axes = {}, {}, {}
         self.blocks, self.dims = {}, {}
         for n, p in leaves.items():
@@ -109,26 +106,34 @@ _ATTN = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 def _partial(name: str, cfg, seq: bool, rules, shapes) -> bool:
     """Whether a leaf's gradient on one rank is a partial sum at tp > 1:
     the MoE router (each rank routes its own positions), a GQA leaf of
-    the "seq" layout (the rank's rows), a whole `wk`/`wv`/`bk`/`bv`
-    beside query heads held in blocks (the rank's heads), the block
-    norms of a sequence-parallel residual (the rank's rows)."""
+    the "seq" layout (the rank's rows), the block norms of a sequence-
+    parallel residual (the rank's rows), and a leaf held whole beside a
+    sibling cut over 'model', which the rank uses in its slice: a whole
+    `wk`/`wv`/`bk`/`bv` beside query heads held in blocks, the SSM's
+    per-head `a_log`, `dt_bias`, `d_skip` and its `out_norm` scale beside
+    a cut `w_out`, the RG-LRU's `conv_w` and a whole `w_i`/`w_r` beside a
+    cut `w_x`."""
     parts = name.split(".")
-    if parts[-1] == "router":
+    leaf = parts[-1]
+    parent = parts[-2] if len(parts) > 1 else ""
+    if leaf == "router":
         return True
-    if not model_axis(cfg):
-        return False
-    if len(parts) > 1 and parts[-2] == "attn" and parts[-1] in _ATTN:
-        if seq:
-            return True
-        if parts[-1] in ("wk", "wv", "bk", "bv"):
-            wq = ".".join(parts[:-1] + ["wq"])
-            mesh = rules.mesh
-            return "model" in _live(rules.held_spec(wq, shapes[wq]), mesh) \
-                and "model" not in _live(rules.held_spec(name, shapes[name]),
-                                         mesh)
-    if cfg.seq_parallel and len(parts) > 1 and parts[-2] in ("ln1", "ln2"):
-        return True
-    return False
+
+    def cut_beside(up: int, sib: str) -> bool:
+        other = ".".join(parts[:-up] + [sib])
+        held = lambda n: "model" in _live(  # noqa: E731
+            rules.held_spec(n, shapes[n]), rules.mesh)
+        return other in shapes and held(other) and not held(name)
+    if parent == "attn" and leaf in _ATTN:
+        return seq or (leaf in ("wk", "wv", "bk", "bv")
+                       and cut_beside(1, "wq"))
+    if parent == "ssm" and leaf in ("a_log", "dt_bias", "d_skip"):
+        return cut_beside(1, "w_out")
+    if parent == "out_norm" and len(parts) > 2 and parts[-3] == "ssm":
+        return cut_beside(2, "w_out")
+    if parent == "rec" and leaf in ("conv_w", "w_i", "w_r"):
+        return cut_beside(1, "w_x")
+    return bool(cfg.seq_parallel) and parent in ("ln1", "ln2")
 
 
 def held_specs(params, cfg, mesh=None, layout: str = "heads") -> dict:

@@ -13,9 +13,9 @@ production (16, 16) and (2, 16, 16) meshes, which need 256 and 512
 ranks) and the attention layout JAX's `train.py` picks
 (`sharding.attn_layout`: "heads" when the heads divide over 'model',
 else "seq") -> parameters (drawn from seed 0 on every rank, each rank
-keeping its held blocks, `lm.init_params(mesh=)`: heads, d_ff and vocab
-over 'model' for the families of the model axis, the routed experts'
-blocks for the MoE ones; fp32 with --reduced, bf16 otherwise) and AdamW
+keeping its held blocks, `lm.init_params(mesh=)`: JAX's `param_spec`
+for every family, heads, d_ff, experts, vocab, the SSM's d_in and the
+RG-LRU's width over 'model'; fp32 with --reduced, bf16 otherwise) and AdamW
 state (the rank's ZeRO-1 blocks) -> `make_train_step` (gradient-
 accumulation microbatches on one rank, optional gradient compression
 with error feedback; data, tensor and expert parallelism under a mesh

@@ -58,7 +58,21 @@ rows over 'model' when T >= 4,096 and T % tp == 0 (`_seq_shard`). Decode
 over such a cache (`cache_len` the whole length, the rank holding rows
 rank T/tp ..) writes position cache_pos on the rank that owns it; each
 rank computes its partial softmax over its rows (max, sum, weighted V)
-and the ranks combine them over 'model'. With tp = 1 every path is the
+and the ranks combine them over 'model'.
+
+MLA on the model axis (ROADMAP item 10.3c): JAX's rules hold `w_uq`,
+`w_uk`, `w_uv` as the rank's H/tp heads and `w_o` row-parallel; the
+compressions `w_dq`, `w_dkv` and the norms stay whole (an FSDP config's
+d over 'data'). Every rank compresses x whole; cq, c_kv and k_rope then
+enter through Megatron's f (`Mesh.copy_to`), so every whole leaf's
+gradient comes whole. Over a sequence each rank runs kernels 4-6 on its
+heads at D = 192 (V padded as above), `w_o` through g. The prefill's
+compressed cache is every row's (B, T, .), its T over 'model' when T >=
+4,096 and T % tp == 0 (JAX's `cache_specs`). The absorbed decode over
+such a cache gathers q_lat and q_rope over the heads, takes each rank's
+partial softmax over its rows for every head and combines them over
+'model', then keeps the rank's heads for `w_uv` and `w_o`; over a whole
+cache it runs on the rank's heads alone. With tp = 1 every path is the
 one-device one.
 """
 from __future__ import annotations
@@ -288,11 +302,11 @@ def _seq_attention(p, x, cfg, positions, window, seq_sharded, with_cache,
     if not seq_sharded:
         y = mesh.gather_from(y, "model", dim=1)
     kv = None
-    if with_cache:
+    if with_cache:          # a window's last rows, the rank's when cut
         T = kf.shape[1]
-        own = T >= 4096 and T % tp == 0
-        kv = {"k": (k if own else kf).detach(),
-              "v": (v if own else vf).detach()}
+        W = T if window is None else min(window, T)
+        kv = {n: _seq_rows(t[:, T - W:].detach(), tp, r)
+              for n, t in (("k", kf), ("v", vf))}
     return y, kv
 
 
@@ -395,49 +409,107 @@ def _mla_compress(p, x, cfg, positions):
     return cq, c_kv, k_rope
 
 
-def mla_apply(p, x, cfg, positions, cache=None, cache_pos=None):
+def mla_apply(p, x, cfg, positions, cache=None, cache_pos=None,
+              cache_len=None):
     """MLA. Returns (out, kv). Decode — a cache {c_kv, k_rope} and one
     token (S == 1) at cache_pos — writes the token's row in place (at
     cache_pos clamped into the cache) and attends in the absorbed form
     over the rows up to cache_pos; kv is the cache. Otherwise the naive
     form runs the flash kernels at head dim nope + rope over K and V
     decompressed, V zero-padded to that dim, and kv is the sequence's
-    {c_kv, k_rope}, the prefill's cache."""
+    {c_kv, k_rope}, the prefill's cache. Under the model axis (`w_uq`,
+    `w_uk`, `w_uv` and `w_o` held as the rank's H/tp heads): the module
+    docstring; `cache_len` is a decode cache's whole length."""
     m = cfg.mla
     B, S, _ = x.shape
     nope = m.qk_nope_head_dim
+    mesh = get_mesh()
+    tp = mesh.shape.get("model", 1)
+    r = mesh.coords["model"] if tp > 1 else 0
+    heads = p.w_uq.shape[1] < cfg.n_heads
+    decode = cache is not None and S == 1
     cq, c_kv, k_rope = _mla_compress(p, x, cfg, positions)
+    kv = {"c_kv": c_kv, "k_rope": k_rope}
+    if heads and not decode:
+        cq, c_kv, k_rope = (mesh.copy_to(t, "model")
+                            for t in (cq, c_kv, k_rope))
     q = _proj(cq, p.w_uq)
     q_nope = q[..., :nope]
     q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
-    if cache is not None and S == 1:
+    if decode:
         ck, cr = cache["c_kv"], cache["k_rope"]
         T = ck.shape[1]
-        slot = min(max(cache_pos, 0), T - 1)
-        ck[:, slot] = c_kv[:, 0]
-        cr[:, slot] = k_rope[:, 0]
-        scale = (nope + m.qk_rope_head_dim) ** -0.5
         q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p.w_uk)
-        s = (torch.einsum("bshr,btr->bhst", q_lat.float(), ck.float())
-             + torch.einsum("bshk,btk->bhst", q_rope.float(),
-                            cr.float())) * scale
-        t_idx = torch.arange(T, device=x.device)
-        s = torch.where(t_idx <= cache_pos, s,
-                        torch.full((), NEG_INF, device=x.device))
-        a = torch.softmax(s, dim=-1)
-        o_lat = torch.einsum("bhst,btr->bshr", a, ck.float())
+        if tp > 1 and cache_len not in (None, T):   # T rows over 'model'
+            o_lat = _mla_sharded_decode(q_lat, q_rope, c_kv, k_rope, cache,
+                                        cache_pos, cache_len, cfg, heads,
+                                        mesh)
+        else:
+            slot = min(max(cache_pos, 0), T - 1)
+            ck[:, slot] = c_kv[:, 0]
+            cr[:, slot] = k_rope[:, 0]
+            scale = (nope + m.qk_rope_head_dim) ** -0.5
+            s = (torch.einsum("bshr,btr->bhst", q_lat.float(), ck.float())
+                 + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                                cr.float())) * scale
+            t_idx = torch.arange(T, device=x.device)
+            s = torch.where(t_idx <= cache_pos, s,
+                            torch.full((), NEG_INF, device=x.device))
+            a = torch.softmax(s, dim=-1)
+            o_lat = torch.einsum("bhst,btr->bshr", a, ck.float())
         o = torch.einsum("bshr,rhk->bshk", o_lat.to(x.dtype), p.w_uv)
-        return o.flatten(2) @ p.w_o.flatten(0, 1), cache
+        y = o.flatten(2) @ p.w_o.flatten(0, 1)
+        return (mesh.reduce_from(y, "model") if heads else y), cache
     k_nope = _proj(c_kv, p.w_uk)
     v = _proj(c_kv, p.w_uv)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-        B, S, cfg.n_heads, m.qk_rope_head_dim)], dim=-1)
+        B, S, k_nope.shape[2], m.qk_rope_head_dim)], dim=-1)
     qq = torch.cat([q_nope, q_rope], dim=-1)
     if v.shape[-1] != qq.shape[-1]:
         v = F.pad(v, (0, qq.shape[-1] - v.shape[-1]))
     out = _flash(qq, k, v)[..., :m.v_head_dim]
-    return (out.flatten(2) @ p.w_o.flatten(0, 1),
-            {"c_kv": c_kv, "k_rope": k_rope})
+    y = out.flatten(2) @ p.w_o.flatten(0, 1)
+    if tp > 1:              # the cache's T rows the rank's when cut
+        kv = {n: _seq_rows(t.detach(), tp, r) for n, t in kv.items()}
+    return (mesh.reduce_from(y, "model") if heads else y), kv
+
+
+def _mla_sharded_decode(q_lat, q_rope, c_kv, k_rope, cache, cache_pos: int,
+                        cache_len: int, cfg, heads: bool, mesh):
+    """The absorbed decode over a compressed cache whose T rows are held
+    over 'model' (the rank's T = cache_len/tp from rank T ..): the new
+    row written on the rank that owns cache_pos, q_lat and q_rope
+    gathered over the heads, each rank's masked fp32 scores and partial
+    softmax over its rows for every head, merged over 'model' (the max,
+    then the sums); the rank's heads of o_lat kept in the "heads"
+    layout. Returns o_lat (B, 1, heads, kv_lora) fp32."""
+    m = cfg.mla
+    tp, r = mesh.shape["model"], mesh.coords["model"]
+    ck, cr = cache["c_kv"], cache["k_rope"]
+    T = ck.shape[1]
+    slot = min(max(cache_pos, 0), cache_len - 1)
+    if slot // T == r:
+        ck[:, slot - r * T] = c_kv[:, 0]
+        cr[:, slot - r * T] = k_rope[:, 0]
+    if heads:
+        q_lat = mesh.all_gather(q_lat.contiguous(), "model", dim=2)
+        q_rope = mesh.all_gather(q_rope.contiguous(), "model", dim=2)
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    s = (torch.einsum("bshr,btr->bhst", q_lat.float(), ck.float())
+         + torch.einsum("bshk,btk->bhst", q_rope.float(), cr.float())) \
+        * scale
+    rows = r * T + torch.arange(T, device=ck.device)
+    s = torch.where(rows <= cache_pos, s,
+                    torch.full((), NEG_INF, device=ck.device))
+    mx = mesh.pmax(s.amax(dim=-1), "model")
+    e = torch.exp(s - mx[..., None])
+    num = mesh.psum(torch.einsum("bhst,btr->bshr", e, ck.float()), "model")
+    den = mesh.psum(e.sum(dim=-1), "model")                     # (B,H,1)
+    o_lat = num / den.transpose(1, 2)[..., None]
+    if heads:
+        hl = cfg.n_heads // tp
+        o_lat = o_lat[:, :, r * hl:(r + 1) * hl]
+    return o_lat
 
 
 def mla_cache_shape(cfg, batch, max_len, dtype=torch.bfloat16, device=None):

@@ -40,24 +40,28 @@ and addmm saved, after JAX's `dots_with_no_batch_dims_saveable`),
 `init_cache`, `prefill` and `decode_step`. They run on the card unless
 the caller asks for the CPU (`device="cpu"`, or a model already there).
 
-The model axis (ROADMAP item 10.3b). Under a context mesh whose 'model'
-axis has size tp > 1, a `launch.sharding.model_axis` family runs on the
-blocks its rank holds (`init_params(..., mesh=)`, or
-`launch.sharding.shard_params` of a whole state): `layout` ("heads" or
-"seq", JAX's argument, default "heads"; `launch.sharding.attn_layout`
-picks it as JAX's `_attn_layout`) is the attention's
-(`models.attention`); the MLPs, the shared experts and the vocab are
+The model axis (ROADMAP items 10.3b and 10.3c). Under a context mesh
+whose 'model' axis has size tp > 1 every family runs on the blocks its
+rank holds (`init_params(..., mesh=)`, or `launch.sharding.shard_params`
+of a whole state): `layout` ("heads" or "seq", JAX's argument, default
+"heads"; `launch.sharding.attn_layout` picks it as JAX's `_attn_layout`)
+is the GQA attention's, the hybrid's local attention included
+(`models.attention`); MLA runs on its heads (`attention.mla_apply`), the
+SSM on its heads (`ssm.ssm_apply`), the RG-LRU on its channels
+(`rglru.rglru_apply`); the MLPs, the shared experts and the vocab are
 tensor-parallel (`models.layers`). With `cfg.seq_parallel` the residual
 is held S/tp-sharded over 'model' between blocks (JAX's `lm.py:88-91`),
 from the embedding to the final norm. An FSDP config's leaves held over
 'data' too are gathered over 'data' just before use, inside each
 layer's checkpoint (so the backward gathers them again), their
-gradients reduce-scattered over 'data' (the gather's backward). The
-prefill's caches are held by JAX's `cache_specs`: every KV head, T over
-'model' when T >= 4,096 and T % tp == 0; a decode over such a cache
-takes its whole length (`cache_len`). The other families keep every
-dense leaf whole and compute as on one device. At tp = 1 every path is
-the one-device one.
+gradients reduce-scattered over 'data' (the gather's backward); a
+decode step leaves the MoE layers' blocks as they are held, for the 2-D
+decode (`moe._decode_moe_2d`). The prefill's caches are held by JAX's
+`cache_specs`: every KV head, T over 'model' when T >= 4,096 and T % tp
+== 0 (MLA's compressed rows alike); a windowed layer's ring and the
+recurrent states whole. A decode over T rows held over 'model' takes
+their whole length (`cache_len`). At tp = 1 every path is the one-device
+one.
 """
 from __future__ import annotations
 
@@ -244,7 +248,7 @@ def block_apply(p, x, cfg, positions, cache=None, cache_pos=None,
         y, new = rglru_mod.rglru_apply(p.rec, h, cfg, cache=cache)
     elif kind == "mla":
         y, new = attn.mla_apply(p.attn, h, cfg, positions, cache=cache,
-                                cache_pos=cache_pos)
+                                cache_pos=cache_pos, cache_len=cache_len)
     else:
         window = cfg.rglru.window if kind == "local_attn" else None
         y, new = attn.gqa_apply(p.attn, h, cfg, positions, window=window,
@@ -359,9 +363,9 @@ def _fsdp_dims(cfg, shape: tuple, names: tuple, layout: str
     """{name: the dim a leaf is held over 'data' on} for an FSDP config
     of the model axis on a mesh of `shape` over `names`."""
     from repro_torch.distributed.context import Mesh
-    from repro_torch.launch.sharding import ShardingRules, model_axis
+    from repro_torch.launch.sharding import ShardingRules
     mesh = Mesh(shape, names)
-    if not (cfg.fsdp and model_axis(cfg) and mesh.shape.get("data", 1) > 1):
+    if not (cfg.fsdp and mesh.shape.get("data", 1) > 1):
         return {}
     rules = ShardingRules(cfg, mesh, layout)
     out = {}
@@ -374,10 +378,8 @@ def _fsdp_dims(cfg, shape: tuple, names: tuple, layout: str
 
 def _layout_dims(cfg, layout: str):
     """(the layout the model runs, its FSDP dims)."""
-    from repro_torch.launch.sharding import model_axis
     mesh = get_mesh()
-    axis = mesh.shape.get("model", 1) > 1 and model_axis(cfg)
-    layout = layout if axis else "heads"
+    layout = layout if mesh.shape.get("model", 1) > 1 else "heads"
     return layout, _fsdp_dims(cfg, tuple(mesh.shape.values()),
                               mesh.axis_names, layout)
 
@@ -400,13 +402,15 @@ def _prepare(params, cfg, layout: str):
 
 def _run_layer(layer, prefix: str, dims, x, *args, **kwargs):
     """`layer_apply` of layer (named `prefix`..), its leaves held over
-    'data' (FSDP) gathered first."""
+    'data' (FSDP) gathered first, but for a decode step's MoE layers
+    under tp > 1 (`moe._decode_moe_2d` runs on the held blocks)."""
+    mesh = get_mesh()
+    two_d = x.shape[1] == 1 and mesh.shape.get("model", 1) > 1
     own = {n[len(prefix):]: t for n, t in
            layer.named_parameters(prefix=prefix[:-1])
-           if n in dims}
+           if n in dims and not (two_d and ".moe." in n)}
     if not own:
         return layer_apply(layer, x, *args, **kwargs)
-    mesh = get_mesh()
     full = {"layer." + n: mesh.all_gather(t, "data",
                                           dim=dims[prefix + n])
             for n, t in own.items()}
@@ -491,9 +495,8 @@ def backbone(params, cfg, batch, positions=None, caches=None,
 def _seq_parallel(cfg, mesh, caches, h) -> bool:
     """Whether the residual is held S/tp-sharded over 'model' (JAX's
     `cfg.seq_parallel`, over a sequence: not in decode)."""
-    from repro_torch.launch.sharding import model_axis
     return bool(cfg.seq_parallel) and mesh.shape.get("model", 1) > 1 \
-        and model_axis(cfg) and caches is None and h.shape[1] > 1
+        and caches is None and h.shape[1] > 1
 
 
 def loss_fn(params, cfg, batch, layout="heads"):
@@ -526,25 +529,29 @@ def loss_terms(params, cfg, batch, layout="heads"):
     return tot, cnt, aux
 
 
-def _layer_cache(cfg, kind, batch_size, max_len, dtype, device):
+def _layer_cache(cfg, kind, batch_size, max_len, dtype, device, rows=None):
+    """A layer's zero cache of `max_len` positions; a K/V or MLA cache of
+    `rows` rows when given (a rank's, `held_cache_len`), a windowed
+    layer's ring of min(window, max_len) slots."""
+    rows = max_len if rows is None else rows
     if kind == "ssm":
         return ssm_mod.ssm_cache_shape(cfg, batch_size, dtype, device)
     if kind == "rglru":
         return rglru_mod.rglru_cache_shape(cfg, batch_size, dtype, device)
     if kind == "mla":
-        return attn.mla_cache_shape(cfg, batch_size, max_len, dtype, device)
-    window = cfg.rglru.window if kind == "local_attn" else None
-    return attn.gqa_cache_shape(cfg, batch_size, max_len, dtype, device,
-                                window=window)
+        return attn.mla_cache_shape(cfg, batch_size, rows, dtype, device)
+    if kind == "local_attn":
+        return attn.gqa_cache_shape(cfg, batch_size, max_len, dtype, device,
+                                    window=cfg.rglru.window)
+    return attn.gqa_cache_shape(cfg, batch_size, rows, dtype, device)
 
 
 def held_cache_len(cfg, max_len: int) -> int:
-    """The cache rows a rank holds under the context mesh: max_len/tp
-    for a `model_axis` family when max_len >= 4,096 divides over 'model'
-    (JAX's `cache_specs`), max_len otherwise."""
-    from repro_torch.launch.sharding import model_axis
+    """The K/V (or MLA) cache rows a rank holds under the context mesh:
+    max_len/tp when max_len >= 4,096 divides over 'model' (JAX's
+    `cache_specs`), max_len otherwise."""
     tp = get_mesh().shape.get("model", 1)
-    if tp > 1 and model_axis(cfg) and max_len >= 4096 and max_len % tp == 0:
+    if tp > 1 and max_len >= 4096 and max_len % tp == 0:
         return max_len // tp
     return max_len
 
@@ -559,7 +566,8 @@ def init_cache(cfg, batch_size, max_len, dtype=torch.bfloat16, device=None):
     rows = held_cache_len(cfg, max_len)
     out = {}
     for name, L in segment_layers(cfg).items():
-        tree = {n: _layer_cache(cfg, kind, batch_size, rows, dtype, dev)
+        tree = {n: _layer_cache(cfg, kind, batch_size, max_len, dtype, dev,
+                                rows)
                 for n, kind in layer_blocks(cfg, name)}
         tree = tree[None] if None in tree else tree
         out[name] = _expand(tree, L)
@@ -569,26 +577,41 @@ def init_cache(cfg, batch_size, max_len, dtype=torch.bfloat16, device=None):
 def extend_cache(caches, cfg, length: int, max_len: int):
     """The caches a prefill of `length` positions returned (leaves (L, B,
     length, ...), or a rank's rows of them, `held_cache_len`) as decode
-    caches of `max_len` rows, the prefill's first and zeros after, held
-    as `init_cache` holds them. Attention leaves only (K/V, MLA's {c_kv,
-    k_rope}); a windowed layer's ring and the recurrent states are not
-    taken."""
+    caches of `max_len` positions, held as `init_cache` holds them: K/V
+    and MLA's {c_kv, k_rope} the prefill's rows first and zeros after; a
+    windowed layer's last min(window, length) rows each in its ring slot
+    (position % the ring's min(window, max_len) slots); the recurrent
+    states ({conv, ssd}, {conv, h}) as they are."""
     mesh = get_mesh()
 
-    def one(t):
+    def rows(t):
         if held_cache_len(cfg, length) != length:   # rows over 'model'
             t = mesh.all_gather(t.contiguous(), "model", dim=2)
         pad = [0, 0] * (t.dim() - 3) + [0, max_len - length]
         full = torch.nn.functional.pad(t, pad)
-        rows = held_cache_len(cfg, max_len)
-        if rows != max_len:
+        n = held_cache_len(cfg, max_len)
+        if n != max_len:
             r = mesh.coords["model"]
-            full = full[:, :, r * rows:(r + 1) * rows]
+            full = full[:, :, r * n:(r + 1) * n]
         return full.contiguous()
 
-    def walk(tree):
-        return {k: walk(v) if isinstance(v, dict) else one(v)
-                for k, v in tree.items()}
+    def ring(t):
+        T, n = min(cfg.rglru.window, max_len), t.shape[2]
+        full = t.new_zeros(t.shape[:2] + (T,) + t.shape[3:])
+        full[:, :, (length - n + torch.arange(n, device=t.device)) % T] = t
+        return full
+
+    def walk(tree, ringed=False):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, ringed or (cfg.family == "hybrid"
+                                            and k == "attn"))
+            elif k in ("conv", "ssd", "h"):
+                out[k] = v
+            else:
+                out[k] = ring(v) if ringed else rows(v)
+        return out
     return walk(caches)
 
 

@@ -21,6 +21,21 @@ The mixer's parameters are an `nn.Module` (`SSM`) with JAX's names and
 layouts: `w_in` (d, 2 d_in + 2 N + H), `conv_w` (K, d_in + 2 N),
 `conv_b`, fp32 `a_log`, `dt_bias` and `d_skip` (H,), `out_norm.scale`
 (d_in,), `w_out` (d_in, d).
+
+The model axis (ROADMAP item 10.3c). JAX's rules hold `w_out` over d_in
+on 'model' and every other leaf whole. With `w_out` held (d_in/tp, d)
+under tp > 1 each rank computes the whole projection and convolution,
+which then enter through Megatron's f (`Mesh.copy_to`: their gradient,
+and so `w_in`'s, `conv_w`'s and `conv_b`'s, summed whole on every rank)
+before the rank takes its H/tp heads of z, x and dt (B and C are every
+head's). The scan runs on those heads, with `a_log`, `dt_bias` and
+`d_skip` sliced to them (their gradients, and `out_norm.scale`'s, are
+partial sums over 'model': the training step adds them). `out_norm`
+normalises over the whole d_in, so the rank's sum of squares is summed
+over 'model' first (`Mesh.psum`, a sum both ways); then `w_out` is
+row-parallel through g (`Mesh.reduce_from`). The caches are held whole,
+as JAX's `cache_specs` holds them: after each prefill and decode tick the
+rank's heads of the new ssd state are gathered over 'model'.
 """
 from __future__ import annotations
 
@@ -28,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.context import get_mesh
 from repro_torch.models.layers import Norm, apply_norm, dense_init
 
 
@@ -127,26 +143,51 @@ def ssd_chunked(xh, a, Bm, Cm, chunk: int, init_state=None):
     return (y_intra + y_inter).reshape(B, S, H, Pd), h
 
 
+def _norm_cut(scale, y, d_in: int, mesh, eps: float = 1e-6):
+    """`apply_norm`'s RMSNorm of y (B, S, d_in/tp), the rank's block of a
+    d_in-wide vector: its sum of squares summed over 'model'."""
+    yf = y.float()
+    ms = mesh.psum(yf.square().sum(-1, keepdim=True), "model") / d_in
+    return (yf * torch.rsqrt(ms + eps) * scale.float()).to(y.dtype)
+
+
 def ssm_apply(p, x, cfg, cache=None):
     """x (B, S, d) -> (y, new_cache). Training: no cache (new_cache
     None). Prefill: a cache and S > 1, returning {conv, ssd} (the ssd
     state in x's dtype). Decode: a cache {conv (B, K - 1, C), ssd (B, H,
     P, N)} and S == 1, the recurrent update; the new ssd state in the
-    cache's dtype."""
+    cache's dtype. Under the model axis: the module docstring."""
     s = cfg.ssm
     B, S, _ = x.shape
     z, xbc, dt, d_in, N, H = _split_in(cfg, x @ p.w_in)
     Pd = s.head_dim
     conv_state = cache["conv"] if cache is not None else None
     xbc, new_conv = _causal_conv(p.conv_w, p.conv_b, xbc, conv_state)
+    mesh = get_mesh()
+    tp = mesh.shape.get("model", 1)
+    cut = tp > 1 and p.w_out.shape[0] < d_in
+    heads = slice(None)
+    a_log, dt_bias, d_skip = p.a_log, p.dt_bias, p.d_skip
+    if cut:
+        if H % tp:
+            raise ValueError(f"{H} SSD heads do not divide over {tp} model "
+                             f"ranks")
+        z, xbc, dt = torch.split(mesh.copy_to(torch.cat(
+            [z, xbc, dt], dim=-1), "model"), [d_in, d_in + 2 * N, H], dim=-1)
+        r, hl = mesh.coords["model"], H // tp
+        heads = slice(r * hl, (r + 1) * hl)
+        z = z[..., r * hl * Pd:(r + 1) * hl * Pd]
+        dt = dt[..., heads]
+        a_log, dt_bias, d_skip = a_log[heads], dt_bias[heads], d_skip[heads]
     xs, Bm, Cm = torch.split(xbc, [d_in, N, N], dim=-1)
-    dt = F.softplus(dt.float() + p.dt_bias)                    # (B,S,H)
-    a = torch.exp(-torch.exp(p.a_log) * dt)                    # (B,S,H)
-    xh = xs.reshape(B, S, H, Pd)
-    xdt = xh.float() * dt[..., None]
+    Hl = H // tp if cut else H
+    xs = xs.unflatten(-1, (H, Pd))[:, :, heads]
+    dt = F.softplus(dt.float() + dt_bias)                      # (B,S,Hl)
+    a = torch.exp(-torch.exp(a_log) * dt)                      # (B,S,Hl)
+    xdt = xs.float() * dt[..., None]
     if cache is not None and S == 1:
         # recurrent decode step: h = a h + B x_dt ; y = C.h
-        h = cache["ssd"].float()                               # (B,H,P,N)
+        h = cache["ssd"][:, heads].float()                     # (B,Hl,P,N)
         h = h * a[:, 0, :, None, None] + torch.einsum(
             "bhp,bn->bhpn", xdt[:, 0], Bm[:, 0].float())
         y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].float(), h)[:, None]
@@ -156,9 +197,17 @@ def ssm_apply(p, x, cfg, cache=None):
         new_cache = None
         if cache is not None:   # prefill
             new_cache = {"conv": new_conv, "ssd": hT.to(x.dtype)}
-    y = y + xh.float() * p.d_skip[..., None]
-    y = y.reshape(B, S, d_in).to(x.dtype)
+    if new_cache is not None and cut:       # held whole: every head
+        with torch.no_grad():
+            new_cache["ssd"] = mesh.all_gather(new_cache["ssd"].contiguous(),
+                                               "model", dim=1)
+    y = y + xs.float() * d_skip[..., None]
+    y = y.reshape(B, S, Hl * Pd).to(x.dtype)
     y = y * F.silu(z)
+    if cut:
+        scale = p.out_norm.scale[r * hl * Pd:(r + 1) * hl * Pd]
+        return mesh.reduce_from(_norm_cut(scale, y, d_in, mesh) @ p.w_out,
+                                "model"), new_cache
     y = apply_norm(p.out_norm, y)
     return y @ p.w_out, new_cache
 

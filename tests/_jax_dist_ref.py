@@ -6,7 +6,7 @@ before jax is imported).
     python tests/_jax_dist_ref.py moe DIR
     python tests/_jax_dist_ref.py ckpt DIR
     python tests/_jax_dist_ref.py dp DIR
-    python tests/_jax_dist_ref.py tp DIR
+    python tests/_jax_dist_ref.py tp DIR [I/N]
 
 `moe`: for each case of DIR/cases.json, one MoE layer (`moe_init`,
 fp32) and a seeded input through `moe_apply` under `shard_map` on the
@@ -32,9 +32,11 @@ by `params_specs` (the batch by `batch_specs`, the caches by
 `cache_specs`, the AdamW state by `opt_specs`): the jitted
 `make_prefill_step(cfg, layout)`'s logits and caches, `TP_TICKS` ticks
 of the jitted `make_decode_step` over the prefill's caches written into
-`init_cache(cfg, B, max_len)` (fp32), and for a case that trains the
+`init_cache(cfg, B, max_len)` (fp32, `place`), and for a case that trains the
 gradients of `loss_fn(..., layout)` and one jitted `make_train_step(cfg,
-oc, layout)`: loss, parameters, mu and nu. Writes DIR/jax_tp.npz.
+oc, layout)`: loss, parameters, mu and nu. With I/N (default 0/1) only
+every N-th case from the I-th, so that N processes share the cases.
+Writes DIR/jax_tp{I}.npz.
 `ckpt`: for every family, reduced parameters (the shapes and dtypes of
 `lm.init_params`, the values drawn from numpy) and a random AdamW state
 saved with `save_tree` unsharded (DIR/<arch>/plain) and sharded over a
@@ -224,7 +226,23 @@ def run_dp(d):
     np.savez(d / "jax_dp.npz", **out)
 
 
-def run_tp(d):
+def place(cfg, full, caches, S_tot):
+    """A prefill's caches of S_tot positions written into decode caches
+    `full`: K/V and MLA's rows first; a windowed layer's last rows each
+    in its ring slot (position % the ring's slots); the recurrent states
+    ({conv, ssd}, {conv, h}) whole."""
+    def one(path, z, p):
+        keys = [getattr(k, "key", None) for k in path]
+        if keys[-1] in ("conv", "ssd", "h"):
+            return p.astype(z.dtype)
+        if cfg.family == "hybrid" and "attn" in keys:
+            n = p.shape[2]
+            return z.at[:, :, (S_tot - n + np.arange(n)) % z.shape[2]].set(p)
+        return z.at[:, :, :S_tot].set(p)
+    return jax.tree_util.tree_map_with_path(one, full, caches)
+
+
+def run_tp(d, part="0/1"):
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import torch
     from _torch_dist_ranks import (TP_TICKS, tp_batch, tp_cases, tp_cfg,
@@ -234,8 +252,9 @@ def run_tp(d):
     from repro_torch.configs import get_reduced as tget_reduced
     from repro_torch.models import lm as tlm
     from repro_torch.models.weights import params_to_jax
+    i, n = (int(x) for x in part.split("/"))
     out = {}
-    for c in tp_cases():
+    for c in tp_cases()[i::n]:
         t0 = time.perf_counter()
         name, layout = c["name"], c["layout"]
         cfg, tcfg = tp_cfg(get_reduced, c), tp_cfg(tget_reduced, c)
@@ -260,9 +279,9 @@ def run_tp(d):
             out[f"{name}/logits"] = np.asarray(logits)
             out.update(flat(caches, f"{name}/cache/"))
             S_tot, T = tp_length(cfg, c), c["max_len"]
-            full = lm.init_cache(cfg, c["B"], T, dtype=jnp.float32)
-            full = jax.tree.map(lambda z, p: z.at[:, :, :S_tot].set(p),
-                                full, caches)
+            full = place(cfg, lm.init_cache(cfg, c["B"], T,
+                                            dtype=jnp.float32), caches,
+                         S_tot)
             cache = put(full, rules.cache_specs(full))
             dstep = jax.jit(make_decode_step(cfg, layout))
             for t, tok in enumerate(tp_ticks(cfg, c)):
@@ -285,7 +304,7 @@ def run_tp(d):
                 out.update(flat(opt["nu"], f"{name}/nu/"))
         print(f"{name}: {time.perf_counter() - t0:.1f} s ({TP_TICKS} "
               f"ticks)", flush=True)
-    np.savez(d / "jax_tp.npz", **out)
+    np.savez(d / f"jax_tp{i}.npz", **out)
 
 
 def run_ckpt(d):
@@ -320,5 +339,6 @@ def run_ckpt(d):
 
 if __name__ == "__main__":
     mode, d = sys.argv[1], Path(sys.argv[2])
-    {"moe": run_moe, "ckpt": run_ckpt, "dp": run_dp, "tp": run_tp}[mode](d)
+    {"moe": run_moe, "ckpt": run_ckpt, "dp": run_dp, "tp": run_tp}[mode](
+        d, *sys.argv[3:])
     print("JAX-REF-OK")

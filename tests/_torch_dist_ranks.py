@@ -37,8 +37,8 @@ prefill's logits and caches (`make_prefill_step`), the logits of
 decode length (`lm.extend_cache`, `make_decode_step`) and the caches
 after them, and for a case that trains the reduced gradients
 (`reduced_grads`), then one `make_train_step`'s loss, parameters and
-moments; rank 0 also runs the last case (the 2-D cache) at world size
-1 as "cache2d_w1". Ranks 0 and 1 take one case's gradients on a thread
+moments; rank 0 also runs the 2-D cache cases and `W1_DECODE`'s at
+world size 1 (`world_one`'s names). Ranks 0 and 1 take one case's gradients on a thread
 that opened no mesh context (`tp_threaded_backward`). Then `TP_SERVE`'s
 servers: each mesh's ranks serve
 two requests (`tp_serve`), and rank 0 serves them at world size 1. `tests/_jax_dist_ref.py tp` runs the same cases in
@@ -267,9 +267,9 @@ def dp_and_elastic(rank, d, out):
         out[f"el/2/params/{n}"] = p.numpy()
 
 
-# the model axis's cases: name, arch, config changes, (data, model),
-# layout, B, S, decode length (every case decodes `TP_TICKS` ticks),
-# whether it trains
+# the model axis's cases: name, arch, config changes (a dict for a
+# nested config: its fields), (data, model), layout, B, S, decode length
+# (every case decodes `TP_TICKS` ticks), whether it trains
 TP_TICKS = 4
 TP_CASES = [
     ("qwen25_heads_1x4", "qwen2_5_3b", {}, (1, 4), "heads", 2, 16, 24, True),
@@ -287,19 +287,54 @@ TP_CASES = [
     ("qwen25_seq_2x2", "qwen2_5_3b", {}, (2, 2), "seq", 2, 16, 24, True),
     ("llama_fsdp_2x2", "llama3_405b", {"fsdp": True}, (2, 2), "heads", 2,
      16, 24, True),
+    # MLA, the SSM and the RG-LRU (item 10.3c): MLA's heads at tp = 4,
+    # and with FSDP on (2, 2); the SSM's heads at tp = 4 and beside a
+    # data axis; the RG-LRU in "heads" with 4 gate blocks of 16 (2 a
+    # rank) and in "seq" with 6 heads (not dividing over 4, as
+    # RecurrentGemma-2B's 10) at S = 48, the window of 32 reaching over
+    # the ranks' blocks of 12 rows, its one gate block of 64 cut by the
+    # ranks' 16 channels
+    ("mla_heads_1x4", "deepseek_v2_236b", {}, (1, 4), "heads", 2, 16, 24,
+     True),
+    ("mla_fsdp_2x2", "deepseek_v2_236b", {"fsdp": True}, (2, 2), "heads", 2,
+     16, 24, True),
+    ("mamba_1x4", "mamba2_780m", {}, (1, 4), "heads", 2, 16, 24, True),
+    ("mamba_2x2", "mamba2_780m", {}, (2, 2), "heads", 2, 16, 24, True),
+    ("rg_heads_1x2", "recurrentgemma_2b", {"rglru": {"gate_block": 16}},
+     (1, 2), "heads", 2, 16, 24, True),
+    ("rg_seq_1x4", "recurrentgemma_2b", {"n_heads": 6}, (1, 4), "seq", 2,
+     48, 56, True),
+    # the 2-D cache: a prefill at S = 4,096 decoded in a T = 8,192 cache
+    # held over 'model'
     ("cache2d_1x2", "qwen2_7b", {}, (1, 2), "heads", 1, 4096, 8192, False),
+    ("mla_cache2d_1x2", "deepseek_v2_236b", {}, (1, 2), "heads", 1, 4096,
+     8192, False),
 ]
 TP_KEYS = ("name", "arch", "cfg", "shape", "layout", "B", "S", "max_len",
            "train")
+# the cases whose decode is held to the port at world size 1, not to JAX:
+# JAX's FSDP MoE decode (`_decode_moe_2d`) adds the data shards'
+# different rows in its shared experts (ROADMAP §3)
+W1_DECODE = ("mla_fsdp_2x2",)
 
 
 def tp_cases():
     return [dict(zip(TP_KEYS, c)) for c in TP_CASES]
 
 
+def world_one(c):
+    """The name of a case's world size 1 run on rank 0: the 2-D caches'
+    and `W1_DECODE`'s."""
+    return c["name"].rsplit("_", 1)[0] + "_w1"
+
+
 def tp_cfg(get_reduced_fn, c):
-    """A case's config from a package's `get_reduced`."""
-    return dataclasses.replace(get_reduced_fn(c["arch"]), **c["cfg"])
+    """A case's config from a package's `get_reduced` (a dict of changes
+    applied to the nested config of its name)."""
+    base = get_reduced_fn(c["arch"])
+    over = {k: dataclasses.replace(getattr(base, k), **v)
+            if isinstance(v, dict) else v for k, v in c["cfg"].items()}
+    return dataclasses.replace(base, **over)
 
 
 def tp_batch(cfg, c):
@@ -371,7 +406,10 @@ def tp_case(c, mesh, out):
 
 
 # the Server on a mesh with a model axis: arch, (data, model), layout
-TP_SERVE = [("qwen2_5_3b", (1, 4), "heads"), ("qwen2_7b", (1, 2), "seq")]
+TP_SERVE = [("qwen2_5_3b", (1, 4), "heads"), ("qwen2_7b", (1, 2), "seq"),
+            ("deepseek_v2_236b", (1, 4), "heads"),
+            ("mamba2_780m", (1, 4), "heads"),
+            ("recurrentgemma_2b", (1, 4), "heads")]
 
 
 def tp_serve(arch, layout, out, key):
@@ -435,11 +473,13 @@ def tp_body(rank, world, d):
     mesh = make_mesh((1, 2), ("data", "model"), ranks=[0, 1])
     if mesh is not None:
         tp_threaded_backward(mesh, out)
-    if rank == 0:       # the 2-D cache case again at world size 1
-        c = dict(tp_cases()[-1], name="cache2d_w1")
+    if rank == 0:       # the 2-D caches and W1_DECODE at world size 1
         one = Mesh((1, 1), ("data", "model"))
-        with mesh_context(one):
-            tp_case(c, one, out)
+        for c in tp_cases():
+            if "cache2d" in c["name"] or c["name"] in W1_DECODE:
+                with mesh_context(one):
+                    tp_case(dict(c, name=world_one(c), train=False), one,
+                            out)
     np.savez(d / f"rank{rank}.npz", **out)
     torch.distributed.barrier()
 

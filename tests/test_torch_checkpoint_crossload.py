@@ -33,7 +33,7 @@ from repro_torch.configs import get_reduced
 from repro_torch.distributed.context import Mesh
 from repro_torch.distributed.elastic import reshard_tree
 from repro_torch.launch import train as ttrain
-from repro_torch.launch.sharding import ShardingRules, model_axis
+from repro_torch.launch.sharding import ShardingRules
 from repro_torch.models.weights import (opt_state_from_jax, opt_state_to_jax,
                                         params_from_jax, params_to_jax)
 
@@ -138,8 +138,7 @@ def test_jax_restores_port_checkpoints(saved, tmp_path, arch, sharded):
         rules = ShardingRules(cfg, Mesh((2, 4), ("data", "model")), "heads")
         specs = {"params": rules.held_params_specs(state),
                  "opt": rules.held_opt_specs(state)}
-        assert any("model" in s for s in specs["params"].values()) == \
-            (cfg.moe is not None or model_axis(cfg))
+        assert any("model" in s for s in specs["params"].values())
         for r in reversed(range(8)):          # rank 0 last: the index
             m = Mesh((2, 4), ("data", "model"), rank=r)
             blocks = {"params": reshard_tree(state, cfg, m, "params",
@@ -198,9 +197,8 @@ def test_port_restores_its_blocks_of_a_sharded_jax_save(saved, arch,
                 assert np.array_equal(t_bits(blocks[n]), t_bits(want)), \
                     (r, kind, n)
         assert int(got["opt"]["step"]) == int(opt["step"])
-        if model_axis(cfg):
-            mine = [f for f in read if f.startswith("params__embed__table")]
-            assert len(mine) == 1, mine
+        mine = [f for f in read if f.startswith("params__embed__table")]
+        assert len(mine) == 1, mine
 
 
 @pytest.mark.parametrize("arch", FAMILIES)

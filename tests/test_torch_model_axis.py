@@ -1,4 +1,4 @@
-"""The model axis on the dense layers (ROADMAP item 10.3b): the port's
+"""The model axis (ROADMAP items 10.3b and 10.3c): the port's
 tensor-parallel families held to JAX on the same (data, model) meshes,
 on the CPU.
 
@@ -13,17 +13,27 @@ blocks are assembled here. The cases cover reduced qwen2_5_3b (KV
 replicated at tp = 4), qwen2_7b (KV sharded at tp = 2), gemma_7b,
 llava_next_mistral_7b, musicgen_medium and deepseek_moe_16b, on (1, 2),
 (1, 4) and (2, 2) in "heads" and "seq"; llama3_405b with FSDP on (2, 2)
-with its published sequence-parallel residual; and a prefill at S =
-4,096 decoded into a T = 8,192 cache held over 'model' (the 2-D cache).
+with its published sequence-parallel residual; deepseek_v2_236b's MLA on
+(1, 4) and with FSDP on (2, 2); mamba2_780m on (1, 4) and (2, 2);
+recurrentgemma_2b in "heads" on (1, 2) (its gate blocks divided over
+'model') and in "seq" on (1, 4) (6 heads, its window reaching over the
+ranks' blocks, its one gate block cut by the ranks' channels); and
+prefills at S = 4,096 decoded into T = 8,192 caches held over 'model'
+(the 2-D cache: qwen2_7b's K/V, DeepSeek-V2's compressed rows).
+`W1_DECODE`'s decode (DeepSeek-V2 with FSDP on (2, 2)) is held to the
+port at world size 1: JAX's FSDP MoE decode adds the data shards'
+different rows in its shared experts (ROADMAP §3).
 
 Tolerances (fp32, as chip_smoke.py's phase 25(b)): the loss within
 1e-5; each gradient within 1e-4 of its largest magnitude; logits,
 caches and moments within 1e-5 of max(1, their largest magnitude);
 parameters within 1e-5 where Adam's step is well-conditioned
 (`test_train_step_matches_jax`'s rule) and within 2 lr elsewhere, the
-ill-conditioned elements under 1 %. The 2-D cache's V is held to JAX
-within 1e-5, its K to the port at world size 1 within 1e-5 and to JAX
-within `ROPE_TOL`: RoPE at positions past 2,048 differs between the two
+ill-conditioned elements under 1 % (under 5 % for the hybrid, the cap
+of its own single-device test, tests/test_torch_hybrid.py). The 2-D
+cache's V (and MLA's c_kv) is held to JAX within 1e-5, its K (MLA's
+k_rope) to the port at world size 1 within 1e-5 and to JAX within
+`ROPE_TOL`: RoPE at positions past 2,048 differs between the two
 packages by 1.26e-5 of |K| at world size 1 already (sin and cos of
 large angles, the frequencies' last bit).
 """
@@ -39,7 +49,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "tests"))
 
 from _torch_dist_ranks import (OC, TP_SERVE, TP_TICKS,  # noqa: E402
-                               tp_cases, tp_cfg)
+                               W1_DECODE, tp_cases, tp_cfg, world_one)
 from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.distributed.context import Mesh  # noqa: E402
 from repro_torch.launch.sharding import (ShardingRules,  # noqa: E402
@@ -50,24 +60,54 @@ from repro_torch.models.weights import params_from_jax  # noqa: E402
 
 CASES = tp_cases()
 TRAINED = [c for c in CASES if c["train"]]
+TWO_D = [c for c in CASES if "cache2d" in c["name"]]
 TOL, GRAD_TOL = 1e-5, 1e-4
 ROPE_TOL = 2e-5         # the 2-D cache's K against JAX (the docstring)
 LR1 = 1e-2 / OC["warmup_steps"]         # the first step's learning rate
 
 
+JAX_PROCS = 2           # JAX's side in two processes, beside the ranks
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
+    """JAX's side (`JAX_PROCS` processes, each a share of the cases) and
+    the port's four ranks, all at once: neither reads the other."""
     d = tmp_path_factory.mktemp("tp")
-    for cmd in ([sys.executable, str(ROOT / "tests" / "_jax_dist_ref.py"),
-                 "tp", str(d)],
-                [sys.executable, str(ROOT / "tests" / "_torch_dist_ranks.py"),
-                 "tp", str(d), str(d / "store")]):
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=600, cwd=str(ROOT))
-        assert proc.returncode == 0, proc.stdout[-3000:] + \
-            proc.stderr[-5000:]
-    return np.load(d / "jax_tp.npz"), [np.load(d / f"rank{r}.npz")
-                                       for r in range(4)]
+    cmds = [[sys.executable, str(ROOT / "tests" / "_jax_dist_ref.py"), "tp",
+             str(d), f"{i}/{JAX_PROCS}"] for i in range(JAX_PROCS)]
+    cmds.append([sys.executable, str(ROOT / "tests" / "_torch_dist_ranks.py"),
+                 "tp", str(d), str(d / "store")])
+    logs = [d / f"proc{i}.log" for i in range(len(cmds))]
+    procs = []
+    try:
+        for cmd, log in zip(cmds, logs):     # a file each: no pipe fills
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(cmd, stdout=f,
+                                              stderr=subprocess.STDOUT,
+                                              cwd=str(ROOT)))
+        for p in procs:
+            p.wait(timeout=600)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log.read_text()[-6000:]
+    jax_out = {}
+    for i in range(JAX_PROCS):
+        with np.load(d / f"jax_tp{i}.npz") as f:
+            jax_out.update({k: f[k] for k in f.files})
+    return _Npz(jax_out), [np.load(d / f"rank{r}.npz") for r in range(4)]
+
+
+class _Npz(dict):
+    """The JAX processes' outputs merged: an npz's `files` and `[key]`."""
+
+    @property
+    def files(self):
+        return list(self)
 
 
 def _case(c):
@@ -133,12 +173,9 @@ def _leaves(c, jax_out, ranks, kind):
     return out
 
 
-def _is_2d(c):
-    return c["name"].startswith("cache2d")
-
-
 def _cache_tol(c, key):
-    return ROPE_TOL if _is_2d(c) and key.endswith("/k") else TOL
+    return ROPE_TOL if c in TWO_D and key.endswith(("/k", "/k_rope")) \
+        else TOL
 
 
 @pytest.mark.parametrize("c", CASES, ids=[c["name"] for c in CASES])
@@ -152,29 +189,37 @@ def test_prefill_logits_and_caches_match_jax(runs, c):
 
 @pytest.mark.parametrize("c", CASES, ids=[c["name"] for c in CASES])
 def test_decode_ticks_match_jax(runs, c):
+    """Every tick's logits and the caches after them: held to JAX, and
+    for `W1_DECODE` to the port at world size 1 (the module
+    docstring)."""
     jax_out, ranks = runs
+    name, one = c["name"], world_one(c)
+    w1 = name in W1_DECODE
     for t in range(TP_TICKS):
-        _near(_rows(c, ranks, f"{c['name']}/tick{t}"),
-              jax_out[f"{c['name']}/tick{t}"])
+        want = ranks[0][f"{one}/tick{t}"] if w1 else \
+            jax_out[f"{name}/tick{t}"]
+        _near(_rows(c, ranks, f"{name}/tick{t}"), want)
     for k, (got, want) in _caches(c, jax_out, ranks, "decoded").items():
+        if w1:
+            want = ranks[0][k.replace(name, one, 1)]
         _near(got, want, _cache_tol(c, k))
 
 
-def test_2d_cache_equals_world_one(runs):
+@pytest.mark.parametrize("c", TWO_D, ids=[c["name"] for c in TWO_D])
+def test_2d_cache_equals_world_one(runs, c):
     """The 2-D cache's rows (each rank 2,048 of the prefill's 4,096, then
     4,096 of the 8,192 decode rows) assembled equal the port's world
     size 1 run within 1e-5, and every tick's logits too."""
     jax_out, ranks = runs
-    c = CASES[-1]
-    assert _is_2d(c) and c["max_len"] == 8192 and c["shape"] == (1, 2)
+    name, w1 = c["name"], world_one(c)
+    assert c["max_len"] == 8192 and c["shape"] == (1, 2)
     for kind in ("cache", "decoded"):
         for k, (got, _) in _caches(c, jax_out, ranks, kind).items():
-            one = ranks[0][k.replace("cache2d_1x2", "cache2d_w1")]
+            one = ranks[0][k.replace(name, w1, 1)]
             assert ranks[1][k].shape[2] * 2 == one.shape[2], k
             _near(got, one)
     for t in range(TP_TICKS):
-        _near(_rows(c, ranks, f"cache2d_1x2/tick{t}"),
-              ranks[0][f"cache2d_w1/tick{t}"])
+        _near(_rows(c, ranks, f"{name}/tick{t}"), ranks[0][f"{w1}/tick{t}"])
 
 
 def test_backward_on_a_thread_without_the_mesh_context(runs):
@@ -211,7 +256,8 @@ def test_server_on_the_model_axis_equals_world_one(runs, arch, shape,
 @pytest.mark.parametrize("c", TRAINED, ids=[c["name"] for c in TRAINED])
 def test_train_step_matches_jax(runs, c):
     """Loss, every assembled gradient, the parameters and moments after
-    one AdamW step."""
+    one AdamW step (the ill-conditioned share under the family's own
+    cap: the module docstring)."""
     jax_out, ranks = runs
     name = c["name"]
     for r in range(int(np.prod(c["shape"]))):
@@ -233,14 +279,41 @@ def test_train_step_matches_jax(runs, c):
         assert gap.max() <= 2 * LR1, n
         n_ill += int((~well).sum())
         n_all += gap.size
-    assert n_ill < 1e-2 * n_all, (n_ill, n_all)
+    cap = 5e-2 if c["arch"] == "recurrentgemma_2b" else 1e-2
+    assert n_ill < cap * n_all, (n_ill, n_all)
 
 
-def test_held_blocks_cut_the_whole_model():
+# a (1, 2) mesh's rank 1's blocks of reduced configs: {path: shape}
+HELD = {
+    "qwen2_5_3b": {"blocks.0.attn.wq": (64, 2, 16),
+                   "blocks.0.attn.wk": (64, 1, 16),
+                   "blocks.0.mlp.w_out": (128, 64),
+                   "embed.table": (128, 64), "blocks.0.ln1.scale": (64,)},
+    "deepseek_v2_236b": {"blocks.0.attn.w_uq": (48, 2, 24),
+                         "blocks.0.attn.w_uv": (32, 2, 16),
+                         "blocks.0.attn.w_o": (2, 16, 64),
+                         "blocks.0.attn.w_dkv": (64, 40),
+                         "blocks.0.moe.w_in": (4, 64, 64)},
+    "mamba2_780m": {"blocks.0.ssm.w_out": (64, 64),
+                    "blocks.0.ssm.w_in": (64, 292),
+                    "blocks.0.ssm.a_log": (4,),
+                    "blocks.0.ssm.out_norm.scale": (128,)},
+    "recurrentgemma_2b": {"groups.0.rec1.rec.w_x": (64, 32),
+                          "groups.0.rec1.rec.lam": (32,),
+                          "groups.0.rec1.rec.conv_w": (4, 64),
+                          "groups.0.rec1.rec.w_i": (1, 64, 64),
+                          "groups.0.rec1.rec.w_out": (32, 64),
+                          "groups.0.attn.attn.wq": (64, 2, 16)},
+}
+
+
+@pytest.mark.parametrize("arch", list(HELD))
+def test_held_blocks_cut_the_whole_model(arch):
     """`lm.init_params(..., mesh=)` draws each leaf whole and keeps the
     rank's block: the blocks equal `shard_params` of the whole model of
-    the same seed, on every rank, in both layouts."""
-    cfg = get_reduced("qwen2_5_3b")
+    the same seed, on every rank, in both layouts; and a (1, 2) rank
+    holds `HELD`'s blocks."""
+    cfg = get_reduced(arch)
     whole = lm.init_params(cfg, 3, torch.float32, "cpu").state_dict()
     for layout in ("heads", "seq"):
         for r in range(4):
@@ -252,12 +325,9 @@ def test_held_blocks_cut_the_whole_model():
             for n in want:
                 assert torch.equal(got[n], want[n]), (layout, r, n)
     m = Mesh((1, 2), ("data", "model"), rank=1)
-    held = lm.init_params(cfg, 3, torch.float32, "cpu", mesh=m)
-    assert held.blocks[0].attn.wq.shape == (64, 2, 16)
-    assert held.blocks[0].attn.wk.shape == (64, 1, 16)
-    assert held.blocks[0].mlp.w_out.shape == (128, 64)
-    assert held.embed.table.shape == (128, 64)
-    assert held.blocks[0].ln1.scale.shape == (64,)
+    held = lm.init_params(cfg, 3, torch.float32, "cpu", mesh=m).state_dict()
+    for n, shape in HELD[arch].items():
+        assert tuple(held[n].shape) == shape, n
 
 
 @pytest.mark.parametrize("H,KV,tp,want", [

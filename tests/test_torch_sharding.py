@@ -126,19 +126,13 @@ def test_specs_equal_jax(arch, multi):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_held_specs_are_jax_params_specs_on_the_model_axis(arch, multi):
     """The specs the port holds (`held_spec`, `held_moment_spec`) are
-    JAX's `params_specs` and `opt_specs` for the families of the model
-    axis (every layer GQA attention plus an MLP or MoE; FSDP configs'
-    'data' dims included) and keep every leaf whole but the routed
-    experts' E dim for the others (MLA, SSM, RG-LRU: ROADMAP item
-    10.3c)."""
-    from repro_torch.launch.sharding import model_axis
+    JAX's `params_specs` and `opt_specs` for every family (ROADMAP items
+    10.3b and 10.3c: MLA's heads, the SSM's d_in, the RG-LRU's width and
+    gate blocks too; FSDP configs' 'data' dims included)."""
     jcfg, jmesh, jrules, layout = jax_pair(arch, multi)
     cfg = get_arch(arch)
     mesh = Mesh(tuple(jmesh.shape.values()), jmesh.axis_names)
     rules = ShardingRules(cfg, mesh, layout)
-    axis = model_axis(cfg)
-    assert axis == (arch not in ("deepseek_v2_236b", "mamba2_780m",
-                                 "recurrentgemma_2b"))
     prev = getattr(jcontext._state, "mesh", None)
     jcontext._state.mesh = jmesh
     try:
@@ -148,16 +142,9 @@ def test_held_specs_are_jax_params_specs_on_the_model_axis(arch, multi):
             for name, shape, path, stacked in port_leaves(ps):
                 want = spec_at(jspecs, path)
                 want = want[1:] if stacked else want
-                got = rules.held_spec(name, shape)
-                if axis:
-                    assert got == want, name
-                    assert rules.held_moment_spec(name, shape) == \
-                        rules.zero1_spec(want, shape), name
-                else:
-                    expert = rules._is_expert(name, shape)
-                    assert got == tuple(
-                        a if expert and i == 0 else None
-                        for i, a in enumerate(want)), name
+                assert rules.held_spec(name, shape) == want, name
+                assert rules.held_moment_spec(name, shape) == \
+                    rules.zero1_spec(want, shape), name
     finally:
         jcontext._state.mesh = prev
 
