@@ -386,7 +386,7 @@ raises and the script exits non-zero:
      re-uploading the shards of exactly the ranks that own cores 0, 3
      and 6; us a step, the stage plan, wire and event-vector bytes,
      shard bytes and peak device memory a rank. Then the pod-scale step
-     (`distributed_engine`) on a (data 2, model 4) `DeviceMesh` over the
+     (`distributed_engine`) on a (data 2, model 4) `Mesh` over the
      same ranks, W = 512, int16 weights, at 625,000 neurons a rank
      (160 M / 256, the dense bool wire) and 625,024 (the packed wire):
      2 steps with every rank's V and spikes equal to its plain step over
@@ -422,6 +422,21 @@ raises and the script exits non-zero:
      --workers 2` (one answer == the CPU port's, then SIGINT: drained,
      exit 0) and `examples/torch_serve_snn.py --portal --portal-workers
      2` (== its CPU in-process run). No thread is alive after it;
+ 28. the dry-run on the meta device (`launch.dryrun`, item 10.4) against
+     the card's own runs: phases 15, 12, 22 and 23 each run one of their
+     steps (Qwen2.5-3B's first bf16 train step at LM_TRAIN and its first
+     prefill at LM_PREFILL, DeepSeekMoE-16B's and RecurrentGemma-2B's
+     first prefills at MOE_PREFILL / FAMILY_PREFILL) under the op counter
+     (`count_on_card`); the same steps dry-run on meta give equal flops,
+     HBM bytes and kernel calls, the calls equal the wrappers' launches,
+     the argument bytes equal the card's tensors' (the train step's the
+     allocator's requested rise while its parameters, moments and batch
+     were made), the peak over them within PEAK_TOL of the card's
+     requested peak; `[dryrun vs card]` lines with flops / (ms x 989
+     TFLOP/s). Then the pod step of phase 20's mesh dry-run for rank 0 at
+     POD_NLOC == what phase 20's rank 0 held and tallied (`[dryrun
+     pod]`), and `hiaer_snn_40b` at 256 and 512 ranks (`[dryrun
+     hiaer_snn_40b]`, a host-side prediction);
   6. timing: each kernel's median time against its plain version and
      its bound (lif_step at the core's and the MLP's shapes;
      split_randint against its int32 operations at 132 x 64 lanes a
@@ -1814,15 +1829,20 @@ def run_lm_server(seed: int):
     return srv, tick_ms
 
 
-def run_lm_prefill(model, seed: int):
+def run_lm_prefill(model, seed: int, read_counts=None):
     """One bf16 prefill of the full model at LM_PREFILL: finite logits
-    over the padded vocab and a (L, B, S, KV, hd) cache."""
+    over the padded vocab and a (L, B, S, KV, hd) cache. With
+    `read_counts`, the prefill runs under the op counter (phase 28)."""
     from repro_torch.launch.steps import make_prefill_step
     cfg = lm_config()
     B, S = LM_PREFILL
     tokens = torch.as_tensor(np.random.default_rng(seed + 24).integers(
-        0, cfg.vocab_size, (B, S)), device=model.embed.table.device)
-    logits, caches = make_prefill_step(cfg)(model, {"tokens": tokens})
+        0, cfg.vocab_size, (B, S)), dtype=torch.int32,
+        device=model.embed.table.device)
+    step, batch = make_prefill_step(cfg), {"tokens": tokens}
+    logits, caches = step(model, batch) if read_counts is None else \
+        count_on_card(f"{LM_ARCH} prefill", cfg, "prefill", (B, S), step,
+                      (model, batch), read_counts)
     torch.cuda.synchronize()
     need(logits.shape == (B, model.embed.table.shape[0])
          and bool(torch.isfinite(logits).all()),
@@ -1983,12 +2003,13 @@ def train_parity(dev, cfg, models, tokens, zero_counts, read_counts,
 
 def run_lm_train(seed: int, zero_counts, read_counts, profile=False,
                  cfg=None, shape=LM_TRAIN, watch=None,
-                 tag="lm train step 36L bf16"):
+                 tag="lm train step 36L bf16", count=None):
     """`shape`'s (B, S, steps) steps of `cfg` (the full 36-layer
     Qwen2.5-3B by default) in bf16 (fp32 AdamW moments) on TokenPipeline
     batches. Returns per-step losses, grad norms, host ms
     (synchronised), launches, the peak memory and, after the steps, the
-    loss's ce and aux parts on one more batch."""
+    loss's ce and aux parts on one more batch. With `count` (a name),
+    the first step runs under the op counter (phase 28)."""
     from repro_torch.data.synthetic import TokenPipeline
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import lm
@@ -1996,9 +2017,12 @@ def run_lm_train(seed: int, zero_counts, read_counts, profile=False,
     cfg = lm_config() if cfg is None else cfg
     B, S, n_steps = shape
     torch.cuda.reset_peak_memory_stats()
+    held0 = held_bytes()
     model = lm.init_params(cfg, seed, torch.bfloat16)
     oc = AdamWConfig(moment_dtype=cfg.opt_dtype, total_steps=n_steps)
     opt = adamw_init(model, oc)
+    # the parameters' and moments' rise of the allocator (phase 28)
+    held1 = held_bytes()
     step = make_train_step(cfg, oc)
     pipe = TokenPipeline(cfg.vocab_size, S, B, seed=seed)
     # weight matrices: a bf16 norm scale near 1 does not move at the
@@ -2010,10 +2034,25 @@ def run_lm_train(seed: int, zero_counts, read_counts, profile=False,
     out = {"loss": [], "grad_norm": [], "ms": [], "launches": []}
     torch.cuda.synchronize()
     zero_counts()
-    for _ in range(n_steps):
+    for i in range(n_steps):
+        batch = pipe.next_batch()
         c0 = read_counts()
         t0 = time.perf_counter()
-        model, opt, m = step(model, opt, pipe.next_batch())
+        if i == 0 and count:
+            # the first step (outside the median) on the op counter, its
+            # batch on the card first, so that it is an argument
+            h = held_bytes()
+            batch = {k: torch.as_tensor(v, device=model.embed.table.device)
+                     for k, v in batch.items()}
+            h2 = held_bytes()
+            rise = tuple(a1 - a0 + b1 - b0 for a0, a1, b0, b1 in
+                         zip(held0, held1, h, h2))
+            model, opt, m = count_on_card(
+                count, cfg, "train", (B, S), step, (model, opt, batch),
+                read_counts, oc=oc, arg_rise=rise,
+                n_args=len(list(model.parameters())) * 3 + 1 + len(batch))
+        else:
+            model, opt, m = step(model, opt, batch)
         torch.cuda.synchronize()
         out["ms"].append(1e3 * (time.perf_counter() - t0))
         c1 = read_counts()
@@ -2022,6 +2061,8 @@ def run_lm_train(seed: int, zero_counts, read_counts, profile=False,
         out["grad_norm"].append(float(m["grad_norm"]))
     out["counts"] = read_counts()
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if count:
+        CARD_COUNTS[count]["ms"] = float(np.median(out["ms"][1:]))
     out["changed"] = {n: not torch.equal(before[n], leaves[n]) for n in watch}
     out["n_params"] = sum(p.numel() for p in leaves.values())
     with torch.no_grad():
@@ -2055,12 +2096,16 @@ class MoERecorder:
         self.calls = []
 
     def __enter__(self):
+        from torch.utils._python_dispatch import _disable_current_modes
+
         from repro_torch.models import moe
         real = self._real = moe.moe_apply
 
         def recorded(p, x, cfg):
             y, aux = real(p, x, cfg)
-            with torch.no_grad():
+            # the recording is not the model's: an op counter open
+            # (phase 28) does not see it
+            with torch.no_grad(), _disable_current_modes():
                 xt = x.reshape(-1, x.shape[-1])
                 w, ids, _ = moe._route(xt, p.router, cfg)
                 keep = moe._pack(xt, ids, w, moe._capacity(xt.shape[0], cfg),
@@ -2271,13 +2316,16 @@ def run_moe_full(seed: int, zero_counts, read_counts, profile=False) -> dict:
     del srv
     B, S = MOE_PREFILL
     tokens = torch.as_tensor(np.random.default_rng(seed + 65).integers(
-        0, cfg.vocab_size, (B, S)), device=model.embed.table.device)
+        0, cfg.vocab_size, (B, S)), dtype=torch.int32,
+        device=model.embed.table.device)
     step = make_prefill_step(cfg)
     torch.cuda.synchronize()
     zero_counts()
     t0 = time.perf_counter()
-    with MoERecorder() as rec:
-        logits, caches = step(model, {"tokens": tokens})
+    with MoERecorder() as rec:       # the first call on the op counter
+        logits, caches = count_on_card(
+            f"{MOE_ARCH} prefill", cfg, "prefill", (B, S), step,
+            (model, {"tokens": tokens}), read_counts)
     torch.cuda.synchronize()
     res["prefill_first_s"] = time.perf_counter() - t0
     res["prefill_counts"] = read_counts()
@@ -2302,6 +2350,8 @@ def run_moe_full(seed: int, zero_counts, read_counts, profile=False) -> dict:
         step(model, {"tokens": tokens})
         torch.cuda.synchronize()
         res["prefill_ms"].append(1e3 * (time.perf_counter() - t0))
+    CARD_COUNTS[f"{MOE_ARCH} prefill"]["ms"] = float(np.median(
+        res["prefill_ms"]))
     if profile:
         profile_window("[profile moe prefill 28L bf16]",
                        lambda: step(model, {"tokens": tokens}), 1)
@@ -2898,12 +2948,17 @@ def run_family_full(arch: str, seed: int, zero_counts, read_counts,
     batch["tokens"] = torch.as_tensor(np.random.default_rng(seed + 84)
                                       .integers(0, cfg.vocab_size, (
                                           B, S - lm._n_patch(cfg, batch))),
-                                      device=dev)
+                                      dtype=torch.int32, device=dev)
     step = make_prefill_step(cfg)
     torch.cuda.synchronize()
     zero_counts()
     t0 = time.perf_counter()
-    logits, caches = step(model, batch)
+    # the hybrid's first call on the op counter (phase 28)
+    name = f"{arch} prefill" if arch == HYBRID_ARCH \
+        and cfg.n_layers == family_config(arch).n_layers else None
+    logits, caches = step(model, batch) if name is None else \
+        count_on_card(name, cfg, "prefill", (B, S), step, (model, batch),
+                      read_counts)
     torch.cuda.synchronize()
     res["prefill_first_s"] = time.perf_counter() - t0
     res["prefill_counts"] = read_counts()
@@ -2926,6 +2981,8 @@ def run_family_full(arch: str, seed: int, zero_counts, read_counts,
         step(model, batch)
         torch.cuda.synchronize()
         res["prefill_ms"].append(1e3 * (time.perf_counter() - t0))
+    if name is not None:
+        CARD_COUNTS[name]["ms"] = float(np.median(res["prefill_ms"]))
     if profile:
         profile_window(f"[profile {arch} prefill bf16]",
                        lambda: step(model, batch), 1)
@@ -6201,8 +6258,9 @@ def mesh_rank(rank: int, world: int, work: str, seed: int) -> None:
             torch.cuda.empty_cache()
 
     # the pod-scale step: (data 2, model 4), n_loc neurons a rank
-    m = de.make_mesh(POD_MESH, ("data", "model"), "cuda")
-    lin = m.get_local_rank("data") * POD_MESH[1] + m.get_local_rank("model")
+    from repro_torch.launch.mesh import make_mesh
+    m = make_mesh(POD_MESH, ("data", "model"))
+    lin = m.index(("data", "model"))
     for n_loc in POD_NLOC:
         cfg = de.SNNShardConfig(n_neurons=world * n_loc,
                                 fan_window_blocks=POD_WINDOW_BLOCKS)
@@ -6230,7 +6288,14 @@ def mesh_rank(rank: int, world: int, work: str, seed: int) -> None:
                 if s == 0:
                     zero_counts()
                 window = glob[base:base + W]
-            state = step(state, key)
+            if s == 0:
+                # what the rank holds and puts on the wire (phase 28(b))
+                held = sum(t.numel() * t.element_size()
+                           for t in (*state.values(), key))
+                with mesh.tally() as wire:
+                    state = step(state, key)
+            else:
+                state = step(state, key)
             if s < POD_STEPS:
                 need(torch.equal(state["V"], Vr)
                      and torch.equal(state["spikes"], sr),
@@ -6249,6 +6314,7 @@ def mesh_rank(rank: int, world: int, work: str, seed: int) -> None:
         report["pod"][str(n_loc)] = {
             "lin": lin, "base": base, "fired": fired, "us_a_step": us,
             "launches": counts, "packed": n_loc % 32 == 0,
+            "state_bytes": held, "wire": {k: v[:2] for k, v in wire.items()},
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
             "weight_bytes": weights.numel() * weights.element_size()}
         del weights, state, step
@@ -6449,6 +6515,7 @@ def phase_mesh(ctx, compiled, seed: int, zero_counts, read_counts,
                 served.append({k: z[k] for k in z.files})
     need(all(reports[0]["pod"][str(n)]["lin"] == 0 for n in POD_NLOC),
          "rank 0 is not shard 0 of the pod mesh")
+    CARD_COUNTS["pod"] = reports[0]["pod"]            # phase 28(b)
     log(f"[mesh ranks] {MESH_RANKS} gloo ranks on {reports[0]['device']} "
         f"({ranks_s:.1f} s with their start; the artifact, "
         f"{work_bytes:,} B without zlib, saved in {save_s:.1f} s and "
@@ -6977,6 +7044,243 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+# ------------------------------------- phase 28: the dry-run on the meta device
+# the card's side of phase 28: each counted step's readings (phases 12,
+# 15, 22, 23) and phase 20's rank 0 at the pod step ("pod")
+CARD_COUNTS = {}
+PEAK_TOL = 0.05              # the predicted peak against the card's, of it
+ALLOC_ROUND = 512            # the caching allocator's rounding a tensor
+# a large block is split only when more than 1 MiB would be left over
+ALLOC_SLACK = 1 << 20
+DKV_SHAPES = [(b, B, H, KV, S, D) for b in (0, 1)
+              for B, H, KV, S, D in ((1, 16, 2, 4096, 128),
+                                     (1, 28, 4, 1024, 192),
+                                     (4, 16, 2, 4096, 128),
+                                     (1, 10, 1, 4096, 256),
+                                     (2, 24, 24, 333, 64))]
+
+
+def held_bytes() -> tuple:
+    """(bytes requested of the caching allocator, bytes it allocated) now:
+    requested counts each tensor's own bytes, allocated its block."""
+    st = torch.cuda.memory_stats()
+    return st["requested_bytes.all.current"], st["allocated_bytes.all.current"]
+
+
+def count_on_card(name: str, cfg, kind: str, BS, step, args, read_counts,
+                  oc=None, arg_rise=None, n_args=None):
+    """One of a phase's own steps, `step(*args)`, run once under the op
+    counter on the card's tensors (phase 28(a)'s card side): records the
+    counts, the wrappers' launches during it, and the allocator's peak
+    rise over what was held before it (requested and allocated), with
+    the step's config, so that phase 28 can dry-run the same step.
+    `arg_rise` is the allocator's rise (requested, allocated) while the
+    arguments were made, over `n_args` tensors. Returns the step's
+    output."""
+    from repro_torch.launch import op_analysis
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = held_bytes()
+    c0 = read_counts()
+    with op_analysis.OpCounter() as c:
+        c.arguments(args)
+        out = step(*args)
+        c.outputs(out)
+    torch.cuda.synchronize()
+    c1 = read_counts()
+    st = torch.cuda.memory_stats()
+    CARD_COUNTS[name] = {
+        **c.record(), "cfg": cfg, "kind": kind, "BS": BS, "oc": oc,
+        "launches": {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]},
+        "peak_rise": (st["requested_bytes.all.peak"] - before[0],
+                      st["allocated_bytes.all.peak"] - before[1]),
+        "arg_rise": arg_rise, "n_args": n_args}
+    return out
+
+
+def phase_dryrun(card: str) -> dict:
+    """Phase 28: the dry-run on the meta device (`launch.dryrun`) against
+    the card. (a) Each step that phases 12, 15, 22 and 23 counted on the
+    card (`count_on_card`) dry-run on meta at world size 1: equal flops,
+    HBM bytes and kernel calls, the card's kernel calls equal to the
+    wrappers' launches during the step, the predicted argument bytes
+    equal to the card's tensors' and, for the training step, to the
+    allocator's rise while its parameters, moments and batch were made
+    (requested bytes exactly; allocated bytes within 512 a tensor and the
+    unsplit remainder of a large block), and the predicted peak within
+    PEAK_TOL of the card's requested peak over what it held before. Also
+    the dK/dV chunk count's twin against the library's. (b) The
+    pod-scale step of phase 20's mesh dry-run for its rank 0 at each of
+    POD_NLOC: the state bytes and the wire (calls, bytes) equal to what
+    phase 20's rank 0 held and tallied; then `hiaer_snn_40b` at 256 and
+    512 ranks. Returns the readings."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.core import distributed_engine as de
+    from repro_torch.distributed.context import Mesh, mesh_context
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun
+    from repro_torch.optim import AdamWConfig
+    t0 = time.perf_counter()
+    lib = _build.load("flash_attention_bwd", "flash_bwd_dkv_chunks")
+    for shape in DKV_SHAPES:
+        need(fa.dkv_chunks(*shape) == lib(*shape),
+             f"dkv_chunks{shape}: {fa.dkv_chunks(*shape)} != the "
+             f"library's {lib(*shape)}")
+    out = {"dkv_chunks_cases": len(DKV_SHAPES)}
+    one = Mesh((1, 1), ("data", "model"))
+    for name in (f"{LM_ARCH} train", f"{LM_ARCH} prefill",
+                 f"{MOE_ARCH} prefill", f"{HYBRID_ARCH} prefill"):
+        got = CARD_COUNTS[name]
+        B, S = got["BS"]
+        oc = got["oc"] or AdamWConfig(moment_dtype=got["cfg"].opt_dtype)
+        with mesh_context(one):
+            step, args, held = dryrun.lm_step(
+                got["cfg"], ShapeSpec(name, got["kind"], S, B), oc, "heads",
+                one)
+            meta = dryrun.count(step, args, held)
+        a, m = meta["analysis"], meta["memory"]
+        ga, gm = got["analysis"], got["memory"]
+        same = {k: a[k] == ga[k] for k in ("flops", "hbm_bytes",
+                                            "hbm_bytes_tight")}
+        need(all(same.values()) and meta["kernel_calls"]
+             == got["kernel_calls"],
+             f"{name}: meta {a} {meta['kernel_calls']} != card {ga} "
+             f"{got['kernel_calls']}")
+        need(got["kernel_calls"] == got["launches"],
+             f"{name}: the counter's kernel calls {got['kernel_calls']} != "
+             f"the wrappers' launches {got['launches']}")
+        args_b = m["argument_size_in_bytes"]
+        need(args_b == gm["argument_size_in_bytes"],
+             f"{name}: predicted argument bytes {args_b} != the card's "
+             f"tensors' {gm['argument_size_in_bytes']}")
+        rise = None
+        if got["arg_rise"] is not None:
+            req, alloc = got["arg_rise"]
+            slack = got["n_args"] * (ALLOC_ROUND + ALLOC_SLACK)
+            need(req == args_b and args_b <= alloc <= args_b + slack,
+                 f"{name}: predicted argument bytes {args_b}, the "
+                 f"allocator's rise {req} requested, {alloc} allocated "
+                 f"(<= {slack} over)")
+            rise = {"requested": req, "allocated": alloc}
+        pred = m["peak_bytes"] - args_b
+        card_peak, card_alloc = got["peak_rise"]
+        off = pred / card_peak - 1
+        need(abs(off) <= PEAK_TOL,
+             f"{name}: predicted peak {pred} B against the card's "
+             f"{card_peak} B ({100 * off:+.2f} %, limit "
+             f"{100 * PEAK_TOL:.0f} %)")
+        share = a["flops"] / (got["ms"] * 1e-3 * BF16_TC_FLOPS_PER_S)
+        out[name] = {"flops": a["flops"], "hbm_bytes": a["hbm_bytes"],
+                     "hbm_bytes_tight": a["hbm_bytes_tight"],
+                     "kernel_calls": meta["kernel_calls"],
+                     "argument_bytes": args_b, "argument_rise": rise,
+                     "peak_rise_predicted": pred,
+                     "peak_rise_requested": card_peak,
+                     "peak_rise_allocated": card_alloc,
+                     "peak_off": off, "ms": got["ms"],
+                     "tc_peak_share": share, "trace_s": meta["trace_s"]}
+        log(f"[dryrun vs card] {name} (B, S) = ({B}, {S}) bf16: flops "
+            f"{a['flops']:.6e}, HBM bytes {a['hbm_bytes']:.6e} "
+            f"(tight {a['hbm_bytes_tight']:.6e}), kernel calls "
+            f"{meta['kernel_calls']} == the card's counter and launches; "
+            f"arguments {args_b} B"
+            + (f" == the allocator's rise {rise['requested']} B requested "
+               f"({rise['allocated']} B allocated)" if rise else
+               " == the card's tensors'")
+            + f"; peak over the arguments {pred} B predicted, "
+            f"{card_peak} B requested ({100 * off:+.2f} %), {card_alloc} B "
+            f"allocated; {got['ms']:.2f} ms measured (the phase's "
+            f"median), flops / (ms x 989 TFLOP/s) = {share:.4f}; "
+            f"meta trace {meta['trace_s']:.2f} s on {card}")
+    pod = CARD_COUNTS.get("pod", {})
+    for n_loc in POD_NLOC:
+        got = pod[str(n_loc)]
+        cfg = de.SNNShardConfig(n_neurons=MESH_RANKS * n_loc,
+                                fan_window_blocks=POD_WINDOW_BLOCKS)
+        rec = dryrun.lower_snn(False, cfg=cfg, mesh=dryrun.shape_mesh(
+            POD_MESH, ("data", "model"), rank=0))
+        held = rec["memory"]["argument_size_in_bytes"]
+        need(held == got["state_bytes"] and rec["wire"] == got["wire"]
+             and rec["packed"] == got["packed"],
+             f"pod step n_loc={n_loc}: dry-run {held} B, wire "
+             f"{rec['wire']}, packed {rec['packed']} != phase 20's rank 0 "
+             f"{got['state_bytes']} B, {got['wire']}, {got['packed']}")
+        out[f"pod {n_loc}"] = {"state_bytes": held, "wire": rec["wire"],
+                               "packed": rec["packed"]}
+        log(f"[dryrun pod] n_loc={n_loc} on phase 20's {POD_MESH} mesh, "
+            f"rank 0: {held} B held, wire {rec['wire']} "
+            f"({'packed words' if rec['packed'] else 'dense bools'}) == "
+            f"phase 20's rank 0 on the card")
+    for multi in (False, True):
+        rec = dryrun.lower_snn(multi)
+        m, a = rec["memory"], rec["analysis"]
+        out[f"hiaer_snn_40b {rec['n_devices']}"] = {
+            "n_loc": rec["n_loc"], "packed": rec["packed"],
+            "state_bytes": m["argument_size_in_bytes"],
+            "temp_bytes": m["temp_size_in_bytes"],
+            "collective_bytes": a["collective_bytes"], "wire": rec["wire"],
+            "flops": a["flops"], "hbm_bytes": a["hbm_bytes"]}
+        log(f"[dryrun hiaer_snn_40b] {rec['n_devices']} ranks, rank "
+            f"{rec['rank']}: n_loc {rec['n_loc']} "
+            f"({'packed' if rec['packed'] else 'dense bool'} wire), state "
+            f"{m['argument_size_in_bytes']} B, temp "
+            f"{m['temp_size_in_bytes']} B, wire {rec['wire']} "
+            f"(results {a['collective_bytes']:.0f} B), flops "
+            f"{a['flops']:.4e}, HBM bytes {a['hbm_bytes']:.4e} "
+            f"(host-side prediction)")
+    out["s"] = time.perf_counter() - t0
+    log(f"[dryrun] phase 28 in {out['s']:.1f} s")
+    return out
+
+
+def dryrun_probe() -> int:
+    """Phase 28(a) alone (`python3 -c "import sys, chip_smoke as c;
+    sys.exit(c.dryrun_probe())"`): the build, the four counted steps as
+    phases 15, 12, 22 and 23 run them (the prefill's Qwen2.5-3B drawn in
+    bf16, not converted from the server's fp32 weights), then phase 28
+    without (b)'s comparison with phase 20's ranks."""
+    global POD_NLOC
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+    _build.build_all()
+    card = card_line()
+    log(f"[card] {card}")
+    kernels_of = {"flash_attention": fa.flash_attention,
+                  "flash_fwd_lse": fa.flash_fwd_lse,
+                  "flash_bwd_dkv": fa._bwd_dkv, "flash_bwd_dq": fa._bwd_dq}
+
+    def read_counts():
+        return {n: k.launches for n, k in kernels_of.items()}
+
+    def zero_counts():
+        for k in kernels_of.values():
+            k.launches = 0
+    run_lm_train(0, zero_counts, read_counts, count=f"{LM_ARCH} train")
+    torch.cuda.empty_cache()
+    model = lm.init_params(lm_config(), 0, torch.bfloat16)
+    run_lm_prefill(model, 0, read_counts)
+    ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run_lm_prefill(model, 0)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    CARD_COUNTS[f"{LM_ARCH} prefill"]["ms"] = float(np.median(ms))
+    del model
+    torch.cuda.empty_cache()
+    run_moe_full(0, zero_counts, read_counts)
+    torch.cuda.empty_cache()
+    run_family_full(HYBRID_ARCH, 0, zero_counts, read_counts, False,
+                    family_config(HYBRID_ARCH))
+    torch.cuda.empty_cache()
+    POD_NLOC = ()
+    phase_dryrun(card)
+    print(json.dumps({"ok": True}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -7277,7 +7581,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     zero_counts()
     t0 = time.perf_counter()
-    run_lm_prefill(model, args.seed)
+    run_lm_prefill(model, args.seed, read_counts)   # on the op counter
     by_path["lm prefill 36L bf16"] = read_counts()
     log(f"[path lm prefill] B={LM_PREFILL[0]} S={LM_PREFILL[1]} bf16: "
         f"{time.perf_counter() - t0:.2f} s (first call); launches "
@@ -7290,6 +7594,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         run_lm_prefill(model, args.seed)
         prefill_ms.append(1e3 * (time.perf_counter() - t0))
+    CARD_COUNTS[f"{LM_ARCH} prefill"]["ms"] = float(np.median(prefill_ms))
     if args.profile:
         profile_window("[profile lm prefill 36L bf16]",
                        lambda: run_lm_prefill(model, args.seed), 1)
@@ -7298,7 +7603,8 @@ def main(argv=None) -> int:
 
     # ---- 15. the full 36-layer LM training, bf16, counts from 0
     t0 = time.perf_counter()
-    tr = run_lm_train(args.seed, zero_counts, read_counts, args.profile)
+    tr = run_lm_train(args.seed, zero_counts, read_counts, args.profile,
+                      count=f"{LM_ARCH} train")
     by_path["lm train 36L bf16"] = tr["counts"]
     n_layers = lm_config().n_layers
     log(f"[path lm train] {LM_ARCH} 36 layers bf16 ({tr['n_params']} "
@@ -7418,6 +7724,12 @@ def main(argv=None) -> int:
     need(threading.active_count() == 1,
          f"threads alive after phase 21: {threading.enumerate()}")
     clock("phase 21")
+
+    # ---- 28. the dry-run on the meta device against the card's own runs
+    # of phases 12, 15, 22, 23 and 20
+    dry = phase_dryrun(card)
+    log(f"[dryrun json] {json.dumps(dry)}")
+    clock("phase 28")
 
     if args.profile:
         for fused in (False, True):

@@ -24,9 +24,9 @@ import torch.distributed as dist
 
 from repro_torch import CRI_network, Hierarchy, LIF_neuron, NetworkSpec
 from repro_torch.core import prng
-from repro_torch.core.distributed_engine import (SNNShardConfig, make_mesh,
-                                                 make_snn_step)
+from repro_torch.core.distributed_engine import SNNShardConfig, make_snn_step
 from repro_torch.distributed import mesh
+from repro_torch.launch.mesh import make_mesh
 
 
 def pod_step_demo(device) -> None:
@@ -35,8 +35,7 @@ def pod_step_demo(device) -> None:
     rank, world = mesh.world()
     cfg = SNNShardConfig(n_neurons=4096, avg_fan_in=128,
                          fan_window_blocks=2)
-    m = make_mesh((1, world), ("data", "model"), device.type) \
-        if world > 1 else None
+    m = make_mesh((1, world), ("data", "model")) if world > 1 else None
     n_loc = cfg.n_neurons // world
     rng = np.random.default_rng(0)
     glob = {"V": rng.integers(0, 200, cfg.n_neurons).astype(np.int32),

@@ -2,8 +2,9 @@
 of `repro.core.distributed_engine`).
 
 The paper's scaling story over a world of ranks, one rank per device:
-160 M neurons / 40 B synapses sharded over a torch `DeviceMesh` with
-named dims, spike vectors multicast level by level (Fig. 1b):
+160 M neurons / 40 B synapses sharded over the port's `Mesh`
+(`distributed.context`) with named axes, spike vectors multicast level
+by level (Fig. 1b):
 
   'model' dim = 32 cores within an FPGA  -> NoC        (fastest, first)
   'data'  dim = 8 FPGA boards per server -> FireFly
@@ -28,22 +29,24 @@ the paper's own share (160 M / 256 = 625,000 a device, 625,000 % 32 ==
 every shard draws its n_loc uniforms from the same replicated key (with
 nu = -32 they shift to 0).
 
-`make_snn_step(cfg, mesh)` takes a mesh built over the world that the
-caller started (`make_mesh`; on one card that is the gloo world, since
-`init_device_mesh("cuda", ...)` would start NCCL, which refuses two
-ranks on one card); `mesh=None` is a world of one rank.
-`small_reference_step` is the plain single-device oracle, and with
-`base` the plain version of one rank's step.
+`make_snn_step(cfg, mesh)` takes a mesh over the world that the caller
+started (`launch.mesh.make_mesh`; on one card that is the gloo world,
+NCCL refusing two ranks on one card), or a shape-only mesh (`Mesh(shape,
+names, rank=r)`), on which rank r's step runs on meta tensors (the
+dry-run, `launch.dryrun`: every gather gives its output's shape and
+nothing is sent); `mesh=None` is a world of one rank. `snn_shardings`
+gives the specs of the state's blocks (`launch.sharding.local_slice`
+cuts a rank's block). `small_reference_step` is the plain single-device
+oracle, and with `base` the plain version of one rank's step.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
 from repro_torch.core import neuron as nrn
-from repro_torch.distributed import mesh as mesh_k
 from repro_torch.kernels import exchange as exch_k
 from repro_torch.kernels.lif_step import lif_step
 from repro_torch.kernels.ref import spike_matmul_ref
@@ -77,25 +80,11 @@ class ShapeDtype(NamedTuple):
     dtype: torch.dtype
 
 
-def make_mesh(shape: Sequence[int], names: Sequence[str],
-              device_type: str = "cuda"):
-    """A `DeviceMesh` over the already-started world, ranks laid out
-    row-major over `shape` with dims `names` (a subset of AXES, in
-    AXES's order)."""
-    from torch.distributed.device_mesh import DeviceMesh
-    n = 1
-    for s in shape:
-        n *= int(s)
-    return DeviceMesh(device_type, torch.arange(n).reshape(tuple(shape)),
-                      mesh_dim_names=tuple(names))
-
-
 def _axes(mesh) -> List[Tuple[str, int]]:
-    """(name, size) of the mesh's dims among AXES, slowest first."""
+    """(name, size) of the mesh's axes among AXES, slowest first."""
     if mesh is None:
         return []
-    names = mesh.mesh_dim_names
-    return [(a, mesh.size(names.index(a))) for a in AXES if a in names]
+    return [(a, mesh.shape[a]) for a in AXES if a in mesh.axis_names]
 
 
 def snn_state_shapes(cfg: SNNShardConfig, mesh) -> Dict[str, ShapeDtype]:
@@ -112,6 +101,16 @@ def snn_state_shapes(cfg: SNNShardConfig, mesh) -> Dict[str, ShapeDtype]:
     }
 
 
+def snn_shardings(cfg: SNNShardConfig, mesh) -> Dict[str, tuple]:
+    """The state's specs (`launch.sharding`'s tuples): every vector over
+    all the mesh's axes, the weights' columns likewise (JAX's
+    `snn_shardings`)."""
+    axes = tuple(a for a, _ in _axes(mesh))
+    vec = (axes,)
+    return {"V": vec, "theta": vec, "lam": vec, "spikes": vec,
+            "weights": (None, axes)}
+
+
 def make_snn_step(cfg: SNNShardConfig, mesh=None):
     """One simulation timestep at pod scale, on this rank's shard.
 
@@ -119,11 +118,8 @@ def make_snn_step(cfg: SNNShardConfig, mesh=None):
     "weights": (W, n_loc) int16} on the rank's device; key: (2,) int64
     words (`core.prng`), the same on every rank. Returns the state with
     V and spikes advanced. Every rank of the mesh calls it together."""
-    axes = _axes(mesh)
-    groups = [mesh.get_group(a) for a, _ in axes]
-    lin = 0
-    for a, size in axes:
-        lin = lin * size + mesh.get_local_rank(a)
+    axes = [a for a, _ in _axes(mesh)]
+    lin = mesh.index(tuple(axes)) if axes else 0
     W = cfg.window
 
     def step(state, key):
@@ -136,14 +132,14 @@ def make_snn_step(cfg: SNNShardConfig, mesh=None):
         # words, else the dense bool vector
         if n_loc % exch_k.PACK_BITS == 0:
             words = exch_k.pack_events(spikes_prev)
-            for g in reversed(groups):
-                words = mesh_k.all_gather(words, g)
+            for a in reversed(axes):
+                words = mesh.all_gather(words, a)
             bits = exch_k.unpack_events(
                 words, words.shape[0] * exch_k.PACK_BITS)
         else:
             bits = spikes_prev
-            for g in reversed(groups):
-                bits = mesh_k.all_gather(bits, g)
+            for a in reversed(axes):
+                bits = mesh.all_gather(bits, a)
         base = min(lin * n_loc, bits.shape[0] - W)
         syn = spike_matmul(bits[base:base + W].contiguous(),
                            state["weights"])

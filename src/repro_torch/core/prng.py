@@ -97,7 +97,7 @@ def randint_fold(minval: int, maxval: int):
     of the high draw (0 when 2**32 % span == 0 skips it). The bounds are
     Python ints in int32 range (JAX raises OverflowError outside it, and
     so does this)."""
-    lo_v, hi_v = int(minval), int(maxval)
+    lo_v, hi_v = int(minval), int(maxval)  # tracelint: allow=host-sync
     for b in (lo_v, hi_v):
         if not -(2 ** 31) <= b < 2 ** 31:
             raise OverflowError(f"randint bound {b} does not fit int32")

@@ -13,8 +13,10 @@ order, through `distributed.mesh.stage_groups`). Ranks are laid out
 row-major over the shape, as `np.arange(size).reshape(shape)` gives
 them: rank r's coordinates are `np.unravel_index(r, shape)`. A mesh
 built without groups is shape-only: it answers every question about
-shapes and blocks (the sharding rules at 256 or 512 devices) and raises
-where a collective would be needed.
+shapes and blocks (the sharding rules at 256 or 512 devices); its
+collectives take meta tensors only, giving the output's shape
+(`distributed.mesh.ShapeGroup`: the dry-run of one rank, `launch.dryrun`),
+and raise RuntimeError for a real tensor.
 
     mesh = launch.mesh.make_mesh((2, 1), ("data", "model"))
     with mesh_context(mesh):
@@ -112,13 +114,18 @@ class Mesh:
         """Whether the mesh holds process groups (not shape-only)."""
         return self._groups is not None
 
-    def group(self, axes):
+    def group(self, axes, x: Optional[torch.Tensor] = None):
         """This rank's process group over `axes` (axes in the mesh's
-        order); raises on a shape-only mesh."""
+        order) for a collective of `x`; on a shape-only mesh a
+        `ShapeGroup` when `x` is a meta tensor, and RuntimeError
+        otherwise."""
         axes = tuple(a for a in self.axis_names if a in _axes(axes))
         if self._groups is None:
-            raise RuntimeError(f"the mesh {self.shape} is shape-only: no "
-                               f"process group over {axes}")
+            if x is None or x.device.type != "meta":
+                raise RuntimeError(f"the mesh {self.shape} is shape-only: no "
+                                   f"process group over {axes}")
+            from repro_torch.distributed import mesh as pg
+            return pg.ShapeGroup(self.axis_size(axes), self.index(axes))
         return self._groups[axes]
 
     # ------------------------------------------------------- collectives
@@ -129,7 +136,7 @@ class Mesh:
         if self.axis_size(axes) == 1:
             return x
         from repro_torch.distributed import mesh as pg
-        return pg.all_reduce_ad(x, self.group(axes))
+        return pg.all_reduce_ad(x, self.group(axes, x))
 
     def all_gather(self, x: torch.Tensor, axes, dim: int = 0,
                    ) -> torch.Tensor:
@@ -138,7 +145,7 @@ class Mesh:
         if self.axis_size(axes) == 1:
             return x
         from repro_torch.distributed import mesh as pg
-        return pg.all_gather_ad(x, self.group(axes), dim)
+        return pg.all_gather_ad(x, self.group(axes, x), dim)
 
     def all_to_all(self, x: torch.Tensor, axes) -> torch.Tensor:
         """x (m, ...) with m = axis_size(axes): block i goes to member i,
@@ -147,7 +154,7 @@ class Mesh:
         if self.axis_size(axes) == 1:
             return x
         from repro_torch.distributed import mesh as pg
-        return pg.all_to_all_ad(x, self.group(axes))
+        return pg.all_to_all_ad(x, self.group(axes, x))
 
     # the model axis's region functions (`distributed.mesh`): each the
     # identity over axes of size 1
@@ -156,14 +163,14 @@ class Mesh:
         if self.axis_size(axes) == 1:
             return x
         from repro_torch.distributed import mesh as pg
-        return pg.copy_to_ad(x, self.group(axes))
+        return pg.copy_to_ad(x, self.group(axes, x))
 
     def reduce_from(self, x: torch.Tensor, axes) -> torch.Tensor:
         """Megatron's g: x summed over `axes`, its gradient passed."""
         if self.axis_size(axes) == 1:
             return x
         from repro_torch.distributed import mesh as pg
-        return pg.reduce_from_ad(x, self.group(axes))
+        return pg.reduce_from_ad(x, self.group(axes, x))
 
     def split(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
         """This rank's block of x along `dim` (`index(axes)`), the
@@ -171,7 +178,7 @@ class Mesh:
         if self.axis_size(axes) == 1:
             return x
         from repro_torch.distributed import mesh as pg
-        return pg.split_ad(x, self.group(axes), dim)
+        return pg.split_ad(x, self.group(axes, x), dim)
 
     def gather_from(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
         """The members' x concatenated along `dim`, the gradient's block
@@ -179,7 +186,7 @@ class Mesh:
         if self.axis_size(axes) == 1:
             return x
         from repro_torch.distributed import mesh as pg
-        return pg.gather_from_ad(x, self.group(axes), dim)
+        return pg.gather_from_ad(x, self.group(axes, x), dim)
 
     def reduce_scatter(self, x: torch.Tensor, axes, dim: int
                        ) -> torch.Tensor:
@@ -188,16 +195,14 @@ class Mesh:
         if self.axis_size(axes) == 1:
             return x
         from repro_torch.distributed import mesh as pg
-        return pg.reduce_scatter_ad(x, self.group(axes), dim)
+        return pg.reduce_scatter_ad(x, self.group(axes, x), dim)
 
     def pmax(self, x: torch.Tensor, axes) -> torch.Tensor:
         """The elementwise max over `axes`, without a gradient."""
         if self.axis_size(axes) == 1:
             return x
-        y = x.detach().contiguous().clone()
-        torch.distributed.all_reduce(y, torch.distributed.ReduceOp.MAX,
-                                     group=self.group(axes))
-        return y
+        from repro_torch.distributed import mesh as pg
+        return pg.all_reduce_max(x, self.group(axes, x))
 
     def pmean(self, x: torch.Tensor, axes) -> torch.Tensor:
         """The mean of a scalar over `axes`: every member's value

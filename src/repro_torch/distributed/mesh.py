@@ -38,6 +38,14 @@ an all_reduce is an all_reduce, of an all_gather a reduce-scatter (a
 sum over the members, each keeping its block), of an all_to_all the
 reverse all_to_all.
 
+A shape-only mesh (`context.Mesh` without groups: the dry-run's 256 or
+512 ranks in one process) hands out a `ShapeGroup` in place of a process
+group. Every collective here takes it for meta tensors only: the output
+is allocated in its shape (an all-gather's dim times the group's size, a
+reduce-scatter's divided by it, the rest unchanged), counted by `tally`
+and by an open `launch.op_analysis.OpCounter`, and nothing is sent; a
+real tensor raises RuntimeError.
+
 The model axis (Megatron's tensor parallelism) takes the region
 functions in pairs, each the other's transpose: `copy_to_ad` (f:
 identity forward, sum backward) at a column-parallel input and
@@ -57,27 +65,28 @@ import contextlib
 import datetime
 import os
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve
+from repro_torch.launch import op_analysis
 
 __all__ = ["world", "rank_device", "init_from_env", "init_for_tests",
            "spawn", "stage_groups", "all_gather", "broadcast",
            "all_reduce_ad", "all_gather_ad", "all_to_all_ad",
            "copy_to_ad", "reduce_from_ad", "split_ad", "gather_from_ad",
-           "reduce_scatter_ad",
-           "all_reduce_buckets", "all_gather_blocks"]
+           "reduce_scatter_ad", "all_reduce_max",
+           "all_reduce_buckets", "all_gather_blocks", "ShapeGroup"]
 
 # the groups every rank has built, keyed by their ranks: new_group is a
 # collective of the whole world, so each group is built once, by every
 # rank, in the same order
 _GROUPS: Dict[Tuple[int, ...], object] = {}
-# the model's collectives while `tally` is open: {op: [calls, bytes, ms
-# or the CUDA event pairs to read]}
-_TALLY: Optional[dict] = None
+# the model's collectives, one record a `tally` open: {op: [calls,
+# bytes, ms or the CUDA event pairs to read]}
+_TALLIES: List[dict] = []
 
 
 @contextlib.contextmanager
@@ -86,16 +95,17 @@ def tally():
     `all_gather`) while open: yields {op: [calls, bytes a rank put in,
     ms]}, the ms from CUDA events around each call on the card (read
     when the block closes, after a synchronize), the host's clock on the
-    CPU. Every collective of this module is counted by the innermost
-    tally open, once: the training step opens its own around its
-    gradient all-reduce and parameter all-gather (`train_step.wire`)."""
-    global _TALLY
-    prev, _TALLY = _TALLY, {}
+    CPU. Every tally open counts every collective of this module: the
+    training step opens its own around its gradient all-reduce and
+    parameter all-gather (`train_step.wire`), and a tally around the
+    step counts those too."""
+    got: dict = {}
+    _TALLIES.append(got)
     out = {}
     try:
         yield out
     finally:
-        got, _TALLY = _TALLY, prev
+        _TALLIES.remove(got)
         for op, (n, b, spans) in got.items():
             ms = 0.0
             for sp in spans:
@@ -107,25 +117,57 @@ def tally():
             out[op] = [n, b, ms]
 
 
-def _wire(op: str, t: torch.Tensor, fn) -> None:
-    """Run the collective `fn` on `t`, counted when `tally` is open."""
-    if _TALLY is None:
-        fn()
+class ShapeGroup(NamedTuple):
+    """A shape-only mesh's group over some axes: its size and this rank's
+    index in it (the module docstring)."""
+    size: int
+    rank: int
+
+
+def _size(group) -> int:
+    return group.size if isinstance(group, ShapeGroup) \
+        else dist.get_world_size(group)
+
+
+def _rank(group) -> int:
+    return group.rank if isinstance(group, ShapeGroup) \
+        else dist.get_rank(group)
+
+
+def _wire(op: str, t: torch.Tensor, out: torch.Tensor, group, fn) -> None:
+    """Run the collective `fn` on `t` (its result `out`, allocated),
+    counted when `tally` or an op counter is open; over a `ShapeGroup`,
+    nothing is sent, and only meta tensors pass."""
+    shape_only = isinstance(group, ShapeGroup)
+    if shape_only:
+        if t.device.type != "meta":
+            raise RuntimeError(f"{op} over a shape-only mesh (no process "
+                               f"group): only meta tensors pass, got one on "
+                               f"{t.device}")
+        fn = None
+    op_analysis.collective(op, out)
+    if not _TALLIES:
+        if fn is not None:
+            fn()
         return
-    rec = _TALLY.setdefault(op, [0, 0, []])
-    rec[0] += 1
-    rec[1] += t.numel() * t.element_size()
-    if t.is_cuda:
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-        ev[0].record()
+    n = t.numel() * t.element_size()
+    if fn is None:
+        span = 0.0
+    elif t.is_cuda:
+        span = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        span[0].record()
         fn()
-        ev[1].record()
-        rec[2].append(ev)
+        span[1].record()
     else:
         t0 = time.perf_counter()
         fn()
-        rec[2].append(1e3 * (time.perf_counter() - t0))
+        span = 1e3 * (time.perf_counter() - t0)
+    for got in _TALLIES:
+        rec = got.setdefault(op, [0, 0, []])
+        rec[0] += 1
+        rec[1] += n
+        rec[2].append(span)
 
 
 def world() -> Tuple[int, int]:
@@ -254,11 +296,11 @@ def stage_groups(stages: List[List[List[int]]]) -> List[Optional[object]]:
 def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     """Every member's `x` concatenated along dim 0 in the group's rank
     order: (m * x.shape[0],) + x.shape[1:], on x's device."""
-    m = dist.get_world_size(group)
+    m = _size(group)
     x = x.contiguous()
     out = torch.empty((m * x.shape[0],) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    _wire("all_gather", x, lambda: dist.all_gather_into_tensor(
+    _wire("all_gather", x, out, group, lambda: dist.all_gather_into_tensor(
         out, x, group=group))
     return out
 
@@ -289,13 +331,15 @@ class _AllReduce(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         y = x.contiguous().clone()
-        _wire("all_reduce", y, lambda: dist.all_reduce(y, group=group))
+        _wire("all_reduce", y, y, group, lambda: dist.all_reduce(
+            y, group=group))
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        _wire("all_reduce", g, lambda: dist.all_reduce(g, group=ctx.group))
+        _wire("all_reduce", g, g, ctx.group, lambda: dist.all_reduce(
+            g, group=ctx.group))
         return g, None
 
 
@@ -309,10 +353,10 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.movedim(ctx.dim, 0).contiguous()
-        m = dist.get_world_size(ctx.group)
+        m = _size(ctx.group)
         out = g.new_empty((g.shape[0] // m,) + tuple(g.shape[1:]))
-        _wire("reduce_scatter", g, lambda: dist.reduce_scatter_tensor(
-            out, g, group=ctx.group))
+        _wire("reduce_scatter", g, out, ctx.group,
+              lambda: dist.reduce_scatter_tensor(out, g, group=ctx.group))
         return out.movedim(0, ctx.dim), None, None
 
 
@@ -322,7 +366,7 @@ class _AllToAll(torch.autograd.Function):
         ctx.group = group
         x = x.contiguous()
         y = torch.empty_like(x)
-        _wire("all_to_all", x, lambda: dist.all_to_all_single(
+        _wire("all_to_all", x, y, group, lambda: dist.all_to_all_single(
             y, x, group=group))
         return y
 
@@ -330,8 +374,8 @@ class _AllToAll(torch.autograd.Function):
     def backward(ctx, g):
         g = g.contiguous()
         out = torch.empty_like(g)
-        _wire("all_to_all", g, lambda: dist.all_to_all_single(
-            out, g, group=ctx.group))
+        _wire("all_to_all", g, out, ctx.group,
+              lambda: dist.all_to_all_single(out, g, group=ctx.group))
         return out, None
 
 
@@ -346,7 +390,8 @@ class _CopyTo(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        _wire("all_reduce", g, lambda: dist.all_reduce(g, group=ctx.group))
+        _wire("all_reduce", g, g, ctx.group, lambda: dist.all_reduce(
+            g, group=ctx.group))
         return g, None
 
 
@@ -356,7 +401,8 @@ class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         y = x.contiguous().clone()
-        _wire("all_reduce", y, lambda: dist.all_reduce(y, group=group))
+        _wire("all_reduce", y, y, group, lambda: dist.all_reduce(
+            y, group=group))
         return y
 
     @staticmethod
@@ -365,8 +411,8 @@ class _ReduceFrom(torch.autograd.Function):
 
 
 def _block(x, group, dim):
-    m = dist.get_world_size(group)
-    k = dist.get_rank(group)
+    m = _size(group)
+    k = _rank(group)
     n = x.shape[dim] // m
     return x.narrow(dim, k * n, n)
 
@@ -409,10 +455,10 @@ class _ReduceScatter(torch.autograd.Function):
     def forward(ctx, x, group, dim):
         ctx.group, ctx.dim = group, dim
         g = x.movedim(dim, 0).contiguous()
-        m = dist.get_world_size(group)
+        m = _size(group)
         out = g.new_empty((g.shape[0] // m,) + tuple(g.shape[1:]))
-        _wire("reduce_scatter", g, lambda: dist.reduce_scatter_tensor(
-            out, g, group=group))
+        _wire("reduce_scatter", g, out, group,
+              lambda: dist.reduce_scatter_tensor(out, g, group=group))
         return out.movedim(0, dim)
 
     @staticmethod
@@ -468,6 +514,14 @@ def all_to_all_ad(x: torch.Tensor, group) -> torch.Tensor:
     return _AllToAll.apply(x, group)
 
 
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of every member's x, without a gradient."""
+    y = x.detach().contiguous().clone()
+    _wire("all_reduce", y, y, group, lambda: dist.all_reduce(
+        y, dist.ReduceOp.MAX, group=group))
+    return y
+
+
 BUCKET_BYTES = 256 << 20
 
 
@@ -496,7 +550,8 @@ def all_reduce_buckets(tensors: Sequence[torch.Tensor], group,
     sent = 0
     for run in _buckets(tensors, bucket_bytes):
         flat = torch.cat([tensors[i].reshape(-1) for i in run])
-        _wire("all_reduce", flat, lambda: dist.all_reduce(flat, group=group))
+        _wire("all_reduce", flat, flat, group,
+              lambda: dist.all_reduce(flat, group=group))
         o = 0
         for i in run:
             t = tensors[i]
@@ -513,8 +568,8 @@ def all_gather_blocks(fulls: Sequence[torch.Tensor], dims: Sequence[int],
     every member's block in place on every member, a bucket of tensors
     (one dtype) at a time: one all_gather of the concatenated blocks.
     Returns the bytes each rank gathered in."""
-    m = dist.get_world_size(group)
-    k = dist.get_rank(group)
+    m = _size(group)
+    k = _rank(group)
     got = 0
     for run in _buckets(fulls, bucket_bytes):
         blocks = [fulls[i].movedim(dims[i], 0) for i in run]

@@ -51,7 +51,7 @@ PACK_BITS = 32                 # presence bits per packed word
 # ------------------------------------------------------ packed wire format
 def packed_words(width: int) -> int:
     """Words per packed event vector of `width` presence bits."""
-    return -(-max(int(width), 0) // PACK_BITS)
+    return -(-max(int(width), 0) // PACK_BITS)  # tracelint: allow=host-sync
 
 
 def pack_events(bits):

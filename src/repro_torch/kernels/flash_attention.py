@@ -75,9 +75,14 @@ that are multiples of 8 elements; a bf16 CUDA tensor that breaks this
 raises ValueError (it never falls back to the fp32 kernels).
 
 CPU tensors take the plain versions (`kernels.ref`); CUDA tensors launch
-the kernels or raise. Each kernel launch adds one to its wrapper's
-`launches`: `flash_attention.launches`, `flash_fwd_lse.launches`, and
+the kernels or raise. Meta tensors (the dry-run, `launch.dryrun`) run the
+launch path without the launch: the outputs and buffers the card's call
+allocates (o, lse, delta, the dK/dV chunk partials), as empty meta
+tensors; nothing is computed in the kernel's place, as a meta tensor has
+no values. Each kernel launch adds one to its wrapper's `launches`:
+`flash_attention.launches`, `flash_fwd_lse.launches`, and
 `_bwd_dkv.launches` / `_bwd_dq.launches` for the backward's two kernels.
+Every call is reported to an open `launch.op_analysis.OpCounter`.
 """
 from __future__ import annotations
 
@@ -86,20 +91,48 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                      flash_attention_ref, flash_fwd_lse_ref)
+from repro_torch.launch import op_analysis
 
 HEAD_DIMS = (64, 128, 192, 256)
+# the dK/dV tensor-core kernel's shape (csrc/flash_attention_bwd.cu): keys
+# a block (64 above D = 128, 128 at and below) and the blocks it wants
+DKV_KEYS = {64: 128, 128: 128, 192: 64, 256: 64}
+DKV_MIN_BLOCKS = 256
 
 
-def _on_cpu(name, *tensors) -> bool:
-    """True for CPU tensors (the plain version); raises unless they all
-    lie on one CUDA device otherwise."""
-    devs = {t.device for t in tensors}
-    if devs == {torch.device("cpu")}:
-        return True
-    if len(devs) != 1 or tensors[0].device.type != "cuda":
-        raise ValueError(f"{name} runs on one cuda device (or the cpu), got "
-                         f"{sorted(map(str, devs))}")
-    return False
+def dkv_chunks(bf16: bool, B: int, H: int, KV: int, Sk: int, D: int) -> int:
+    """`flash_bwd_dkv_chunks`: the dK/dV partials' chunk count, one per
+    query head of a group in fp32; in bf16 the fewest chunks of the
+    group's H / KV heads (a divisor) that give DKV_MIN_BLOCKS blocks."""
+    rep = H // KV
+    if not bf16:
+        return rep
+    keys = DKV_KEYS[D]
+    base = B * KV * (-(-Sk // keys))
+    for c in range(1, rep):
+        if rep % c == 0 and base * c >= DKV_MIN_BLOCKS:
+            return c
+    return rep
+
+
+def _cost(q, k, causal, window, q_start, products: int) -> int:
+    """The flops of `products` (B, H, Sq, Sk) x D products over the
+    (query, key) pairs the mask keeps: PERF.md §6's bound rule."""
+    B, H, Sq, D = q.shape
+    pairs = op_analysis.attention_pairs(Sq, k.shape[2], causal, window,
+                                        q_start)
+    return products * 2 * B * H * D * pairs
+
+
+def _bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _laid_out(x, like):
+    """x with `like`'s strides: the plain version's output laid out as the
+    card's call gives it (o and dq keep q's strides), so that the ops
+    after it are the card's on the CPU too."""
+    return torch.empty_like(like, dtype=x.dtype).copy_(x)
 
 
 def _check(name, q, k, v, q_start=0):
@@ -183,7 +216,7 @@ def _forward(name, q, k, v, causal, window, lse, q_start=0):
         raise ValueError(f"{name}: the head dim must be dense in q")
     if q.dtype == torch.bfloat16:
         _check_aligned(name, q=q, k=k, v=v, o=out)
-    if S:
+    if S and q.is_cuda:
         err = _build.load("flash_attention", "flash_attention_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
@@ -203,12 +236,21 @@ def flash_attention(q, k, v, causal: bool = True, window=None,
     or bf16, D in HEAD_DIMS) or raise."""
     w = _window("flash_attention", causal, window)
     _offset("flash_attention", q_start, q.shape[2], k.shape[2])
-    if _on_cpu("flash_attention", q, k, v):
-        return flash_attention_ref(q, k, v, causal, window, q_start)
-    out = _forward("flash_attention", q, k, v, causal, w, None, q_start)
-    if q.shape[2]:
-        flash_attention.launches += 1
-    return out
+    on = op_analysis.where("flash_attention", q, k, v)
+
+    def launch(q, k, v):
+        out = _forward("flash_attention", q, k, v, causal, w, None, q_start)
+        if q.is_cuda and q.shape[2]:
+            flash_attention.launches += 1
+        return out
+    with op_analysis.kernel(
+            ("flash_attention",) if q.shape[2] else (),
+            (_cost(q, k, causal, w, q_start, 2), _bytes(q, k, v, q)),
+            launch, (q, k, v), on) as call:
+        call.result = _laid_out(flash_attention_ref(
+            q, k, v, causal, window, q_start), q) if on == "cpu" \
+            else launch(q, k, v)
+    return call.result
 
 
 def flash_fwd_lse(q, k, v, causal: bool = True, window=None,
@@ -218,14 +260,26 @@ def flash_fwd_lse(q, k, v, causal: bool = True, window=None,
     plain version; CUDA tensors launch the kernel or raise."""
     w = _window("flash_fwd_lse", causal, window)
     _offset("flash_fwd_lse", q_start, q.shape[2], k.shape[2])
-    if _on_cpu("flash_fwd_lse", q, k, v):
-        return flash_fwd_lse_ref(q, k, v, causal, window, q_start)
+    on = op_analysis.where("flash_fwd_lse", q, k, v)
     B, H, S = q.shape[:3]
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    out = _forward("flash_fwd_lse", q, k, v, causal, w, lse, q_start)
-    if S:
-        flash_fwd_lse.launches += 1
-    return out, lse
+
+    def launch(q, k, v):
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        out = _forward("flash_fwd_lse", q, k, v, causal, w, lse, q_start)
+        if q.is_cuda and S:
+            flash_fwd_lse.launches += 1
+        return out, lse
+    with op_analysis.kernel(
+            ("flash_fwd_lse",) if S else (),
+            (_cost(q, k, causal, w, q_start, 2),
+             _bytes(q, k, v, q) + 4 * B * H * S), launch, (q, k, v),
+            on) as call:
+        if on == "cpu":
+            o, lse = flash_fwd_lse_ref(q, k, v, causal, window, q_start)
+            call.result = _laid_out(o, q), lse.contiguous()
+        else:
+            call.result = launch(q, k, v)
+    return call.result
 
 
 def _bwd_dkv(q, k, v, do, lse, delta, causal, window=0, q_start=0):
@@ -236,10 +290,13 @@ def _bwd_dkv(q, k, v, do, lse, delta, causal, window=0, q_start=0):
     KV, Sk = k.shape[1], k.shape[2]
     bf16 = int(q.dtype == torch.bfloat16)
     chunks = _build.load("flash_attention_bwd", "flash_bwd_dkv_chunks")(
-        bf16, B, H, KV, Sk, D)
+        bf16, B, H, KV, Sk, D) if q.is_cuda else dkv_chunks(bf16, B, H, KV,
+                                                            Sk, D)
     dk = torch.empty((B, KV, chunks, Sk, D), dtype=torch.float32,
                      device=q.device)
     dv = torch.empty_like(dk)
+    if not q.is_cuda:
+        return dk, dv
     err = _build.load("flash_attention_bwd", "flash_bwd_dkv_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -260,6 +317,8 @@ def _bwd_dq(q, k, v, do, lse, delta, causal, window=0, q_start=0):
                          "in q")
     if q.dtype == torch.bfloat16:
         _check_aligned("flash_attention_bwd", dq=dq)
+    if not q.is_cuda:
+        return dq
     err = _build.load("flash_attention_bwd", "flash_bwd_dq_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
@@ -282,9 +341,36 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     or raise."""
     w = _window("flash_attention_bwd", causal, window)
     _offset("flash_attention_bwd", q_start, q.shape[2], k.shape[2])
-    if _on_cpu("flash_attention_bwd", q, k, v, o, lse, do):
-        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal, window,
-                                       q_start)
+    on = op_analysis.where("flash_attention_bwd", q, k, v, o, lse, do)
+    if on != "cpu":
+        _check_bwd(q, k, v, o, lse, do, q_start)
+    S = q.shape[2]
+
+    def launch(q, k, v, o, lse, do):
+        if S == 0:
+            return (torch.zeros_like(q), torch.zeros_like(k),
+                    torch.zeros_like(v))
+        delta = (do.float() * o.float()).sum(dim=-1).contiguous()
+        dk, dv = _bwd_dkv(q, k, v, do, lse, delta, causal, w, q_start)
+        dq = _bwd_dq(q, k, v, do, lse, delta, causal, w, q_start)
+        return dq, dk.sum(dim=2).to(k.dtype), dv.sum(dim=2).to(v.dtype)
+    with op_analysis.kernel(
+            ("flash_bwd_dkv", "flash_bwd_dq") if S else (),
+            (_cost(q, k, causal, w, q_start, 5),
+             _bytes(q, k, v, o, lse, do) + _bytes(q, k, v)), launch,
+            (q, k, v, o, lse, do), on) as call:
+        if on == "cpu":
+            dq, dk, dv = flash_attention_bwd_ref(q, k, v, o, lse, do, causal,
+                                                 window, q_start)
+            call.result = (_laid_out(dq, q), dk.contiguous(),
+                           dv.contiguous())
+        else:
+            call.result = launch(q, k, v, o, lse, do)
+    return call.result
+
+
+def _check_bwd(q, k, v, o, lse, do, q_start) -> None:
+    """Validate the backward's interface for a kernel launch."""
     B, H, KV, S, D = _check("flash_attention_bwd", q, k, v, q_start)
     if o.shape != q.shape or do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"flash_attention_bwd: o and do must be q's shape "
@@ -300,12 +386,6 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
                          f"{lse.dtype}")
     if q.dtype == torch.bfloat16:
         _check_aligned("flash_attention_bwd", q=q, k=k, v=v, do=do)
-    if S == 0:
-        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    delta = (do.float() * o.float()).sum(dim=-1).contiguous()
-    dk, dv = _bwd_dkv(q, k, v, do, lse, delta, causal, w, q_start)
-    dq = _bwd_dq(q, k, v, do, lse, delta, causal, w, q_start)
-    return dq, dk.sum(dim=2).to(k.dtype), dv.sum(dim=2).to(v.dtype)
 
 
 class _FlashAttention(torch.autograd.Function):

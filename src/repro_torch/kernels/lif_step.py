@@ -10,6 +10,9 @@ so the kernel is deterministic and byte-for-byte testable.
 
 The kernel takes any N: the TPU wrapper's padding of N to 256 is that
 chip's tiling, and the CUDA kernel masks its own ragged edge.
+
+Meta tensors (the dry-run) get the launch's empty outputs and no launch;
+every call is reported to an open `launch.op_analysis.OpCounter`.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import lif_step_ref
+from repro_torch.launch import op_analysis
 
 
 def _lanes(*xs):
@@ -37,11 +41,25 @@ def lif_step(V, syn_in, noise_u, theta, nu, lam, is_lif):
     """V, syn_in, noise_u: (N,) or (B, N) int32; theta, nu, lam: (N,)
     int32; is_lif: (N,) bool. Returns (V_next int32, spikes bool) of V's
     shape. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (or raise)."""
-    if V.device.type == "cpu":
-        return lif_step_ref(V, syn_in, noise_u, theta, nu, lam, is_lif)
-    if V.device.type != "cuda":
-        raise ValueError(f"lif_step runs on cuda or cpu, not {V.device}")
+    kernel (or raise); meta tensors get its outputs' shapes."""
+    on = op_analysis.where("lif_step", V, syn_in, noise_u, theta, nu, lam,
+                           is_lif)
+    # one pass over the membrane file: V, syn_in, u in and V out a lane,
+    # the spikes out, the per-neuron parameters once
+    n_bytes = 3 * _nb(V) + _nb(theta, nu, lam, is_lif) + V.numel() * 5
+    args = (V, syn_in, noise_u, theta, nu, lam, is_lif)
+    with op_analysis.kernel(("lif_step",), (0, n_bytes), _launch, args,
+                            on) as call:
+        call.result = lif_step_ref(*args) if on == "cpu" else _launch(*args)
+    return call.result
+
+
+def _nb(*xs) -> int:
+    return sum(x.numel() * x.element_size() for x in xs)
+
+
+def _launch(V, syn_in, noise_u, theta, nu, lam, is_lif):
+    """The card's call: checks, outputs, the launch (none on meta)."""
     Vb, sb, ub = _lanes(V, syn_in, noise_u)
     B, n = Vb.shape
     if not 0 < B <= 65535:
@@ -53,13 +71,14 @@ def lif_step(V, syn_in, noise_u, theta, nu, lam, is_lif):
     _check("is_lif", is_lif, torch.bool, (n,), V.device)
     V_out = torch.empty_like(Vb)
     spikes = torch.empty((B, n), dtype=torch.bool, device=V.device)
-    fn = _build.load("lif_step")
-    err = fn(Vb.data_ptr(), sb.data_ptr(), ub.data_ptr(), theta.data_ptr(),
-             nu.data_ptr(), lam.data_ptr(), is_lif.data_ptr(),
-             V_out.data_ptr(), spikes.data_ptr(), B, n,
-             torch.cuda.current_stream(V.device).cuda_stream)
-    _build.check(err, "lif_step")
-    lif_step.launches += 1
+    if V.is_cuda:
+        fn = _build.load("lif_step")
+        err = fn(Vb.data_ptr(), sb.data_ptr(), ub.data_ptr(),
+                 theta.data_ptr(), nu.data_ptr(), lam.data_ptr(),
+                 is_lif.data_ptr(), V_out.data_ptr(), spikes.data_ptr(), B,
+                 n, torch.cuda.current_stream(V.device).cuda_stream)
+        _build.check(err, "lif_step")
+        lif_step.launches += 1
     return V_out.view(V.shape), spikes.view(V.shape)
 
 

@@ -229,7 +229,7 @@ def _reduce(grads, plan: _Plan, mesh: Mesh) -> int:
     for axes, names in groups.items():
         if axes and mesh.axis_size(axes) > 1:
             wire += pg.all_reduce_buckets([grads[k] for k in names],
-                                          mesh.group(axes))
+                                          mesh.group(axes, grads[names[0]]))
     return wire
 
 
@@ -327,7 +327,7 @@ def make_train_step(cfg, oc: AdamWConfig, layout: str = "heads",
                 if cut:
                     pg.all_gather_blocks([leaves[n].data for n in cut],
                                          [plan.dims[n] for n in cut],
-                                         mesh.group("data"))
+                                         mesh.group("data", leaves[cut[0]]))
         ar, ag = (wire.get(k, (0, 0, 0.0)) for k in ("all_reduce",
                                                       "all_gather"))
         # the all-gather's bytes as a rank gathered them in: every

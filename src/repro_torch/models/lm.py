@@ -187,21 +187,27 @@ def init_params(cfg, seed: int = 0, dtype=torch.bfloat16, device=None,
     another. With `mesh` (a rank's mesh), the rank's held blocks
     (`launch.sharding.held_spec` under `layout`) of those same weights:
     each leaf is drawn whole in turn and cut at once, so the whole model
-    never exists. `device="meta"` gives the shapes only."""
-    if device is not None and torch.device(device).type == "meta":
+    never exists. `device="meta"` gives the shapes only (with `mesh`, the
+    rank's blocks' shapes)."""
+    meta = device is not None and torch.device(device).type == "meta"
+    if meta and (mesh is None or mesh.size == 1):
         return LM(cfg, META, dtype)
-    gen = torch.Generator(device=resolve(device))
-    gen.manual_seed(seed)
-    if mesh is None or mesh.size == 1:
-        return LM(cfg, gen, dtype)
+    if not meta:
+        gen = torch.Generator(device=resolve(device))
+        gen.manual_seed(seed)
+        if mesh is None or mesh.size == 1:
+            return LM(cfg, gen, dtype)
     from repro_torch.launch.sharding import ShardingRules, local_slice
     rules = ShardingRules(cfg, mesh, layout)
     skel = LM(cfg, META, dtype)
     cuts = {n: local_slice(rules.held_spec(n, p.shape), p.shape, mesh)
             for n, p in skel.named_parameters()}
-    with cut_draws([cuts[n] for n, p in skel.named_parameters()
-                    if getattr(p, "drawn", False)]):
-        model = LM(cfg, gen, dtype)
+    if meta:
+        model = skel
+    else:
+        with cut_draws([cuts[n] for n, p in skel.named_parameters()
+                        if getattr(p, "drawn", False)]):
+            model = LM(cfg, gen, dtype)
     for n, p in list(model.named_parameters()):
         if tuple(p.shape) == tuple(skel.get_parameter(n).shape):
             _set_leaf(model, n, p.data[cuts[n]].clone())
@@ -522,7 +528,7 @@ def loss_terms(params, cfg, batch, layout="heads"):
     h = h[:, h.shape[1] - S:]
     labels = torch.roll(tokens, -1, dims=1)
     mask = torch.ones((B, S), dtype=torch.float32, device=tokens.device)
-    mask[:, -1] = 0.0
+    mask[:, -1].fill_(0.0)   # not a setitem: the same ops on every device
     if "loss_mask" in batch:
         mask = mask * batch["loss_mask"]
     tot, cnt = chunked_ce_sums(emb, h, labels, mask, cfg)
@@ -644,7 +650,8 @@ def decode_step(params, cfg, token, cache: Dict[str, Any], cache_pos: int,
     tokens already in the cache; `cache_len` the caches' whole length
     when their rows are held over 'model' (`held_cache_len`). Returns
     (fp32 logits (B, Vp), cache)."""
-    cache_pos = int(cache_pos)
+    # the cache slot is a host int (a 0-d tensor is read once here)
+    cache_pos = int(cache_pos)  # tracelint: allow=host-sync
     layout, _, emb = _prepare(params, cfg, layout)
     positions = cache_pos + torch.arange(1, device=token.device)
     h, _, cache = backbone(params, cfg, {"tokens": token},

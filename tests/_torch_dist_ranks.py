@@ -5,6 +5,7 @@ jax.
     python tests/_torch_dist_ranks.py moe DIR STORE    # four ranks
     python tests/_torch_dist_ranks.py dp DIR STORE     # two ranks
     python tests/_torch_dist_ranks.py tp DIR STORE     # four ranks
+    python tests/_torch_dist_ranks.py tally DIR STORE  # four ranks
 
 `moe`: DIR holds `cases.json` (the expert-parallel cases: name, mesh
 shape and axis names, arch, config changes, B, S) and `jax_moe.npz`
@@ -43,6 +44,10 @@ that opened no mesh context (`tp_threaded_backward`). Then `TP_SERVE`'s
 servers: each mesh's ranks serve
 two requests (`tp_serve`), and rank 0 serves them at world size 1. `tests/_jax_dist_ref.py tp` runs the same cases in
 JAX.
+`tally` (the dry-run's collectives, tests/test_torch_dryrun.py): on a
+(1, 4) mesh each rank runs `TALLY_CASES`' prefill, decode and training
+steps (`launch.dryrun.lm_step` on the CPU) under `distributed.mesh.tally`
+and writes each step's {collective: [calls, bytes]} to `rank{r}.json`.
 Prints DIST-RANKS-OK when every rank passed.
 """
 import dataclasses
@@ -504,10 +509,48 @@ def dp_body(rank, world, d):
     torch.distributed.barrier()
 
 
+# the dry-run's collective cases: (arch, config changes) of reduced
+# configs with a head dim the flash kernels take, and the steps' shapes
+TALLY_CASES = (("qwen2_5_3b", {"head_dim": 64}),
+               ("deepseek_moe_16b", {"head_dim": 64}))
+TALLY_SHAPES = (("train", 64, 2), ("prefill", 64, 2), ("decode", 64, 2))
+
+
+def tally_cfg(arch, changes):
+    return dataclasses.replace(get_reduced(arch), **changes)
+
+
+def tally_shapes():
+    from repro_torch.configs import ShapeSpec
+    return [ShapeSpec(f"{k}_{s}", k, s, b) for k, s, b in TALLY_SHAPES]
+
+
+def tally_body(rank, world, d):
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.sharding import attn_layout
+    torch.set_num_threads(1)
+    mesh = make_mesh((1, world), ("data", "model"))
+    out = {}
+    for arch, changes in TALLY_CASES:
+        cfg = tally_cfg(arch, changes)
+        oc = AdamWConfig(moment_dtype=cfg.opt_dtype)
+        for shape in tally_shapes():
+            with mesh_context(mesh):
+                step, args, _ = dryrun.lm_step(
+                    cfg, shape, oc, attn_layout(cfg, world), mesh,
+                    device="cpu")
+                with pg.tally() as wire:
+                    step(*args)
+            out[f"{arch}/{shape.name}"] = {k: v[:2]
+                                           for k, v in wire.items()}
+    (Path(d) / f"rank{rank}.json").write_text(json.dumps(out))
+    torch.distributed.barrier()
+
+
 def main(argv):
     mode, d, store = argv[1], argv[2], argv[3]
     body, world = {"moe": (moe_body, 4), "dp": (dp_body, 2),
-                   "tp": (tp_body, 4)}[mode]
+                   "tp": (tp_body, 4), "tally": (tally_body, 4)}[mode]
     pg.spawn(body, world, store, args=(d,), timeout_s=240.0,
              collective_timeout_s=120.0)
     print("DIST-RANKS-OK")

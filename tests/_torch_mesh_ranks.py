@@ -146,12 +146,12 @@ def served_windows(rank: int, c, ref, where: str) -> None:
 
 def pod_suite(rank: int, world: int, cases: str) -> None:
     from repro_torch.core import distributed_engine as de
+    from repro_torch.launch.mesh import make_mesh
     torch.set_num_threads(1)
     with np.load(cases) as z:
         ref = {k: z[k] for k in z.files}
-    m = de.make_mesh((2, world // 2), ("data", "model"), "cpu")
-    lin = m.get_local_rank("data") * (world // 2) + \
-        m.get_local_rank("model")
+    m = make_mesh((2, world // 2), ("data", "model"))
+    lin = m.index(("data", "model"))
     for n_loc in ref["n_locs"]:
         cfg = de.SNNShardConfig(n_neurons=world * int(n_loc), block=64,
                                 fan_window_blocks=2)

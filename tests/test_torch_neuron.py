@@ -114,10 +114,20 @@ def test_lif_step_lanes_are_independent():
         assert torch.equal(Vb[b], V1) and torch.equal(sb[b], s1)
 
 
+class _Elsewhere:
+    """A tensor's stand-in on a device the port does not run on (the
+    wrappers read its device first)."""
+    device = torch.device("xpu")
+
+
 def test_lif_step_rejects_other_devices():
+    """The kernel runs on the card, its plain version on the CPU and its
+    shapes on meta (the dry-run); any other device, or a mix, raises."""
     x = torch.zeros(4, dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        lif_step(x, x, x, x, x, x, x.bool())
+    with pytest.raises(ValueError, match="cuda device, the cpu or meta"):
+        lif_step(*[_Elsewhere()] * 7)
+    with pytest.raises(ValueError, match="cuda device, the cpu or meta"):
+        lif_step(x, x, x, x, x, x, torch.zeros(4, dtype=torch.bool))
 
 
 def test_pack_models():

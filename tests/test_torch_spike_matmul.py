@@ -81,10 +81,21 @@ def test_small_chunks_give_the_same_sum():
                        spike_matmul_ref(counts, w))
 
 
+class _Elsewhere:
+    """A tensor's stand-in on a device the port does not run on (the
+    wrapper reads its device first)."""
+    device = torch.device("xpu")
+    shape = (4, 4)
+
+
 def test_rejects_other_devices():
+    """The kernel runs on the card, its plain version on the CPU and its
+    shapes on meta (the dry-run); any other device, or a mix, raises."""
     x = torch.zeros((4, 4), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="cuda device"):
-        spike_matmul(x[0], x)
+        spike_matmul(_Elsewhere(), _Elsewhere())
+    with pytest.raises(ValueError, match="cuda device"):
+        spike_matmul(x[0], torch.zeros((4, 4), dtype=torch.int32))
 
 
 # ------------------------------------------------ the kernel's work plan

@@ -170,7 +170,20 @@ def test_kernel_model_draws_nothing_at_n0():
     assert u.shape == (2, 0)
 
 
+class _Elsewhere:
+    """A tensor's stand-in on a device the port does not run on (the
+    wrapper reads its device first)."""
+    device = torch.device("xpu")
+
+
 def test_split_randint_rejects_other_devices():
+    """The kernel runs on the card, its plain version on the CPU and its
+    shapes on meta (the dry-run, which gets the launch's outputs); any
+    other device raises."""
     keys = torch.zeros((2, 2), dtype=torch.int64, device="meta")
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        split_randint(keys, 4, *SPANS["noise"])
+    with pytest.raises(ValueError, match="cuda device, the cpu or meta"):
+        split_randint(_Elsewhere(), 4, *SPANS["noise"])
+    out, u = split_randint(keys, 4, *SPANS["noise"])
+    assert (out.device.type, u.device.type) == ("meta", "meta")
+    assert out.shape == (2, 2) and u.shape == (2, 4) \
+        and u.dtype == torch.int32
