@@ -77,7 +77,11 @@ raises and the script exits non-zero:
      for bit, both kernels' launch counters are > 0 and split_randint
      launched once a step (128);
   5. the card against the CPU port (the plain versions) on the first
-     window (B = 2, T = 4), bit for bit: the CPU port's side runs in a
+     window (B = 2, T = 4), bit for bit, taken on each of phase 4's
+     fresh deployments before phase 4 drives it (its lanes reset after
+     the window, its counter then holds the window's accesses too;
+     `run_main_path` counts the row reads of its own windows): the CPU
+     port's side runs in a
      process of its own (`cpu_window_worker`), started after the
      network's compile beside phases 3-9 (it took 111.5 s of the
      critical path in PR 26), and is compared after phase 9;
@@ -245,12 +249,13 @@ raises and the script exits non-zero:
      cut to DP_PARITY's 2 layers in fp32, one row a rank, held to world
      size 1 at the whole batch (rank 0): loss within 1e-5, gradients
      within 1e-4, moments and the well-conditioned parameters within
-     1e-5 (lr 1e-2); then MusicGen-Medium whole in bf16 with ZeRO-1
-     moments, a row of S = 4,096 a rank, one step with the int8
-     compressor and one with top-k (each compressor's first call held
-     bit for bit to its CPU run on the same gradients and residual,
-     the embedding and LayerNorm leaves), per step the forward with lse
-     96 times and each backward kernel 48 times on each rank; step ms,
+     1e-5 (lr 1e-2); then MusicGen-Medium at its widths cut to 24 of
+     its 48 layers (DP_TRAIN) in bf16 with ZeRO-1 moments, a row of
+     S = 4,096 a rank, two steps with the int8 compressor and one with
+     top-k (each compressor's call held bit for bit to its CPU run on
+     the same gradients and residual, the embedding and LayerNorm
+     leaves), per step the forward with lse 48 times and each backward
+     kernel 24 times on each rank; step ms,
      the all-reduce's and all-gather's bytes and ms (the step's own
      `train_step.wire`, CUDA events), peak memory a rank;
      (c) the 2-layer state after (b)'s step saved in JAX's layout (each
@@ -258,7 +263,13 @@ raises and the script exits non-zero:
      both ranks (their blocks bit for bit) and by rank 0 onto world
      size 1 through `reshard_tree` (the moments within 1e-5 of world
      size 1's), whose next step is held to the ranks' next step; bytes
-     written, seconds to save and restore. `[dist*]` lines;
+     written, seconds to save and restore; (d) (ROADMAP item 10.6) on
+     the same ranks and 2-layer model, one `make_train_step(
+     microbatches=2)` step on (b)'s first batch (a microbatch's one row
+     run whole on each rank, counted once) held to rank 0's world size 1
+     microbatched step with (b)'s limits (loss within 1e-5, moments and
+     the well-conditioned parameters within 1e-5), kernels 5 and 6
+     launched twice (b)'s step's, its seconds. `[dist*]` lines;
  26. the model axis (ROADMAP item 10.3b): (a) in this process, kernels
      4-6 with a query offset against their plain versions, fp32 and
      bf16, with the tolerances of phases 10 and 13 (`OFFSET_CASES`):
@@ -280,7 +291,7 @@ raises and the script exits non-zero:
      GRAD_TOL, the step on rank 0's blocks within STEP_TOL of lr; then
      Qwen2-7B whole in bf16 in both layouts: prefill at B = 1, S =
      4,096, a tick over a 4,128-row cache held over 'model', and a
-     train step at TP_FULL's 6 layers (fp32 moments): ms, peak bytes a
+     train step at TP_FULL's 3 layers (fp32 moments): ms, peak bytes a
      rank, each collective's calls, bytes and ms (`distributed.mesh.
      tally`); (c) the 2-layer fp32 model's prefill at 4,096 positions
      into a T = 8,192 cache (2,048 rows a rank) and 8 greedy ticks,
@@ -498,6 +509,7 @@ the script exits with code 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -1176,9 +1188,11 @@ def run_mlp_path(spec, backend: str, fused: bool, seed: int, device=None):
     """The user's path on the MLP network: CRI_network.from_spec, 16
     steps, run(T = 32), run_batch(B = 8, T = 16), three run_lanes
     windows (B = 8, T = 16; 6 resident lanes + 2 scratch), a
-    write_synapses batch of 1,000 synapses, one more window. Returns
+    write_synapses batch of 1,000 synapses, one more window; every
+    window after the first under `no_retrace` (its shape warm). Returns
     everything to compare and the three windows' host time."""
     from repro_torch import CRI_network
+    from repro_torch.analysis import no_retrace
     rng = np.random.default_rng(seed + 5)
     net = CRI_network.from_spec(spec, backend=backend, seed=seed,
                                 fused=fused, device=device)
@@ -1209,10 +1223,11 @@ def run_mlp_path(spec, backend: str, fused: bool, seed: int, device=None):
             need(dep.weight_uploads == 1, "the batch was not one upload")
             out["read"] = net.read_synapses(pres, posts)
         sched = drive(rng, 8, 16, A)
-        t0 = time.perf_counter()
-        spk, V = dep.run_lanes(lanes, sched, seeds=seeds)
-        if w < 3:
-            lane_s += time.perf_counter() - t0
+        with no_retrace(dep.impl) if w else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            spk, V = dep.run_lanes(lanes, sched, seeds=seeds)
+            if w < 3:
+                lane_s += time.perf_counter() - t0
         out["windows"].append(spk)
         out["membranes"].append(V)
     out["V"] = dep.V.cpu().numpy()
@@ -1228,26 +1243,33 @@ def layer_rates(windows) -> list:
             for a, b in zip(bounds[:-1], bounds[1:])]
 
 
-def run_main_path(compiled, fused: bool, seed: int, A: int, device=None):
-    """The path a user drives: deploy, 3 run_lanes windows of T = 16 on
-    8 lanes (6 resident sessions + 2 scratch entries), run(T = 64),
+def run_main_path(compiled, fused: bool, seed: int, A: int, device=None,
+                  dep=None):
+    """The path a user drives: deploy (or take `dep`, a deployment in its
+    fresh state but for its counter), 3 run_lanes windows of T = 16 on
+    8 lanes (6 resident sessions + 2 scratch entries; every window after
+    the first under `no_retrace`, its shape warm), run(T = 64),
     run_batch(B = 4, T = 16). Returns everything to compare and the
-    windows' host time."""
+    windows' host time and the row reads of the windows."""
     from repro_torch import deploy
+    from repro_torch.analysis import no_retrace
     rng = np.random.default_rng(seed + 1)
-    dep = deploy(compiled, seed=seed, fused=fused, device=device)
+    if dep is None:
+        dep = deploy(compiled, seed=seed, fused=fused, device=device)
     dep.alloc_lanes(8)
     lanes = [0, 1, 2, 3, 4, 5, -1, -1]
     out = {"windows": [], "membranes": []}
     lane_s = 0.0
+    rows0 = dep.counter.row_reads
     for w in range(3):
         sched = drive(rng, 8, 16, A)
-        t0 = time.perf_counter()
-        spk, V = dep.run_lanes(lanes, sched, seeds=[0] * 6 + [11, 12])
-        lane_s += time.perf_counter() - t0
+        with no_retrace(dep.impl) if w else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            spk, V = dep.run_lanes(lanes, sched, seeds=[0] * 6 + [11, 12])
+            lane_s += time.perf_counter() - t0
         out["windows"].append(spk)
         out["membranes"].append(V)
-    lane_rows = dep.counter.row_reads
+    lane_rows = dep.counter.row_reads - rows0
     out["run"] = dep.run(drive(rng, 1, 64, A)[0])
     out["run_batch"] = dep.run_batch(drive(rng, 4, 16, A))
     out["V"] = dep.V.cpu().numpy()
@@ -3207,7 +3229,8 @@ EP_CASES = (
 EP_TOL = 1e-5                  # of max |ref|, fp32, ranks vs the reference
 EP_REPS = 1                    # timed bf16 calls of each case's layer
 DP_PARITY = (2, 2, 1024)       # 25(b) fp32 parity: layers, B, S
-DP_TRAIN = (2, 4096)           # 25(b) bf16 MusicGen: global B, S
+DP_TRAIN = (2, 4096, 24)       # 25(b) bf16 MusicGen: global B, S, layers
+DP_MICRO = 2                   # 25(d): microbatches of DP_PARITY's batch
 DP_STEPS = (("int8", 2), ("topk", 1))   # compressor, steps
 PARITY_OC = dict(lr=1e-2, warmup_steps=2, total_steps=10)
 ILL = 1e-6                     # sqrt(nu_hat) under it: ill-conditioned
@@ -3409,6 +3432,27 @@ def ep_case(rank, world, work: Path, seed: int, case, dev) -> dict:
     return out
 
 
+def held_params(p_got, p_want, nu, t, lr_sum, tag):
+    """Parameters within 1e-5 where Adam's step is well-conditioned
+    (sqrt(nu_hat) >= 1e-6), within 2 lr elsewhere. Returns the worst
+    well-conditioned gap and the count of the others (those are a
+    property of the gradients: at full width ~2.6 % of the elements
+    after one step, where the reduced CPU tests see under 1 %)."""
+    worst, n_ill, n_all = 0.0, 0, 0
+    for n, w in p_want.items():
+        gap = (p_got[n] - w).abs()
+        well = (nu[n] == 0) | ((nu[n] / (1 - 0.95 ** t)).sqrt() >= ILL)
+        worst = max(worst, float(torch.where(well, gap, 0.0).max()))
+        need(float(gap.max()) <= 2 * lr_sum,
+             f"{tag}: {n} off by {float(gap.max())}")
+        n_ill += int((~well).sum())
+        n_all += gap.numel()
+    need(worst < 1e-5,
+         f"{tag}: parameters off by {worst} ({n_ill} of {n_all} "
+         f"ill-conditioned)")
+    return worst, n_ill / n_all
+
+
 def dp_parity(rank, work: Path, seed: int, dev, mesh, kernels) -> dict:
     """25(b)'s fp32 parity and 25(c): MusicGen at its widths cut to
     DP_PARITY's layers, one step on the (data 2, model 1) mesh (one row a
@@ -3444,24 +3488,7 @@ def dp_parity(rank, work: Path, seed: int, dev, mesh, kernels) -> dict:
         return float((got - want).abs().max())
 
     def held(p_got, p_want, nu, t, lr_sum):
-        """Parameters within 1e-5 where Adam's step is well-conditioned
-        (sqrt(nu_hat) >= 1e-6), within 2 lr elsewhere. Returns the worst
-        well-conditioned gap and the count of the others (those are a
-        property of the gradients: at full width ~2.6 % of the elements
-        after one step, where the reduced CPU tests see under 1 %)."""
-        worst, n_ill, n_all = 0.0, 0, 0
-        for n, w in p_want.items():
-            gap = (p_got[n] - w).abs()
-            well = (nu[n] == 0) | ((nu[n] / (1 - 0.95 ** t)).sqrt() >= ILL)
-            worst = max(worst, float(torch.where(well, gap, 0.0).max()))
-            need(float(gap.max()) <= 2 * lr_sum,
-                 f"25(b) parity: {n} off by {float(gap.max())}")
-            n_ill += int((~well).sum())
-            n_all += gap.numel()
-        need(worst < 1e-5,
-             f"25(b) parity: parameters off by {worst} ({n_ill} of {n_all} "
-             f"ill-conditioned)")
-        return worst, n_ill / n_all
+        return held_params(p_got, p_want, nu, t, lr_sum, "25(b) parity")
 
     with mesh_context(mesh):
         model = fresh()
@@ -3560,15 +3587,77 @@ def dp_parity(rank, work: Path, seed: int, dev, mesh, kernels) -> dict:
     return res
 
 
+def dp_microbatch(rank, seed: int, dev, mesh, kernels) -> dict:
+    """25(d): 25(b)'s 2-layer fp32 model and first batch, one
+    `make_train_step(microbatches=DP_MICRO)` step on the (data 2, model
+    1) mesh against rank 0's world size 1 microbatched step: the loss,
+    the moments (each rank's ZeRO-1 block), the parameters (25(b)'s
+    `held_params`); the ranks' kernel launches and the step's
+    seconds."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.context import Mesh, mesh_context
+    from repro_torch.launch.sharding import ShardingRules, local_slice
+    from repro_torch.launch.steps import init_opt_state, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig
+    L, B, S = DP_PARITY
+    cfg = dataclasses.replace(get_arch(AUDIO_ARCH), n_layers=L)
+    oc = AdamWConfig(**PARITY_OC)
+    rng = np.random.default_rng(seed + 251)         # dp_parity's batch
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (B, S)), device=dev)}
+    tag = f"25(d) microbatches={DP_MICRO}"
+    res = {}
+    with mesh_context(mesh):
+        model = lm.init_params(cfg, seed, torch.float32, dev)
+        opt = init_opt_state(model, oc, cfg, mesh)
+        step = make_train_step(cfg, oc, microbatches=DP_MICRO)
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, batch)
+        torch.cuda.synchronize()
+        res["step_s"] = time.perf_counter() - t0
+        res["launches"] = {n: k.launches for n, k in kernels.items()}
+    res["loss"] = float(m["loss"])
+    res["all_reduce_bytes"] = step.wire["all_reduce"]
+    if rank == 0:
+        one = Mesh((1, 1), DM)
+        with mesh_context(one):
+            m1 = lm.init_params(cfg, seed, torch.float32, dev)
+            m1, o1, mm1 = make_train_step(cfg, oc, microbatches=DP_MICRO)(
+                m1, init_opt_state(m1, oc, cfg, one), batch)
+        need(abs(res["loss"] - float(mm1["loss"])) < 1e-5,
+             f"{tag}: loss {res['loss']} vs world size 1 "
+             f"{float(mm1['loss'])}")
+        rules = ShardingRules(cfg, mesh, "heads")
+        me = max(float((opt[k][n] - o1[k][n][local_slice(
+            rules.held_moment_spec(n, o1[k][n].shape), o1[k][n].shape,
+            mesh)]).abs().max()) for k in ("mu", "nu") for n in opt[k])
+        need(me < 1e-5, f"{tag}: moments off by {me}")
+        pw, n_ill = held_params(model.state_dict(), m1.state_dict(),
+                                o1["nu"], 1, PARITY_OC["lr"] / 2, tag)
+        res.update(loss_w1=float(mm1["loss"]), moment_err=me, param_err=pw,
+                   n_ill=n_ill)
+        del m1, o1
+    del model, opt
+    torch.cuda.empty_cache()
+    return res
+
+
 def dp_train(rank, seed: int, dev, mesh, kernels) -> dict:
-    """25(b): MusicGen-Medium whole in bf16 on the (data 2, model 1)
-    mesh, DP_TRAIN's global batch (a row a rank), ZeRO-1 moments: each
+    """25(b): MusicGen-Medium at its widths cut to DP_TRAIN's layers in
+    bf16 on the (data 2, model 1) mesh, DP_TRAIN's global batch (a row a
+    rank), ZeRO-1 moments: each
     of DP_STEPS' compressors for its steps (error feedback from a zero
     residual, then the residual fed back), each step held against its
     CPU run on the same inputs and residual bit for bit (the embedding
     and the LayerNorm leaves);
     step ms, the all-reduce's and all-gather's bytes and ms, launches a
     step, peak memory."""
+    import dataclasses
     from repro_torch.configs import get_arch
     from repro_torch.data.synthetic import TokenPipeline
     from repro_torch.distributed.compression import ErrorFeedback
@@ -3576,8 +3665,8 @@ def dp_train(rank, seed: int, dev, mesh, kernels) -> dict:
     from repro_torch.launch import steps as st
     from repro_torch.models import lm
     from repro_torch.optim import AdamWConfig
-    cfg = get_arch(AUDIO_ARCH)
-    B, S = DP_TRAIN
+    B, S, L = DP_TRAIN
+    cfg = dataclasses.replace(get_arch(AUDIO_ARCH), n_layers=L)
     res = {"steps": []}
     torch.cuda.reset_peak_memory_stats()
     model = lm.init_params(cfg, seed, torch.bfloat16, dev)
@@ -3668,6 +3757,9 @@ def dist_rank(rank: int, world: int, work: str, seed: int) -> None:
         report["parity"] = dp_parity(rank, work, seed, dev, mesh, kernels)
         report["parity_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+        report["micro"] = dp_microbatch(rank, seed, dev, mesh, kernels)
+        report["micro_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         report["train"] = dp_train(rank, seed, dev, mesh, kernels)
         report["train_s"] = time.perf_counter() - t0
     dist.barrier()
@@ -3735,8 +3827,25 @@ def phase_dist(seed: int, card: str) -> dict:
         f"{par['next_loss_w1']:.7f} vs the ranks' {par['next_loss']:.7f}, "
         f"moments off by {par['next_moment_err']:.3e}, parameters "
         f"{par['next_param_err']:.3e}")
+    mic = reps[0]["micro"]
+    for r in (0, 1):
+        c, c1 = reps[r]["micro"]["launches"], reps[r]["parity"]["launches"]
+        need(all(c[k] == DP_MICRO * c1[k] > 0 for k in (
+            "flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")),
+             f"25(d) rank {r}: launches {c} vs 25(b)'s step {c1}")
+    log(f"[dist microbatch] {AUDIO_ARCH} at its widths cut to "
+        f"{DP_PARITY[0]} layers, fp32, B={DP_PARITY[1]} in {DP_MICRO} "
+        f"microbatches on (data 2, model 1) (a microbatch's row run whole "
+        f"on each rank): loss {mic['loss']:.7f} vs world size 1 "
+        f"{mic['loss_w1']:.7f}; moments off by {mic['moment_err']:.3e}, "
+        f"parameters {mic['param_err']:.3e} where well-conditioned "
+        f"({100 * mic['n_ill']:.2f} % of the elements not, each within "
+        f"2 lr); all-reduce {mic['all_reduce_bytes']:,} B once (fp32); "
+        f"step {[round(reps[r]['micro']['step_s'], 2) for r in (0, 1)]} s, "
+        f"25(d) {reps[0]['micro_s']:.1f} s; launches on the ranks "
+        f"{[reps[r]['micro']['launches'] for r in (0, 1)]} on {card}")
     from repro_torch.configs import get_arch
-    n_layers = get_arch(AUDIO_ARCH).n_layers
+    n_layers = DP_TRAIN[2]
     paths = {}
     for r in (0, 1):
         tr = reps[r]["train"]
@@ -3754,7 +3863,10 @@ def phase_dist(seed: int, card: str) -> dict:
         paths[f"dist dp train {AUDIO_ARCH} bf16 rank {r}"] = total
         paths[f"dist dp parity 2L fp32 rank {r}"] = \
             reps[r]["parity"]["launches"]
-        log(f"[dist dp rank {r}] {AUDIO_ARCH} whole ({tr['n_params']:,} "
+        paths[f"dist dp microbatch 2L fp32 rank {r}"] = \
+            reps[r]["micro"]["launches"]
+        log(f"[dist dp rank {r}] {AUDIO_ARCH} cut to {n_layers} layers "
+            f"({tr['n_params']:,} "
             f"parameters) bf16, B={DP_TRAIN[0]} (a row a rank) "
             f"S={DP_TRAIN[1]}, ZeRO-1 moments ({tr['moment_bytes']:,} B a "
             f"rank): " + "; ".join(
@@ -3772,7 +3884,8 @@ def phase_dist(seed: int, card: str) -> dict:
     log(f"[dist] {DIST_RANKS} gloo ranks on {reps[0]['device']}: "
         f"{ranks_s:.1f} s with their start (25(a) "
         f"{reps[0]['ep_s']:.1f} s, parity and elastic "
-        f"{reps[0]['parity_s']:.1f} s, training {reps[0]['train_s']:.1f} "
+        f"{reps[0]['parity_s']:.1f} s, microbatches "
+        f"{reps[0]['micro_s']:.1f} s, training {reps[0]['train_s']:.1f} "
         f"s, phase 26 {reps[0]['tp']['s']:.1f} s, phase 27 "
         f"{reps[0]['tp27']['s']:.1f} s); phases 25-27 "
         f"{time.perf_counter() - t_phase:.1f} s on {card}")
@@ -4030,9 +4143,9 @@ def time_offset_kernels(dev, seed: int, flush, card: str, shape, q0: int,
     return out
 
 
-TP_PARITY = (2, 1024)          # 26(b) fp32 parity: layers, prefill/train S
+TP_PARITY = (2, 512)           # 26(b) fp32 parity: layers, prefill/train S
 TP_SERVE = (2, 4, 4)           # its Server: slots, prompt, max_new
-TP_FULL = (4096, 6, 4128)      # 26(b) bf16 whole: prefill S, train layers,
+TP_FULL = (4096, 3, 4128)      # 26(b) bf16 whole: prefill S, train layers,
 #                                the tick's cache rows (its T over 'model')
 TP_CACHE = (4096, 8192, 8)     # 26(c): prefill S, cache T, greedy ticks
 FSDP_SHAPE = (1, 2, 4096)      # 26(d) bf16 at full width: layers, B, S
@@ -4330,6 +4443,20 @@ def tp_cache2d(rank, seed: int, dev, kernels, cfg, leaf: str, shape
     return res
 
 
+def in_turns(fn):
+    """`fn()` on one rank of the world at a time, a barrier after each
+    turn: a rank drawing a published-width model's whole leaves before it
+    keeps its blocks needs several GB for a moment, and four at once do
+    not always fit beside what the others hold on the shared card."""
+    out = None
+    for turn in range(torch.distributed.get_world_size()):
+        if turn == torch.distributed.get_rank():
+            out = fn()
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    return out
+
+
 def tp_full(rank, seed: int, dev, kernels, cfg, layout: str, S: int,
             T: int, train_layers=None) -> dict:
     """`cfg` in bf16 on (1, DIST_RANKS) in `layout`: a prefill at B = 1,
@@ -4363,9 +4490,8 @@ def tp_full(rank, seed: int, dev, kernels, cfg, layout: str, S: int,
         return out, 1e3 * (time.perf_counter() - t0)
     torch.cuda.reset_peak_memory_stats()
     with mesh_context(mesh):
-        model = lm.init_params(cfg, seed, torch.bfloat16, dev, mesh=mesh,
-                               layout=layout)
-        torch.cuda.empty_cache()            # the whole leaves drawn to cut
+        model = in_turns(lambda: lm.init_params(
+            cfg, seed, torch.bfloat16, dev, mesh=mesh, layout=layout))
         r["held_bytes"] = sum(p.numel() * p.element_size()
                               for p in model.parameters())
         prefill = make_prefill_step(cfg, layout)
@@ -4394,9 +4520,8 @@ def tp_full(rank, seed: int, dev, kernels, cfg, layout: str, S: int,
             return r
         tcfg = dataclasses.replace(cfg, n_layers=train_layers)
         torch.cuda.reset_peak_memory_stats()
-        model = lm.init_params(tcfg, seed, torch.bfloat16, dev, mesh=mesh,
-                               layout=layout)
-        torch.cuda.empty_cache()
+        model = in_turns(lambda: lm.init_params(
+            tcfg, seed, torch.bfloat16, dev, mesh=mesh, layout=layout))
         oc = AdamWConfig(moment_dtype=tcfg.opt_dtype, total_steps=2)
         opt = init_opt_state(model, oc, tcfg, mesh, layout)
         train = make_train_step(tcfg, oc, layout=layout)
@@ -4447,8 +4572,8 @@ def tp_fsdp(rank, seed: int, dev, kernels) -> dict:
     res = {}
     torch.cuda.reset_peak_memory_stats()
     with mesh_context(mesh):
-        model = lm.init_params(cfg, seed, torch.bfloat16, dev, mesh=mesh)
-        torch.cuda.empty_cache()         # the whole leaves drawn to cut
+        model = in_turns(lambda: lm.init_params(cfg, seed, torch.bfloat16,
+                                                dev, mesh=mesh))
         res["held_bytes"] = sum(p.numel() * p.element_size()
                                 for p in model.parameters())
         prefill = make_prefill_step(cfg)
@@ -4661,7 +4786,7 @@ TP27_CASES = [
     (HYBRID_ARCH, (1, 2), "heads", {}),      # 5 heads and 5 blocks a rank
 ]
 TP27_LAYERS = {SSM_ARCH: 2, HYBRID_ARCH: 3}
-TP27_S = 1024                  # prefill and train S of 27(a)
+TP27_S = 512                   # prefill and train S of 27(a)
 TP27_TICKS = 4                 # 27(a)'s decode ticks after the prefill
 TP27_WINDOW = 256              # RecurrentGemma's window in 27(a)
 # 27(b): bf16 at published widths, (data 1, model 4): Mamba2-780m and
@@ -4671,7 +4796,7 @@ TP27_WINDOW = 256              # RecurrentGemma's window in 27(a)
 # TP27_TRAIN's layers (None: whole)
 TP27_FULL_S = 4096
 TP27_TICK_T = 4128
-TP27_TRAIN = {MLA_ARCH: MLA_TRAIN, SSM_ARCH: 8, HYBRID_ARCH: 6}
+TP27_TRAIN = {MLA_ARCH: MLA_TRAIN, SSM_ARCH: 4, HYBRID_ARCH: 3}
 TP27_CACHE = (4096, 8192, 8)   # 27(c): prefill S, cache T, greedy ticks
 TP27_SERVE = (2, 4, 4)         # 27(a)'s Server: slots, prompt, max_new
 
@@ -6616,7 +6741,7 @@ def phase_mesh(ctx, compiled, seed: int, zero_counts, read_counts,
 # websockets; the windows before and after the /reconfigure barrier
 PORTAL_HTTP = (("core", (0, 3, 8, 9)), ("mlp", (0, 1, 2, 3)))
 PORTAL_WS = ("core", (1, 2))
-PORTAL_STAGES = ((0, 1), (2, 3))
+PORTAL_STAGES = ((0,), (1,))
 PORTAL_WRITES = 64            # core synapses the barrier rewrites
 PORTAL_WORKERS = (0, 2)       # Portal(workers=...) of the two HTTP passes
 SMOKE_TIMEOUT = 300           # seconds for each subprocess of phase 21(b)
@@ -7426,14 +7551,27 @@ def main(argv=None) -> int:
     def read_counts():
         return {n: k.launches for n, k in kernels_of.items()}
 
+    # ---- 5. (the card's side, first) the card against the CPU port,
+    # the first window B=2 T=4 on each fresh deployment of phase 4; the
+    # CPU port's side in `cpu_job`'s process (started after the
+    # compile), compared after phase 9. Then the deployment's lanes are
+    # reset and phase 4 drives it
     by_path = {}
     runs = {}
+    card_window = {}
     for fused in (False, True):
         torch.cuda.synchronize()
-        zero_counts()
         t0 = time.perf_counter()
+        dep = deploy(compiled, seed=args.seed, fused=fused)
+        dep.alloc_lanes(2)
+        spk, V = dep.run_lanes([0, 1], sched5)
+        card_window[fused] = {"spikes": spk, "V": V,
+                              "lanes": dep.lane_state(),
+                              "counter": dep.counter.as_dict()}
+        dep.reset()
+        zero_counts()
         dep, out, lane_s, lane_rows = run_main_path(
-            compiled, fused, args.seed, AXONS)
+            compiled, fused, args.seed, AXONS, dep=dep)
         by_path[f"engine fused={fused}"] = read_counts()
         runs[fused] = out
         steps = 3 * 16
@@ -7461,22 +7599,7 @@ def main(argv=None) -> int:
     need(0.0 < rate < 1.0, f"spike rate {rate} is not strictly in (0, 1)")
     log(f"[path] fused == unfused bit for bit (spikes, membranes, lane "
         f"keys, counters); mean spike rate {rate:.5f}")
-    clock("phase 4")
-
-    # ---- 5. the card against the CPU port, first window B=2 T=4: the
-    # card's side here, the CPU port's in `cpu_job`'s process (started
-    # after the compile), compared after phase 9
-    card_window = {}
-    for fused in (False, True):
-        dp = deploy(compiled, seed=args.seed, fused=fused)
-        dp.alloc_lanes(2)
-        spk, V = dp.run_lanes([0, 1], sched5)
-        card_window[fused] = {"spikes": spk, "V": V,
-                              "lanes": dp.lane_state(),
-                              "counter": dp.counter.as_dict()}
-        del dp
-
-    clock("phase 5 (the card's side)")
+    clock("phases 5 (the card's side) and 4")
 
     # ---- 7. spike_matmul against its plain version, on the MLP network
     mlp_spec, sim_compiled, sim_probe, sm_x, sm_err = setup_mlp(dev,

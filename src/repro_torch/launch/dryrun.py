@@ -27,8 +27,7 @@ The record keeps JAX's keys (`arch`, `shape`, `mesh`, `variant`,
 `lower_s` and `compile_s`), `collective_calls`, `wire` (the step's
 `distributed.mesh.tally`: calls and bytes a rank put in) and
 `snn_rows_assumed`; `xla_cost_analysis` has no counterpart. A variant
-the port cannot run stays an error record (`mbN` on more than one rank
-raises in `launch.steps.make_train_step`), as JAX's `run` writes one.
+the port cannot run stays an error record, as JAX's `run` writes one.
 Artifacts go to `artifacts/dryrun_torch/`.
 """
 from __future__ import annotations

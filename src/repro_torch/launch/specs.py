@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.distributed import mesh as pg
 from repro_torch.distributed.context import mesh_context
 from repro_torch.launch.sharding import ShardingRules, local_slice
 from repro_torch.models import lm
@@ -91,10 +92,13 @@ def cache_shapes(cfg, shape, dtype=torch.bfloat16, mesh=None) -> dict:
     return cut(glob, specs)
 
 
-def concretize(tree, seed: int = 0, device="cpu"):
-    """Seeded values of a tree of (meta) tensors on `device`: integer
-    leaves zero, float leaves N(0, 1) * 0.02 — for smoke runs and
-    examples only, never the full configs."""
+def concretize(tree, seed: int = 0, device=None):
+    """Seeded values of a tree of (meta) tensors on `device` (the rank's
+    card unless another device is asked for, `distributed.mesh.
+    rank_device`: it raises without one): integer leaves zero, float
+    leaves N(0, 1) * 0.02 — for smoke runs and examples only, never the
+    full configs."""
+    device = pg.rank_device(device)
     gen = np.random.default_rng(seed)
 
     def make(t):

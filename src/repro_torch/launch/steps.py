@@ -257,12 +257,23 @@ def make_train_step(cfg, oc: AdamWConfig, layout: str = "heads",
     `compressor` (a function of the gradient dict, such as an
     `ErrorFeedback`'s apply with its state) on them when given, then one
     AdamW update, in place on `params` (the `lm.LM` module, held under
-    `layout` on a mesh) and `opt_state` (from `init_opt_state`). The global batch's arrays
-    (numpy or tensors) go to the rank's `device`, the card unless "cpu"
-    is asked for. With `microbatches` > 1 (one rank only) the batch is
-    split along its rows, each part's gradients summed in fp32 and
-    divided by the count, as JAX's `lax.scan` does; the loss is the
-    parts' mean. Under a mesh of more than one rank: the module
+    `layout` on a mesh) and `opt_state` (from `init_opt_state`). The
+    global batch's arrays (numpy or tensors) go to the rank's `device`,
+    the card unless "cpu" is asked for.
+
+    With `microbatches` = m > 1 the global batch of B rows (B % m == 0,
+    else `ValueError`, as JAX's reshape refuses it) is cut into m
+    contiguous blocks of rows [i B/m, (i+1) B/m), the rows of JAX's
+    reshape-and-scan. Each block's gradients are summed in fp32 and
+    divided by m; the loss is the blocks' mean. Under a mesh a block's
+    gradients are the rank's share of that block's own global loss,
+    before any reduction: its rows of the block, or all of them counted
+    once where they do not divide over the batch axes. The fp32 sum is
+    then reduced ONCE. JAX's GSPMD program may reduce each microbatch's
+    gradients as it goes; in fp32 that only reorders the sums. The
+    all-reduce moves the fp32 size of the reduced leaves once a step.
+
+    Under a mesh of more than one rank: the module
     docstring; `train_step.wire` then holds the last step's collectives
     after its gradients (`distributed.mesh.tally`): each rank's bytes
     put in its all-reduces (the gradients', the norm's) and gathered in
@@ -271,13 +282,11 @@ def make_train_step(cfg, oc: AdamWConfig, layout: str = "heads",
     CUDA events around each call, read at the step's end)."""
     mesh = get_mesh()
     dev = pg.rank_device(device)
-    if microbatches > 1 and mesh.size > 1:
-        raise ValueError("microbatches > 1 run on one rank only: JAX's "
-                         "microbatches cut the global batch's rows, not "
-                         "each rank's")
     state = {"plan": None}
 
     def grads_of(params, batch):
+        if mesh.size > 1:
+            return _rank_grads(params, cfg, batch, mesh, layout)
         leaves = named_leaves(params)
         loss, _ = lm.loss_fn(params, cfg, batch, layout)
         grads = torch.autograd.grad(loss, list(leaves.values()))
@@ -290,6 +299,10 @@ def make_train_step(cfg, oc: AdamWConfig, layout: str = "heads",
         if mesh.size > 1 and plan is None:
             plan = state["plan"] = _Plan(leaves, cfg, mesh, layout)
         if microbatches > 1:
+            rows = batch["tokens"].shape[0]
+            if rows % microbatches:
+                raise ValueError(f"a batch of {rows} rows does not cut "
+                                 f"into {microbatches} microbatches")
             loss = torch.zeros((), dtype=torch.float32, device=dev)
             acc = {n: torch.zeros_like(p, dtype=torch.float32)
                    for n, p in leaves.items()}
@@ -304,10 +317,8 @@ def make_train_step(cfg, oc: AdamWConfig, layout: str = "heads",
                 del g
             grads = {n: t / microbatches for n, t in acc.items()}
             loss = loss / microbatches
-        elif mesh.size == 1:
-            loss, grads = grads_of(params, batch)
         else:
-            loss, grads = _rank_grads(params, cfg, batch, mesh, layout)
+            loss, grads = grads_of(params, batch)
         with pg.tally() as wire:              # read at the step's end
             if plan is not None:
                 _reduce(grads, plan, mesh)

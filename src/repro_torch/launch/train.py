@@ -5,7 +5,7 @@
         [--compress int8] [--device cpu]
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --arch deepseek_moe_16b --reduced --device cpu --mesh local \
-        --compress int8
+        --compress int8 [--microbatches 2]
 
 Wires together: config -> mesh (`--mesh local`: (1, world size) over
 the live world, every rank on the model axis; `single` and `multi` the
@@ -17,10 +17,12 @@ keeping its held blocks, `lm.init_params(mesh=)`: JAX's `param_spec`
 for every family, heads, d_ff, experts, vocab, the SSM's d_in and the
 RG-LRU's width over 'model'; fp32 with --reduced, bf16 otherwise) and AdamW
 state (the rank's ZeRO-1 blocks) -> `make_train_step` (gradient-
-accumulation microbatches on one rank, optional gradient compression
-with error feedback; data, tensor and expert parallelism under a mesh
-of more than one rank) -> the resumable `TokenPipeline` (the global batch on every rank;
-the step takes the rank's rows) -> `CheckpointManager` (async, atomic,
+accumulation microbatches, `--microbatches`, on any mesh: each a block
+of the global batch's rows, the fp32 sum reduced once a step; optional
+gradient compression with error feedback; data, tensor and expert
+parallelism under a mesh of more than one rank) -> the resumable
+`TokenPipeline` (the global batch on every rank; the step takes the
+rank's rows) -> `CheckpointManager` (async, atomic,
 retention; JAX's layout, each rank its blocks) -> `StepWatchdog`
 (straggler detection). On restart it resumes from the latest checkpoint
 through `reshard_tree` onto whatever mesh is live, exact to the

@@ -7,6 +7,7 @@ before jax is imported).
     python tests/_jax_dist_ref.py ckpt DIR
     python tests/_jax_dist_ref.py dp DIR
     python tests/_jax_dist_ref.py tp DIR [I/N]
+    python tests/_jax_dist_ref.py mb DIR
 
 `moe`: for each case of DIR/cases.json, one MoE layer (`moe_init`,
 fp32) and a seeded input through `moe_apply` under `shard_map` on the
@@ -37,6 +38,22 @@ gradients of `loss_fn(..., layout)` and one jitted `make_train_step(cfg,
 oc, layout)`: loss, parameters, mu and nu. With I/N (default 0/1) only
 every N-th case from the I-th, so that N processes share the cases.
 Writes DIR/jax_tp{I}.npz.
+`mb`: each case of `tests/_torch_dist_ranks.py`'s `MB_CASES` (whose
+DIR/rank{r}.npz it reads) on its (data, model) mesh of virtual devices:
+`MB_STEPS` jitted steps of `make_train_step(cfg, oc, microbatches=MB)`,
+each from the state the ranks started that step from: the port's
+initial parameters (its `lm.init_params`, seed 5) first, then the ranks'
+state after their previous step, assembled from their blocks
+(`mb_state`). A compressed case's compressor, as
+tests/test_torch_compression.py's, returns JAX's own gradients and
+compresses the port's handed ones in their place; its error-feedback
+residual is an argument and an output of the jitted step, so one trace
+serves every step. The first steps of the other cases run while the
+ranks do; then DIR/ranks.done is awaited. The batch
+`mb_batch` placed by `batch_specs`, the parameters and the AdamW state
+by `params_specs` and `opt_specs`: the loss, learning rate, parameters,
+mu and nu after each step. Then `MB_ODD` rows, which the step must
+refuse (the exception's type). Writes DIR/jax_mb.npz.
 `ckpt`: for every family, reduced parameters (the shapes and dtypes of
 `lm.init_params`, the values drawn from numpy) and a random AdamW state
 saved with `save_tree` unsharded (DIR/<arch>/plain) and sharded over a
@@ -307,6 +324,119 @@ def run_tp(d, part="0/1"):
     np.savez(d / f"jax_tp{i}.npz", **out)
 
 
+def run_mb(d):
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch
+    from _torch_dist_ranks import (MB, MB_ODD, MB_STEPS, mb_batch, mb_cases,
+                                   mb_state, tp_cfg)
+    from repro.distributed import compression as jc
+    from repro_torch.configs import get_reduced as tget_reduced
+    from repro_torch.models import lm as tlm
+    from repro_torch.models.weights import params_to_jax
+    oc = AdamWConfig(**OC)
+    out, ranks = {}, []
+
+    def case(c):
+        """The case's mesh, placement, jitted step and first state."""
+        cfg, tcfg = tp_cfg(get_reduced, c), tp_cfg(tget_reduced, c)
+        mesh = mesh_of(c["shape"], ("data", "model"))
+        as_jax = lambda state: jax.tree.map(  # noqa: E731
+            lambda t: jnp.asarray(np.asarray(t)),
+            params_to_jax({n: torch.as_tensor(v) for n, v in state.items()},
+                          tcfg))
+        batch0 = mb_batch(tcfg, c["B"])
+        with mesh_context(mesh):
+            params = as_jax(tlm.init_params(tcfg, 5, torch.float32,
+                                            "cpu").state_dict())
+            rules = ShardingRules(cfg, mesh, "heads")
+            shapes = jax.tree.map(
+                lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), params)
+            ps = rules.params_specs(shapes)
+            put = lambda t, s: jax.tree.map(  # noqa: E731
+                lambda a, sh: jax.device_put(a, sh), t, to_named(s, mesh))
+            batch = put({k: jnp.asarray(v) for k, v in batch0.items()},
+                        rules.batch_specs(batch0))
+        ef = jc.ErrorFeedback(c["compress"]) if c["compress"] else None
+
+        def compressed(params, opt, batch, handed, res):
+            # the port's gradients in the place of JAX's own (returned),
+            # the residual an argument: one trace serves every step
+            box = {}
+
+            def compressor(g):
+                box["own"] = g
+                o, box["res"] = ef.apply(handed, res)
+                return o
+            p, o, m = make_train_step(cfg, oc, microbatches=MB,
+                                      compressor=compressor)(params, opt,
+                                                             batch)
+            return p, o, m, box["own"], box["res"]
+        step = jax.jit(compressed if ef else make_train_step(
+            cfg, oc, microbatches=MB))
+        return dict(c=c, tcfg=tcfg, mesh=mesh, as_jax=as_jax, put=put,
+                    batch=batch, ps=ps, shapes=shapes, rules=rules,
+                    step=step, ef=ef, res=None, params=params,
+                    opt=adamw_init(params, oc))
+
+    def run(k, t):
+        c, put, as_jax, name = k["c"], k["put"], k["as_jax"], k["c"]["name"]
+        if t:
+            k["params"] = as_jax(mb_state(ranks, c, t - 1, "params",
+                                          k["tcfg"]))
+            k["opt"] = {n: as_jax(mb_state(ranks, c, t - 1, n, k["tcfg"]))
+                        for n in ("mu", "nu")}
+            k["opt"]["step"] = jnp.asarray(t, jnp.int32)
+        with mesh_context(k["mesh"]):
+            args = (put(k["params"], k["ps"]),
+                    put(k["opt"], k["rules"].opt_specs(k["shapes"],
+                                                       k["ps"])),
+                    k["batch"])
+            if k["ef"] is not None:
+                handed = as_jax(mb_state(ranks, c, t, "handed", k["tcfg"]))
+                if k["res"] is None:
+                    k["res"] = k["ef"].init(handed)
+                params, opt, m, own, k["res"] = k["step"](*args, handed,
+                                                          k["res"])
+                out.update(flat(own, f"{name}/{t}/own/"))
+            else:
+                params, opt, m = k["step"](*args)
+        for key in ("loss", "lr", "grad_norm"):
+            out[f"{name}/{t}/{key}"] = np.asarray(m[key])
+        out.update(flat(params, f"{name}/{t}/params/"))
+        out.update(flat(opt["mu"], f"{name}/{t}/mu/"))
+        out.update(flat(opt["nu"], f"{name}/{t}/nu/"))
+
+    t0 = time.perf_counter()
+    cases = [case(c) for c in mb_cases()]
+    for k in cases:                 # needs nothing of the ranks
+        if k["ef"] is None:
+            run(k, 0)
+    print(f"first steps: {time.perf_counter() - t0:.1f} s", flush=True)
+    done = d / "ranks.done"
+    while not done.exists():
+        if time.perf_counter() - t0 > 400:
+            raise TimeoutError("the ranks wrote no ranks.done")
+        time.sleep(0.2)
+    ranks.extend(np.load(d / f"rank{r}.npz") for r in range(4))
+    for k in cases:
+        if k["ef"] is not None:
+            run(k, 0)
+        for t in range(1, MB_STEPS):
+            run(k, t)
+    print(f"all steps: {time.perf_counter() - t0:.1f} s", flush=True)
+    cfg = get_reduced("qwen2_5_3b")
+    with mesh_context(mesh_of((2, 1), ("data", "model"))):
+        params = lm.init_params(cfg, jax.random.PRNGKey(0), jnp.float32)
+        try:
+            jax.jit(make_train_step(cfg, oc, microbatches=MB))(
+                params, adamw_init(params, oc),
+                {k: jnp.asarray(v) for k, v in mb_batch(cfg, MB_ODD).items()})
+            out["odd/raised"] = np.asarray("")
+        except Exception as e:          # the type is the record
+            out["odd/raised"] = np.asarray(type(e).__name__)
+    np.savez(d / "jax_mb.npz", **out)
+
+
 def run_ckpt(d):
     mesh = mesh_of((2, 4), ("data", "model"))
     for i, arch in enumerate(FAMILIES):
@@ -339,6 +469,7 @@ def run_ckpt(d):
 
 if __name__ == "__main__":
     mode, d = sys.argv[1], Path(sys.argv[2])
-    {"moe": run_moe, "ckpt": run_ckpt, "dp": run_dp, "tp": run_tp}[mode](
+    {"moe": run_moe, "ckpt": run_ckpt, "dp": run_dp, "tp": run_tp,
+     "mb": run_mb}[mode](
         d, *sys.argv[3:])
     print("JAX-REF-OK")

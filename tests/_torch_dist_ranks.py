@@ -5,7 +5,8 @@ jax.
     python tests/_torch_dist_ranks.py moe DIR STORE    # four ranks
     python tests/_torch_dist_ranks.py dp DIR STORE     # two ranks
     python tests/_torch_dist_ranks.py tp DIR STORE     # four ranks
-    python tests/_torch_dist_ranks.py tally DIR STORE  # four ranks
+    python tests/_torch_dist_ranks.py tally DIR STORE [mb]  # four ranks
+    python tests/_torch_dist_ranks.py mb DIR STORE     # four ranks
 
 `moe`: DIR holds `cases.json` (the expert-parallel cases: name, mesh
 shape and axis names, arch, config changes, B, S) and `jax_moe.npz`
@@ -47,7 +48,19 @@ JAX.
 `tally` (the dry-run's collectives, tests/test_torch_dryrun.py): on a
 (1, 4) mesh each rank runs `TALLY_CASES`' prefill, decode and training
 steps (`launch.dryrun.lm_step` on the CPU) under `distributed.mesh.tally`
-and writes each step's {collective: [calls, bytes]} to `rank{r}.json`.
+and writes each step's {collective: [calls, bytes]} to `rank{r}.json`;
+with `mb`, the training step with `TALLY_MB` microbatches instead
+(`tally_mb_shape`).
+`mb` (gradient accumulation on more than one rank, ROADMAP item 10.6,
+tests/test_torch_microbatch.py): for each case of `MB_CASES` the case's
+ranks hold the model's blocks from seed 5 and run `MB_STEPS` steps of
+`make_train_step(microbatches=MB)` on `mb_batch`, writing the loss,
+learning rate, parameters and moments after each step to `rank{r}.npz`
+(and, for a compressed case, the reduced gradients handed to the
+compressor); then the ranks of a (2, 1) mesh call the step on
+`MB_ODD` rows, which must raise `ValueError`. Rank 0 writes
+DIR/ranks.done once every rank has written its file.
+`tests/_jax_dist_ref.py mb` runs the same steps in JAX.
 Prints DIST-RANKS-OK when every rank passed.
 """
 import dataclasses
@@ -525,19 +538,32 @@ def tally_shapes():
     return [ShapeSpec(f"{k}_{s}", k, s, b) for k, s, b in TALLY_SHAPES]
 
 
-def tally_body(rank, world, d):
+TALLY_MB = 2            # the microbatched training step's count
+
+
+def tally_mb_shape():
+    """The microbatched training step's shape: `TALLY_SHAPES`' training
+    step at twice the rows, so that each microbatch has its rows."""
+    from repro_torch.configs import ShapeSpec
+    (k, s, b), = [t for t in TALLY_SHAPES if t[0] == "train"]
+    return ShapeSpec(f"{k}_{s}_mb{TALLY_MB}", k, s, b * TALLY_MB)
+
+
+def tally_body(rank, world, d, which="base"):
     from repro_torch.launch import dryrun
     from repro_torch.launch.sharding import attn_layout
     torch.set_num_threads(1)
     mesh = make_mesh((1, world), ("data", "model"))
+    runs = [(s, 1) for s in tally_shapes()] if which == "base" else \
+        [(tally_mb_shape(), TALLY_MB)]
     out = {}
     for arch, changes in TALLY_CASES:
         cfg = tally_cfg(arch, changes)
         oc = AdamWConfig(moment_dtype=cfg.opt_dtype)
-        for shape in tally_shapes():
+        for shape, m in runs:
             with mesh_context(mesh):
                 step, args, _ = dryrun.lm_step(
-                    cfg, shape, oc, attn_layout(cfg, world), mesh,
+                    cfg, shape, oc, attn_layout(cfg, world), mesh, m,
                     device="cpu")
                 with pg.tally() as wire:
                     step(*args)
@@ -547,11 +573,126 @@ def tally_body(rank, world, d):
     torch.distributed.barrier()
 
 
+# gradient accumulation on more than one rank: name, arch, config
+# changes, (data, model), B, compressor; every case "heads", S = 32
+MB = 2
+MB_STEPS = 2
+MB_ODD = 3              # rows that do not cut into MB microbatches
+MB_CASES = [
+    ("qwen_zero1_2x1", "qwen2_5_3b", {}, (2, 1), 4, None),
+    ("qwen_int8_2x1", "qwen2_5_3b", {}, (2, 1), 4, "int8"),
+    ("qwen_heads_2x2", "qwen2_5_3b", {}, (2, 2), 4, None),
+    ("moe_ep_1x2", "deepseek_moe_16b", {}, (1, 2), 4, None),
+    # a microbatch's one row does not divide over 'data': each rank runs
+    # it whole, counted once
+    ("qwen_rows_2x1", "qwen2_5_3b", {}, (2, 1), 2, None),
+]
+MB_KEYS = ("name", "arch", "cfg", "shape", "B", "compress")
+
+
+def mb_cases():
+    return [dict(zip(MB_KEYS, c)) for c in MB_CASES]
+
+
+def mb_batch(cfg, B):
+    """B rows of 32 tokens, the loss masks' keep rate 0.9 and 0.4 on
+    alternate rows, so the ranks' token counts differ in every
+    microbatch."""
+    rng = np.random.default_rng(40 + B)
+    keep = np.where(np.arange(B)[:, None] % 2 == 0, 0.9, 0.4)
+    return {"tokens": rng.integers(0, cfg.vocab_size, (B, 32)),
+            "loss_mask": (rng.random((B, 32)) < keep).astype(np.float32)}
+
+
+def mb_state(ranks, c, t, kind, cfg):
+    """{name: the global leaf} of one case's parameters, moments or
+    handed gradients after step t, assembled from the ranks' blocks
+    (`held_spec`; the moments by `held_moment_spec`)."""
+    from repro_torch.launch.sharding import ShardingRules, assemble
+    mesh = Mesh(tuple(c["shape"]), ("data", "model"))
+    rules = ShardingRules(cfg, mesh, "heads")
+    shapes = lm.param_shapes(cfg)
+    pre = f"{c['name']}/{t}/{kind}/"
+    out = {}
+    for n in (k[len(pre):] for k in ranks[0].files if k.startswith(pre)):
+        shape = shapes[n]
+        spec = rules.held_moment_spec(n, shape) if kind in ("mu", "nu") \
+            else rules.held_spec(n, shape)
+        out[n] = assemble([r[pre + n] for r in ranks[:mesh.size]], spec,
+                          shape, mesh)
+    return out
+
+
+def mb_case(c, mesh, out):
+    cfg = tp_cfg(get_reduced, c)
+    name = c["name"]
+    oc = AdamWConfig(**OC)
+    model = lm.init_params(cfg, 5, torch.float32, "cpu", mesh=mesh)
+    opt = init_opt_state(model, oc, cfg, mesh)
+    handed = []
+    compressor = None
+    if c["compress"]:
+        ef, res = ErrorFeedback(c["compress"]), {}
+
+        def compressor(g):
+            handed.append({n: t.clone() for n, t in g.items()})
+            if not res:
+                res.update(ef.init(g))
+            o, r = ef.apply(g, res)
+            res.update(r)
+            return o
+    step = make_train_step(cfg, oc, microbatches=MB, compressor=compressor,
+                           device="cpu")
+    batch = mb_batch(cfg, c["B"])
+    for t in range(MB_STEPS):
+        model, opt, m = step(model, opt, batch)
+        for k in ("loss", "lr", "grad_norm"):
+            out[f"{name}/{t}/{k}"] = m[k].numpy()
+        out[f"{name}/{t}/wire"] = np.asarray(step.wire["all_reduce"])
+        for n, p in model.state_dict().items():
+            out[f"{name}/{t}/params/{n}"] = p.numpy().copy()
+        for k in ("mu", "nu"):
+            for n, p in opt[k].items():
+                out[f"{name}/{t}/{k}/{n}"] = p.numpy().copy()
+        for n, g in (handed[-1] if handed else {}).items():
+            out[f"{name}/{t}/handed/{n}"] = g.numpy()
+
+
+def mb_body(rank, world, d):
+    torch.set_num_threads(1)
+    d = Path(d)
+    out = {}
+    for c in mb_cases():
+        n = int(np.prod(c["shape"]))
+        mesh = make_mesh(c["shape"], ("data", "model"), ranks=list(range(n)))
+        if mesh is not None:
+            with mesh_context(mesh):
+                mb_case(c, mesh, out)
+    mesh = make_mesh((2, 1), ("data", "model"), ranks=[0, 1])
+    if mesh is not None:
+        cfg = get_reduced("qwen2_5_3b")
+        oc = AdamWConfig(**OC)
+        with mesh_context(mesh):
+            model = lm.init_params(cfg, 5, torch.float32, "cpu", mesh=mesh)
+            step = make_train_step(cfg, oc, microbatches=MB, device="cpu")
+            try:
+                step(model, init_opt_state(model, oc, cfg, mesh),
+                     mb_batch(cfg, MB_ODD))
+                out["odd/raised"] = np.asarray("")
+            except ValueError as e:
+                out["odd/raised"] = np.asarray(str(e))
+    np.savez(d / f"rank{rank}.npz", **out)
+    torch.distributed.barrier()
+    if rank == 0:                   # tests/_jax_dist_ref.py mb waits
+        (d / "ranks.done").write_text("")
+
+
 def main(argv):
     mode, d, store = argv[1], argv[2], argv[3]
     body, world = {"moe": (moe_body, 4), "dp": (dp_body, 2),
-                   "tp": (tp_body, 4), "tally": (tally_body, 4)}[mode]
-    pg.spawn(body, world, store, args=(d,), timeout_s=240.0,
+                   "tp": (tp_body, 4), "tally": (tally_body, 4),
+                   "mb": (mb_body, 4)}[mode]
+    pg.spawn(body, world, store, args=(d, *argv[4:]), timeout_s=240.0,
              collective_timeout_s=120.0)
     print("DIST-RANKS-OK")
     return 0

@@ -25,7 +25,14 @@
      `snn_state_shapes` gives a rank, and the packed wire's bytes an
      eighth of the dense wire's;
   7. every kernel wrapper's meta outputs are its launch's, other devices
-     still raise, and a real tensor on a shape-only mesh still raises.
+     still raise, and a real tensor on a shape-only mesh still raises;
+  8. microbatches on more than one rank (ROADMAP item 10.6): a train_4k
+     cell with 4 microbatches against its own baseline on the 16 x 16
+     mesh (equal arguments and dot flops, 4 x the kernel calls, the
+     gradients' all-reduce the fp32 size of the reduced leaves once), and
+     the (1, 4) mesh's microbatched step on meta against 4 gloo CPU
+     ranks (`tally ... mb`); `specs.concretize` wants the card unless
+     another device is asked for.
 
 Serial time of the file: CHANGES.md (PR 30).
 """
@@ -59,7 +66,8 @@ from repro_torch.optim import AdamWConfig
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "tests"))
-from _torch_dist_ranks import TALLY_CASES, tally_cfg, tally_shapes  # noqa: E402
+from _torch_dist_ranks import (TALLY_CASES, TALLY_MB,  # noqa: E402
+                               tally_cfg, tally_mb_shape, tally_shapes)
 
 SEGMENTS = ("blocks", "dense_blocks", "groups", "tail")
 
@@ -234,13 +242,14 @@ def small_cfg(arch):
     return dataclasses.replace(get_reduced(arch), head_dim=64)
 
 
-def count_one(cfg, shape, device, mesh=None, dtype=torch.float32):
+def count_one(cfg, shape, device, mesh=None, dtype=torch.float32,
+              microbatches=1):
     mesh = Mesh((1, 1), ("data", "model")) if mesh is None else mesh
     oc = AdamWConfig(moment_dtype=cfg.opt_dtype)
     with mesh_context(mesh):
         step, args, held = dryrun.lm_step(
             cfg, shape, oc, attn_layout(cfg, mesh.shape["model"]), mesh,
-            device=device, dtype=dtype)
+            microbatches, device=device, dtype=dtype)
         return dryrun.count(step, args, held)
 
 
@@ -458,3 +467,80 @@ def test_shape_only_mesh_collectives():
                lambda: mesh.copy_to(real, "model")):
         with pytest.raises(RuntimeError, match="shape-only"):
             fn()
+
+
+# ------------------------------------------------- 8. microbatches
+MB_ARCH = "gemma_7b"    # the dense train_4k cell quickest on meta (mb4)
+
+
+def mb_cell(microbatches):
+    """MB_ARCH's train_4k on the 16 x 16 mesh as `dryrun.lower_cell` runs
+    it: (the record, the step's `train_step.wire`, the elements of the
+    rank's leaves whose gradients are reduced, their element size)."""
+    from repro_torch.launch import steps
+    from repro_torch.optim.adamw import named_leaves
+    cfg = get_arch(MB_ARCH)
+    mesh = dryrun.production_mesh(False)
+    oc = AdamWConfig(moment_dtype=cfg.opt_dtype)
+    with mesh_context(mesh):
+        layout = attn_layout(cfg, mesh.shape["model"])
+        step, args, held = dryrun.lm_step(cfg, SHAPES["train_4k"], oc,
+                                          layout, mesh, microbatches)
+        rec = dryrun.count(step, args, held)
+        leaves = named_leaves(args[0])
+        plan = steps._Plan(leaves, cfg, mesh, layout)
+        n = sum(p.numel() for k, p in leaves.items()
+                if plan.axes[k] and mesh.axis_size(plan.axes[k]) > 1)
+    return rec, dict(step.wire), n, next(iter(leaves.values())).element_size()
+
+
+def test_microbatched_cell_equals_its_baseline():
+    """mb4 against the baseline: the same arguments and dot flops (a
+    dense family: every product is linear in the rows), each kernel
+    called 4 times as often, and the step's all-reduce the baseline's
+    less its bf16 gradients plus their fp32 size, once."""
+    base, base_wire, n, size = mb_cell(1)
+    mb, mb_wire, n_mb, _ = mb_cell(4)
+    assert n == n_mb > 0 and size == 2
+    assert mb["memory"]["argument_size_in_bytes"] == \
+        base["memory"]["argument_size_in_bytes"]
+    assert mb["analysis"]["flops"] == base["analysis"]["flops"] > 0
+    assert mb["kernel_calls"] == {k: 4 * c for k, c in
+                                  base["kernel_calls"].items()}
+    norm = base_wire["all_reduce"] - size * n      # the norm's psums
+    assert 0 <= norm < 64
+    assert mb_wire["all_reduce"] == 4 * n + norm
+    assert mb_wire["all_gather"] == base_wire["all_gather"]
+
+
+def test_microbatched_collectives_equal_gloo_ranks(tmp_path):
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tests" / "_torch_dist_ranks.py"),
+         "tally", str(tmp_path), str(tmp_path / "store"), "mb"],
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        capture_output=True, text=True, timeout=400, cwd=str(ROOT))
+    assert proc.returncode == 0 and "DIST-RANKS-OK" in proc.stdout, \
+        proc.stdout[-2000:] + proc.stderr[-3000:]
+    shape = tally_mb_shape()
+    for r in range(4):
+        ranks = json.loads((tmp_path / f"rank{r}.json").read_text())
+        mesh = dryrun.shape_mesh((1, 4), ("data", "model"), rank=r)
+        for arch, changes in TALLY_CASES:
+            cfg = tally_cfg(arch, changes)
+            rec = count_one(cfg, shape, "meta", mesh, torch.bfloat16,
+                            TALLY_MB)
+            want = ranks[f"{arch}/{shape.name}"]
+            assert rec["wire"] == want, (r, arch)
+            assert want["all_reduce"][0] > 0
+
+
+def test_concretize_wants_the_card_unless_told():
+    tree = {"x": _meta(2, 3, dtype=torch.float32),
+            "n": _meta(4, dtype=torch.int32)}
+    got = specs.concretize(tree, 3, device="cpu")
+    assert got["x"].device.type == "cpu" and not got["n"].any()
+    if torch.cuda.is_available():
+        assert specs.concretize(tree)["x"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            specs.concretize(tree)
