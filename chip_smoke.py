@@ -512,6 +512,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -1327,17 +1328,17 @@ def phase_profile(compiled, fused: bool, seed: int, A: int):
 
 # ------------------------------------------------------------- the LM slice
 def flash_inputs(dev, gen, B, S, H, KV, D, dtype, layout="model",
-                 mul=(1.0, 1.0)):
-    """q (B, H, S, D) and k, v (B, KV, S, D), N(0, 1) in `dtype` (q and k
-    times `mul`): views of (B, S, heads, D) storage as the model passes
-    them (layout "model"), or dense (B, heads, S, D)."""
-    def mk(n, m=1.0):
+                 mul=(1.0, 1.0), dv=None):
+    """q (B, H, S, D), k (B, KV, S, D) and v (B, KV, S, dv or D), N(0, 1)
+    in `dtype` (q and k times `mul`): views of (B, S, heads, D) storage as
+    the model passes them (layout "model"), or dense (B, heads, S, D)."""
+    def mk(n, m=1.0, width=D):
         if layout == "model":
-            x = torch.randn((B, S, n, D), generator=gen, device=dev)
+            x = torch.randn((B, S, n, width), generator=gen, device=dev)
             return (x * m).to(dtype).transpose(1, 2)
-        x = torch.randn((B, n, S, D), generator=gen, device=dev)
+        x = torch.randn((B, n, S, width), generator=gen, device=dev)
         return (x * m).to(dtype)
-    return mk(H, mul[0]), mk(KV, mul[1]), mk(KV)
+    return mk(H, mul[0]), mk(KV, mul[1]), mk(KV, width=dv or D)
 
 
 # the harder bf16 cases of phases 10 and 13: a peaky softmax (q and k x 4:
@@ -1351,17 +1352,19 @@ HARD_FLASH_CASES = [  # name, (B, S, H, KV, D), layout, causal, (q, k) x
 
 
 def flash_instance_name(mangled):
-    """'wgmma<D, lse>' / 'fma<D, lse>' for a flash forward instance (bf16 /
-    fp32), 'dkv wgmma<D>' / 'dq fma<D>' ... for a backward one, None for
-    any other function."""
+    """'wgmma<D, D_v, lse>' / 'fma<D, D_v, lse>' for a flash forward
+    instance (bf16 / fp32), 'dkv wgmma<D, D_v>' / 'dq fma<D, D_v>' ... for
+    a backward one, None for any other function."""
     import re
-    m = re.search(r"flash_attention_(wgmma_)?kernelILi(\d+)ELb(\d)E", mangled)
+    m = re.search(r"flash_attention_(wgmma_)?kernelILi(\d+)ELi(\d+)ELb(\d)E",
+                  mangled)
     if m:
         return (f"{'wgmma' if m.group(1) else 'fma'}<{m.group(2)}, "
-                f"{'lse' if m.group(3) == '1' else 'no lse'}>")
-    m = re.search(r"flash_bwd_(dkv|dq)_(wgmma_)?kernelIf?Li(\d+)E", mangled)
+                f"{m.group(3)}, {'lse' if m.group(4) == '1' else 'no lse'}>")
+    m = re.search(r"flash_bwd_(dkv|dq)_(wgmma_)?kernelIf?Li(\d+)ELi(\d+)E",
+                  mangled)
     return m and (f"{m.group(1)} {'wgmma' if m.group(2) else 'fma'}"
-                  f"<{m.group(3)}>")
+                  f"<{m.group(3)}, {m.group(4)}>")
 
 
 SASS_OPS = ("HGMMA", "LDGSTS", "RED", "REDG", "ATOMG", "BAR", "SHF")
@@ -1418,33 +1421,35 @@ def flash_instances(lib_path, build_log):
 
 def phase_tensor_cores(logs) -> dict:
     """cuobjdump -sass of the built flash libraries: every bf16 instance
-    (the forward's wgmma<D, LSE>, the backward's dkv / dq wgmma<D>) holds
-    HGMMA instructions, no fp32 one (fma) does; the backward's bf16
-    instances and every D = 192 instance (MLA's) spill nothing
-    (-Xptxas -v of this run's build). Logs each instance's HGMMA count,
-    registers, spills and dynamic shared memory; returns them."""
+    (the forward's wgmma<D, D_v, LSE>, the backward's dkv / dq wgmma<D,
+    D_v>) holds HGMMA instructions, no fp32 one (fma) does; every bf16
+    instance and every D = 192 instance (MLA's) spills nothing (-Xptxas -v
+    of this run's build). Logs each instance's HGMMA count, registers,
+    spills and dynamic shared memory; returns them."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    from repro_torch.kernels.flash_attention import HEAD_DIM_PAIRS, HEAD_DIMS
+    pairs = [(d, d) for d in HEAD_DIMS] + list(HEAD_DIM_PAIRS)
     fwd_smem = _build.load("flash_attention", "flash_attention_smem_bytes")
     bwd_smem = _build.load("flash_attention_bwd", "flash_bwd_smem_bytes")
     rec = {}
     for lib in ("flash_attention", "flash_attention_bwd"):
         inst = flash_instances(_build.library_path(lib), logs.get(lib))
-        need(len(inst) == 4 * len(HEAD_DIMS),
-             f"want {4 * len(HEAD_DIMS)} {lib} instances (two types, two "
-             f"kernels or lse flags, D in {HEAD_DIMS}), found "
+        need(len(inst) == 4 * len(pairs),
+             f"want {4 * len(pairs)} {lib} instances (two types, two "
+             f"kernels or lse flags, (D, D_v) in {pairs}), found "
              f"{sorted(inst)}")
         for name, (n_hgmma, regs, spill) in sorted(inst.items()):
             bf16 = "wgmma" in name
-            D = int(name.split("<")[1].split(",")[0].rstrip(">"))
+            D, Dv = (int(x) for x in
+                     name.split("<")[1].rstrip(">").split(",")[:2])
             need(n_hgmma > 0 if bf16 else n_hgmma == 0,
                  f"{lib} instance {name}: {n_hgmma} HGMMA instructions "
                  f"(bf16 must use the tensor cores, fp32 not)")
-            if (lib == "flash_attention_bwd" and bf16) or D == 192:
+            if bf16 or D == 192:
                 need(spill == 0, f"{lib} instance {name} spills {spill} B "
                                  f"(from this run's ptxas -v)")
-            smem = fwd_smem(int(bf16), D) if lib == "flash_attention" \
-                else bwd_smem(int(name.startswith("dq")), int(bf16), D)
+            smem = fwd_smem(int(bf16), D, Dv) if lib == "flash_attention" \
+                else bwd_smem(int(name.startswith("dq")), int(bf16), D, Dv)
             rec[name] = {"hgmma": n_hgmma, "registers": regs,
                          "spill_store_bytes": spill,
                          "dynamic_smem_bytes": smem}
@@ -2517,7 +2522,8 @@ def window_pairs(S: int, W: int) -> int:
 
 def check_flash_cases(dev, seed: int, cases, what: str) -> dict:
     """Kernels 4-6 against their plain versions on the card, fp32 and
-    bf16, at `cases` (name, (B, S, H, KV, D), window or None, (q, k) x),
+    bf16, at `cases` (name, (B, S, H, KV, D) or (B, S, H, KV, D, D_v),
+    window or None, (q, k) x),
     with the tolerances of phases 10 and 13: the forward, the forward
     with lse, and the backward fed the plain forward's o and lse (each
     gradient within GRAD_TOL of the plain version's largest magnitude,
@@ -2536,8 +2542,11 @@ def check_flash_cases(dev, seed: int, cases, what: str) -> dict:
     errs = {}
     for name, shape, W, mul in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = flash_inputs(dev, gen, *shape, dtype, mul=mul)
-            do = flash_inputs(dev, gen, *shape, dtype)[0]
+            dv = shape[5] if len(shape) > 5 else None
+            q, k, v = flash_inputs(dev, gen, *shape[:5], dtype, mul=mul,
+                                   dv=dv)
+            do = flash_inputs(dev, gen, *shape[:4], dv or shape[4],
+                              dtype)[0]
             o = flash_attention(q, k, v, window=W)
             ro, rlse = flash_fwd_lse_ref(q, k, v, True, W)
             o2, lse = flash_fwd_lse(q, k, v, window=W)
@@ -2581,7 +2590,8 @@ def check_flash_cases(dev, seed: int, cases, what: str) -> dict:
                 need(same, f"{tag}: a window past S differs from none")
                 e["same_bits_as_none"] = same
             errs[tag] = e
-            log(f"[{what}] kernels == plain on {tag} (B, S, H, KV, D), q, "
+            log(f"[{what}] kernels == plain on {tag} (B, S, H, KV, D"
+                + (", D_v" if dv else "") + "), q, "
                 f"k x {mul}: o {e['o']:.3g}, o with lse {e['o_lse']:.3g}, "
                 f"lse {e['lse']:.3g}"
                 + (f" ({e['o_fp32']:.3g} against fp32)" if "o_fp32" in e
@@ -2596,32 +2606,37 @@ def check_flash_cases(dev, seed: int, cases, what: str) -> dict:
 
 def time_flash_kernels(dev, seed: int, flush, card: str, shape, tag: str,
                        window=None, dtypes=(torch.bfloat16, torch.float32),
-                       v_dim=None) -> dict:
-    """Kernels 4-6 at `shape` (B, S, H, KV, D), causal, with `window` or
-    none, in `dtypes` (bf16 the path's): each kernel, its plain version
-    and a library yardstick (SDPA, is_causal=True or with the band as a
-    boolean mask, the KV heads repeated; autograd through it for the
-    backward, the forward excluded), the bound counted from the causal
-    pairs (B H S^2 D flops a product without a window, as phase 6's other
-    flash rows; 2 D a pair with one). With `v_dim`, SDPA also on V cut to
-    its first v_dim columns (MLA's unpadded V), where a backend takes it
-    (else None)."""
+                       v_dim=None, dv=None) -> dict:
+    """Kernels 4-6 at `shape` (B, S, H, KV, D), V and O `dv` wide (D when
+    None: the (D, D_v) pair's instance), causal, with `window` or none,
+    in `dtypes` (bf16 the path's): each kernel, its plain version and a
+    library yardstick (SDPA, is_causal=True or with the band as a boolean
+    mask, the KV heads repeated; autograd through it for the backward,
+    the forward excluded; None where no backend takes the shapes), the
+    bound counted from the causal pairs (B H S^2 D flops a product at its
+    own width, D or D_v, without a window, as phase 6's other flash rows;
+    2 D a pair with one). With `v_dim`, SDPA also on V cut to its first
+    v_dim columns (MLA's unpadded V beside the padded instance), where a
+    backend takes it (else None)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                          flash_attention_ref,
                                          flash_fwd_lse_ref)
     B, S, H, KV, D = shape
-    W = window
-    prod = (B * H * S * S * D if W is None       # flops of one product
-            else 2 * D * B * H * window_pairs(S, W))
-    out = {"shape": list(shape), "window": W}
+    W, Dv = window, dv or D
+    unit = (B * H * S * S if W is None            # flops of a product / D
+            else 2 * B * H * window_pairs(S, W))
+
+    def flops_at(at_d, at_dv):                    # products at D and D_v
+        return unit * (at_d * D + at_dv * Dv)
+    out = {"shape": list(shape), "window": W, "dv": Dv}
     if W is not None:
         out["pairs_per_head"] = window_pairs(S, W)
     for dtype in dtypes:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        q, k, v = flash_inputs(dev, gen, B, S, H, KV, D, dtype)
-        do = flash_inputs(dev, gen, B, S, H, KV, D, dtype)[0]
+        q, k, v = flash_inputs(dev, gen, B, S, H, KV, D, dtype, dv=Dv)
+        do = flash_inputs(dev, gen, B, S, H, KV, Dv, dtype)[0]
         o, lse = fa.flash_fwd_lse(q, k, v, window=W)
         delta = (do.float() * o.float()).sum(dim=-1).contiguous()
         rate = BF16_TC_FLOPS_PER_S if dtype == torch.bfloat16 \
@@ -2630,24 +2645,25 @@ def time_flash_kernels(dev, seed: int, flush, card: str, shape, tag: str,
                              flush=flush),
                      time_ms(lambda: flash_attention_ref(q, k, v, True, W),
                              flush=flush),
-                     *bound(nbytes(q, k, v, q), 2 * prod, rate)),
+                     *bound(nbytes(q, k, v, o), flops_at(1, 1), rate)),
              "lse": (time_ms(lambda: fa.flash_fwd_lse(q, k, v, window=W),
                              flush=flush),
                      time_ms(lambda: flash_fwd_lse_ref(q, k, v, True, W),
                              flush=flush),
-                     *bound(nbytes(q, k, v, o, lse), 2 * prod, rate))}
+                     *bound(nbytes(q, k, v, o, lse), flops_at(1, 1), rate))}
         bwd_in = nbytes(q, k, v, do, lse, delta)
         r["dkv"] = (time_ms(lambda: fa._bwd_dkv(q, k, v, do, lse, delta,
                                                 True, W or 0), flush=flush),
-                    *bound(bwd_in + nbytes(k, v), 4 * prod, rate))
+                    *bound(bwd_in + nbytes(k, v), flops_at(2, 2), rate))
         r["dq"] = (time_ms(lambda: fa._bwd_dq(q, k, v, do, lse, delta, True,
                                               W or 0), flush=flush),
-                   *bound(bwd_in + nbytes(q), 3 * prod, rate))
+                   *bound(bwd_in + nbytes(q), flops_at(2, 1), rate))
         r["bwd"] = (time_ms(lambda: fa.flash_attention_bwd(
             q, k, v, o, lse, do, window=W), flush=flush),
             time_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do,
                                                     True, W), flush=flush),
-            *bound(nbytes(q, k, v, o, do, lse, q, k, v), 5 * prod, rate))
+            *bound(nbytes(q, k, v, o, do, lse, q, k, v), flops_at(3, 2),
+                   rate))
         # the yardsticks, never on the path
         sdpa = torch.nn.functional.scaled_dot_product_attention
         mask = {"is_causal": True}
@@ -2672,8 +2688,13 @@ def time_flash_kernels(dev, seed: int, flush, card: str, shape, tag: str,
                 del vn
         lo = sdpa(qe, ke, ve, **mask)
         doe = do.contiguous()
-        lib_bwd = time_ms(lambda: torch.autograd.grad(
-            lo, (qe, ke, ve), doe, retain_graph=True), flush=flush)
+        try:
+            lib_bwd = time_ms(lambda: torch.autograd.grad(
+                lo, (qe, ke, ve), doe, retain_graph=True), flush=flush)
+        except RuntimeError as e:
+            log(f"[time {tag}] autograd through SDPA takes no V of {Dv} "
+                f"columns beside q, k of {D}: {str(e).splitlines()[0]}")
+            lib_bwd = None
         r["lib"] = (lib_fwd, lib_bwd)
         name = str(dtype)[6:]
         f, fl, bw = r["fwd"], r["lse"], r["bwd"]
@@ -2681,11 +2702,15 @@ def time_flash_kernels(dev, seed: int, flush, card: str, shape, tag: str,
                     f", on V of {v_dim} columns "
                     + ("(no backend)" if r["lib_unpadded_v"] is None
                        else f"{r['lib_unpadded_v']:.4f} ms"))
+        lib_b = "none" if lib_bwd is None else (
+            f"{lib_bwd:.4f} ms ({bw[0] / lib_bwd:.2f}x)")
         log(f"[time {tag} {name}] (B, S, H, KV, D) = {tuple(shape)}"
+            + (f", D_v = {Dv}" if Dv != D else "")
             + (f", W = {W}" if W is not None else "") + f": "
-            f"flash_attention {f[0]:.4f} ms ({2 * prod / f[0] / 1e9:.1f} "
-            f"TFLOP/s), plain {f[1]:.4f} ms, bound {1e3 * f[2]:.2f} us "
-            f"({f[3]}: {2 * prod} flops), {f[0] / f[2]:.2f}x the bound, "
+            f"flash_attention {f[0]:.4f} ms "
+            f"({flops_at(1, 1) / f[0] / 1e9:.1f} TFLOP/s), plain "
+            f"{f[1]:.4f} ms, bound {1e3 * f[2]:.2f} us ({f[3]}: "
+            f"{flops_at(1, 1)} flops), {f[0] / f[2]:.2f}x the bound, "
             f"SDPA{' with the band' if W is not None else ''} "
             f"{lib_fwd:.4f} ms ({f[0] / lib_fwd:.2f}x){unpadded}; "
             f"flash_fwd_lse {fl[0]:.4f} ms, plain {fl[1]:.4f} ms, bound "
@@ -2694,8 +2719,8 @@ def time_flash_kernels(dev, seed: int, flush, card: str, shape, tag: str,
             f"{1e3 * r['dkv'][1]:.2f} us for 4 products; dQ {r['dq'][0]:.4f}"
             f" ms, bound {1e3 * r['dq'][1]:.2f} us for 3), plain "
             f"{bw[1]:.4f} ms, bound {1e3 * bw[2]:.2f} us (5 products), "
-            f"{bw[0] / bw[2]:.2f}x; autograd through SDPA {lib_bwd:.4f} ms "
-            f"({bw[0] / lib_bwd:.2f}x) on {card}")
+            f"{bw[0] / bw[2]:.2f}x; autograd through SDPA {lib_b} on "
+            f"{card}")
         out[name] = r
         del q, k, v, do, o, lse, delta, qe, ke, ve, lo, doe, mask
         torch.cuda.empty_cache()
@@ -3127,24 +3152,36 @@ MLA_ARCH = "deepseek_v2_236b"       # configs/deepseek_v2_236b.py
 VLM_ARCH = "llava_next_mistral_7b"  # configs/llava_next_mistral_7b.py
 AUDIO_ARCH = "musicgen_medium"      # configs/musicgen_medium.py
 # the three models' attention at their prefill and training shape:
-# (B, S, H, KV, D): MLA's naive form, KV == H and D = 128 + 64, V padded
-# to it; LLaVA's GQA at D = 128 (576 patches + 3,520 tokens); MusicGen's
-# MHA at D = 64
+# (B, S, H, KV, D): MLA's naive form, KV == H and D = 128 + 64, V and O
+# MLA_V_DIM wide (the (192, 128) instance; the padded (192, 192) one is
+# timed beside it); LLaVA's GQA at D = 128 (576 patches + 3,520 tokens);
+# MusicGen's MHA at D = 64
 MLA_SHAPE = (1, 4096, 128, 128, 192)
 LLAVA_SHAPE = (1, 4096, 32, 8, 128)
 MUSICGEN_SHAPE = (1, 4096, 24, 24, 64)
 MLA_V_DIM = 128
-# 24(a): kernels 4-6 at the three model shapes, then at D = 192: name,
-# (B, S, H, KV, D), window, (q, k) x; phases 10 and 13's harder softmaxes
-# at their shapes
+# 24(a): kernels 4-6 at the three model shapes, then at D = 192 (V padded
+# to it) and at (D, D_v) = (192, 128): name, (B, S, H, KV, D[, D_v]),
+# window, (q, k) x; phases 10 and 13's harder softmaxes at their shapes
 LAST_CASES = [
-    ("MLA model shape", MLA_SHAPE, None, (1.0, 1.0)),
+    ("MLA model shape", MLA_SHAPE + (MLA_V_DIM,), None, (1.0, 1.0)),
+    ("MLA model shape, V padded", MLA_SHAPE, None, (1.0, 1.0)),
     ("LLaVA model shape", LLAVA_SHAPE, None, (1.0, 1.0)),
     ("MusicGen model shape", MUSICGEN_SHAPE, None, (1.0, 1.0)),
     ("ragged S", (2, 1000, 16, 16, 192), None, (1.0, 1.0)),
     ("GQA", (1, 777, 8, 2, 192), None, (1.0, 1.0)),
     ("peaky softmax", (2, 1000, 16, 2, 192), None, (4.0, 4.0)),
     ("flat softmax", (1, 8192, 4, 1, 192), None, (0.05, 1.0)),
+    ("ragged S", (2, 1000, 16, 16, 192, 128), None, (1.0, 1.0)),
+    ("GQA", (1, 777, 8, 2, 192, 128), None, (1.0, 1.0)),
+    ("peaky softmax", (2, 1000, 16, 2, 192, 128), None, (4.0, 4.0)),
+    ("flat softmax", (1, 8192, 4, 1, 192, 128), None, (0.05, 1.0)),
+]
+# and (192, 128) with a query offset (26(a)'s check): name, (B, Sq, Sk, H,
+# KV, D, D_v), q_start, window, (q, k) x
+LAST_OFFSET_CASES = [
+    ("MLA seq block", (1, 1024, 4096, 32, 32, 192, 128), 2048, None,
+     (1.0, 1.0)),
 ]
 # 24(b): DeepSeek-V2 card vs CPU at the published MLA dims (kv_lora 512,
 # q_lora 1,536, 128 + 64 / 128: kernels 4-6 at D = 192) and expert width,
@@ -3186,15 +3223,17 @@ def mla_parity_config():
 def phase_last_families(dev, seed: int, zero_counts, read_counts, card: str,
                         profile=False) -> dict:
     """Phase 24: DeepSeek-V2's MLA, LLaVA-NeXT and MusicGen on the card:
-    (a) kernels 4-6 at the three models' shapes and at D = 192 against
-    their plain versions (LAST_CASES), then `run_families` on the three:
+    (a) kernels 4-6 at the three models' shapes, at D = 192 and at (D,
+    D_v) = (192, 128) against their plain versions (LAST_CASES,
+    LAST_OFFSET_CASES), then `run_families` on the three:
     card vs CPU at LAST_PARITY (MLA's narrowed by mla_parity_config),
     served and prefilled at full width (DeepSeek-V2 at MLA_SERVE's
     depth), trained at LAST_TRAIN's depth. Returns the by-path launch
     counts and what the kernels' line reports."""
     t0 = time.perf_counter()
-    res = {"paths": {}, "kernel_errors": check_flash_cases(
-        dev, seed + 91, LAST_CASES, "phase 24 kernels")}
+    res = {"paths": {}, "kernel_errors": {
+        **check_flash_cases(dev, seed + 91, LAST_CASES, "phase 24 kernels"),
+        **check_offset_cases(dev, seed + 92, LAST_OFFSET_CASES)}}
     log(f"[phase 24(a)] {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     models = [(tag, arch, mla_parity_config() if arch == MLA_ARCH
@@ -3779,17 +3818,30 @@ def phase_dist(seed: int, card: str) -> dict:
     `[dist*]` lines; returns the ranks' launch counts by path."""
     from repro_torch.distributed import mesh
     t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
     log(f"[dist] this process holds {torch.cuda.memory_allocated() / 1e9:.2f}"
         f" GB ({torch.cuda.memory_reserved() / 1e9:.2f} GB reserved) of "
         f"the card as the ranks start")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
-        work = Path(tmp)
-        t0 = time.perf_counter()
-        mesh.spawn(dist_rank, DIST_RANKS, work / "store", (str(work), seed),
-                   timeout_s=900)
-        ranks_s = time.perf_counter() - t0
-        reps = [json.loads((work / f"dist{r}.json").read_text())
-                for r in range(DIST_RANKS)]
+    # four ranks at ~18.5 GB each at 27's DeepSeek-V2 step leave ~1 GB of
+    # the card: their allocators grow segments in place, so that no
+    # segment cut to an earlier size leaves a later one (a 1.17 GiB AdamW
+    # temporary) without room
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+            work = Path(tmp)
+            t0 = time.perf_counter()
+            mesh.spawn(dist_rank, DIST_RANKS, work / "store",
+                       (str(work), seed), timeout_s=900)
+            ranks_s = time.perf_counter() - t0
+            reps = [json.loads((work / f"dist{r}.json").read_text())
+                    for r in range(DIST_RANKS)]
+    finally:
+        if conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
     ep0 = reps[0]["ep"]
     for name, arch, shape, names, B, S, _ in EP_CASES:
         n = int(np.prod(shape))
@@ -3929,14 +3981,17 @@ def offset_pairs(Sq: int, q_start: int) -> int:
 
 
 def offset_inputs(dev, gen, shape, dtype, mul=(1.0, 1.0)):
-    """q (B, H, Sq, D) and k, v (B, KV, Sk, D) as the model passes them
-    ((B, S, heads, D) storage), and dO like q."""
-    B, Sq, Sk, H, KV, D = shape
+    """q (B, H, Sq, D), k (B, KV, Sk, D) and v (B, KV, Sk, D_v) as the
+    model passes them ((B, S, heads, D) storage), and dO like o; shape
+    (B, Sq, Sk, H, KV, D[, D_v]) (D_v = D when absent)."""
+    B, Sq, Sk, H, KV, D = shape[:6]
+    Dv = shape[6] if len(shape) > 6 else D
 
-    def mk(S, n, m=1.0):
-        x = torch.randn((B, S, n, D), generator=gen, device=dev)
+    def mk(S, n, m=1.0, width=D):
+        x = torch.randn((B, S, n, width), generator=gen, device=dev)
         return (x * m).to(dtype).transpose(1, 2)
-    return mk(Sq, H, mul[0]), mk(Sk, KV, mul[1]), mk(Sk, KV), mk(Sq, H)
+    return (mk(Sq, H, mul[0]), mk(Sk, KV, mul[1]), mk(Sk, KV, width=Dv),
+            mk(Sq, H, width=Dv))
 
 
 def check_offset_cases(dev, seed: int, cases=None) -> dict:
@@ -7177,12 +7232,13 @@ PEAK_TOL = 0.05              # the predicted peak against the card's, of it
 ALLOC_ROUND = 512            # the caching allocator's rounding a tensor
 # a large block is split only when more than 1 MiB would be left over
 ALLOC_SLACK = 1 << 20
-DKV_SHAPES = [(b, B, H, KV, S, D) for b in (0, 1)
-              for B, H, KV, S, D in ((1, 16, 2, 4096, 128),
-                                     (1, 28, 4, 1024, 192),
-                                     (4, 16, 2, 4096, 128),
-                                     (1, 10, 1, 4096, 256),
-                                     (2, 24, 24, 333, 64))]
+DKV_SHAPES = [(b, B, H, KV, S, D, Dv) for b in (0, 1)
+              for B, H, KV, S, D, Dv in ((1, 16, 2, 4096, 128, 128),
+                                         (1, 28, 4, 1024, 192, 192),
+                                         (1, 16, 2, 4096, 192, 128),
+                                         (4, 16, 2, 4096, 128, 128),
+                                         (1, 10, 1, 4096, 256, 256),
+                                         (2, 24, 24, 333, 64, 64))]
 
 
 def held_bytes() -> tuple:
@@ -8134,26 +8190,34 @@ def main(argv=None) -> int:
     win = time_flash_kernels(dev, args.seed + 73, flush, card,
                              WINDOW_SHAPE[:5], "window", WINDOW_SHAPE[5])
     w16, w32 = win["bfloat16"], win["float32"]
-    # and at phase 24's model shapes: MLA's D = 192 (V padded; SDPA also
-    # on the unpadded V), LLaVA's GQA at D = 128 and MusicGen's D = 64
+    # and at phase 24's model shapes: MLA's (192, 128), the path's
+    # instance (SDPA on the same unpadded V), and bf16 the padded (192,
+    # 192) instance beside it (SDPA also on the unpadded V); LLaVA's GQA
+    # at D = 128 and MusicGen's D = 64
     mla_t = time_flash_kernels(dev, args.seed + 93, flush, card, MLA_SHAPE,
-                               "mla kernels", v_dim=MLA_V_DIM)
+                               "mla kernels", dv=MLA_V_DIM)
     m16, m32 = mla_t["bfloat16"], mla_t["float32"]
-    # kernel 4 at MLA's (B, S, H, KV) at D = 128, 192 and 256, bf16: two
-    # consumer warpgroups share a CTA's K/V tiles up to D = 128, one works
-    # alone above it
+    m_pad = time_flash_kernels(dev, args.seed + 93, flush, card, MLA_SHAPE,
+                               "mla kernels, V padded", v_dim=MLA_V_DIM,
+                               dtypes=(torch.bfloat16,))["bfloat16"]
+    # kernel 4 at MLA's (B, S, H, KV) at (D, D_v) = (128, 128), (192, 192),
+    # (256, 256) and (192, 128), bf16: two consumer warpgroups share a
+    # CTA's K/V tiles but at (256, 256), which keeps one
     mla_by_d = {}
-    for D in (128, 192, 256):
+    for D, Dv in ((128, 128), (192, 192), (256, 256), (192, MLA_V_DIM)):
         gen = torch.Generator(device=dev)
         gen.manual_seed(args.seed + 99)
-        q, k, v = flash_inputs(dev, gen, *MLA_SHAPE[:4], D, torch.bfloat16)
-        mla_by_d[D] = time_ms(lambda: flash_attention(q, k, v), flush=flush)
+        q, k, v = flash_inputs(dev, gen, *MLA_SHAPE[:4], D, torch.bfloat16,
+                               dv=Dv)
+        mla_by_d[f"{D}, {Dv}"] = (time_ms(lambda: flash_attention(q, k, v),
+                                          flush=flush), D + Dv)
         del q, k, v
     pairs = MLA_SHAPE[0] * MLA_SHAPE[2] * MLA_SHAPE[1] ** 2
     log(f"[time mla kernels by head dim] flash_attention bf16 at (B, S, H, "
         f"KV) = {MLA_SHAPE[:4]}: " + ", ".join(
-            f"D = {D} {ms:.4f} ms ({2 * pairs * D / ms / 1e9:.1f} TFLOP/s)"
-            for D, ms in mla_by_d.items()) + f" on {card}")
+            f"({d}) {ms:.4f} ms ({pairs * w / ms / 1e9:.1f} TFLOP/s)"
+            for d, (ms, w) in mla_by_d.items()) + f" on {card}")
+    mla_by_d = {d: ms for d, (ms, _) in mla_by_d.items()}
     by_model = {"llava": time_flash_kernels(
                     dev, args.seed + 97, flush, card, LLAVA_SHAPE,
                     "llava kernels", dtypes=(torch.bfloat16,))["bfloat16"],
@@ -8392,10 +8456,14 @@ def main(argv=None) -> int:
          "bound_ms_window_fp32": w32["fwd"][2],
          "library_ms_window_fp32": w32["lib"][0],
          "window_errors_by_case": window_errs_by_case, "families": fam,
-         "mla_shape": list(MLA_SHAPE), "max_abs_err_mla": last_errs("o"),
+         "mla_shape": list(MLA_SHAPE), "mla_v_dim": MLA_V_DIM,
+         "max_abs_err_mla": last_errs("o"),
          "ms_mla": m16["fwd"][0], "plain_ms_mla": m16["fwd"][1],
          "bound_ms_mla": m16["fwd"][2], "library_ms_mla": m16["lib"][0],
-         "library_ms_mla_unpadded_v": m16["lib_unpadded_v"],
+         "ms_mla_padded": m_pad["fwd"][0],
+         "bound_ms_mla_padded": m_pad["fwd"][2],
+         "library_ms_mla_padded": m_pad["lib"][0],
+         "library_ms_mla_unpadded_v": m_pad["lib_unpadded_v"],
          "ms_mla_fp32": m32["fwd"][0], "plain_ms_mla_fp32": m32["fwd"][1],
          "bound_ms_mla_fp32": m32["fwd"][2],
          "library_ms_mla_fp32": m32["lib"][0],
@@ -8431,6 +8499,7 @@ def main(argv=None) -> int:
          "max_abs_err_mla": max(last_errs("o_lse"), last_errs("lse")),
          "ms_mla": m16["lse"][0], "plain_ms_mla": m16["lse"][1],
          "bound_ms_mla": m16["lse"][2], "library_ms_mla": m16["lib"][0],
+         "ms_mla_padded": m_pad["lse"][0],
          "ms_mla_fp32": m32["lse"][0], "plain_ms_mla_fp32": m32["lse"][1],
          "bound_ms_mla_fp32": m32["lse"][2],
          **model_keys("lse"), **offset_keys("lse"),
@@ -8481,6 +8550,9 @@ def main(argv=None) -> int:
             "backward_plain_ms_window_fp32": w32["bwd"][1],
             "backward_library_ms_window_fp32": w32["lib"][1],
             "ms_mla": m16[part][0], "bound_ms_mla": m16[part][1],
+            "ms_mla_padded": m_pad[part][0],
+            "backward_ms_mla_padded": m_pad["bwd"][0],
+            "backward_library_ms_mla_padded": m_pad["lib"][1],
             "ms_mla_fp32": m32[part][0],
             "max_rel_err_mla": max(
                 last_errs(n) for n in (("dk", "dv") if part == "dkv"

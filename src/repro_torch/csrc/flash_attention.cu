@@ -26,23 +26,30 @@
 // forward of `flash_attention_trainable`, which the training path runs in
 // every layer. Without it the kernel is the prefill's.
 //
-// Bound on the H100: operations. The causal product is 2*B*H*S^2*D flops;
-// the function reads q, k, v once and writes o once, so from S of a few
-// hundred on it does far more arithmetic than the card can feed from
-// memory. Two designs, one per input type:
+// Head dims: q and k are D_qk wide, v and o D_v wide. The instances are
+// the pairs (D, D) for D in {64, 128, 192, 256} and (192, 128), DeepSeek-
+// V2's MLA (128 + 64 for q and k, 128 for v: S = Q K^T runs at 192, P V
+// at 128, and V and O are never padded).
+//
+// Bound on the H100: operations. The causal products are B*H*S^2*(D_qk +
+// D_v) flops; the function reads q, k, v once and writes o once, so from
+// S of a few hundred on it does far more arithmetic than the card can
+// feed from memory. Two designs, one per input type:
 //
 // bf16 (`flash_attention_wgmma_kernel`, the path's; Hopper tensor cores):
 //   - one block per (128 query rows, query head, batch row): two consumer
-//     warpgroups of 64 rows each share every K/V tile (above D = 128 one
-//     consumer warpgroup and 64 rows: its O accumulator alone is 96
-//     registers a thread at D = 192, 128 at D = 256), plus a producer
-//     warpgroup, which hands its
-//     registers to the consumers (setmaxnreg: 24 and 240 of the 168 a
-//     thread the block starts with); the blocks with the most key tiles
-//     launch first (heads vary fastest in the grid, so this holds across
-//     heads);
+//     warpgroups of 64 rows each share every K/V tile, plus a producer
+//     warpgroup, which hands its registers to the consumers (setmaxnreg:
+//     24 and 240 of the 168 a thread the block starts with); the blocks
+//     with the most key tiles launch first (heads vary fastest in the
+//     grid, so this holds across heads). A consumer's registers at BK
+//     keys: O is D_v / 2, the scores BK / 2, P_hi + P_lo BK / 2: 192 at
+//     (128, 128) and (192, 128) with BK = 128, 160 at (192, 192) with
+//     BK = 64. At (256, 256) (192 of them) ptxas spilled, so that
+//     instance keeps one consumer warpgroup of 64 rows and no producer
+//     hand-over (up to 255 registers a thread);
 //   - one producer thread loads Q once and K and V tiles of BK keys (128
-//     at D <= 128, 64 above) into a 2-stage ring with TMA (128-byte
+//     at D_v <= 128, 64 above) into a 2-stage ring with TMA (128-byte
 //     swizzle, tensor maps over the model's (B, S, heads, D) strides); K
 //     and V have `full` and `empty` mbarriers of their own, since a K
 //     tile is free once its scores are in and a V tile only one step
@@ -61,9 +68,8 @@
 //     and exp2 of -inf is 0);
 //     exp2f of s * (scale * log2 e) - m, with m kept in log2 units (the
 //     lse is turned back to natural log at the end);
-//   - O += P V with wgmma m64nDk16 (N = 192, DeepSeek-V2's MLA head dim
-//     with V padded to it, is an instance of its own in hopper.cuh): P is
-//     fed from registers as the A
+//   - O += P V with wgmma m64nD_vk16 (N = 64, 128, 192 or 256, each an
+//     instance of its own in hopper.cuh): P is fed from registers as the A
 //     operand (the accumulator layout, packed in bf16 pairs, is the
 //     A-fragment layout), V as an MN-major B operand from shared memory
 //     (the transpose-B bit); O is rescaled by each row's alpha first;
@@ -91,7 +97,7 @@
 //   ping-pong between the warpgroups and no TMA multicast across blocks
 //   that share a KV head yet.
 //
-// fp32 (`flash_attention_kernel<D, LSE>`): every operation in fp32
+// fp32 (`flash_attention_kernel<D_qk, D_v, LSE>`): every operation in fp32
 // on the CUDA cores, as the TPU kernel's contract asks (the scale before
 // the product, an fp32 running max, denominator and accumulator); TF32
 // would round to 10 mantissa bits and break the fp32 tolerance (2e-5).
@@ -99,10 +105,11 @@
 //   - one block of 256 threads per (64-row query block, query head, batch
 //     row); the query blocks with the most key blocks are launched first;
 //   - the scaled query tile stays in shared memory as fp32; key and value
-//     tiles of 64 rows pass in turn through one shared fp32 tile, so that
-//     two blocks fit on an SM at D = 128;
+//     tiles of 64 rows pass in turn through one shared fp32 tile (D_qk
+//     wide, V in its first D_v columns), so that two blocks fit on an SM
+//     at D = 128;
 //   - each thread owns 4 query rows: a 4 x 4 tile of the scores
-//     (columns tx + 16 j) and a 4 x D/16 tile of the accumulator (float4
+//     (columns tx + 16 j) and a 4 x D_v/16 tile of the accumulator (float4
 //     columns 4 tx + 64 j), with that rows' running max and denominator
 //     in registers, kept the same in the 16 threads of a row through
 //     shuffles;
@@ -136,9 +143,12 @@ using hopper::allow_smem;
 using hopper::make_map;
 using hopper::Strides;
 
-template <int D>
+// the Q tile, one K/V tile (D_qk wide; V fills its first D_v columns)
+// and the P tile, fp32 with padded rows
+template <int DQK, int DV>
 constexpr int smem_bytes() {
-  return (kBQ * (D + 4) + kBK * (D + 4) + kBQ * (kBK + 4)) * 4;
+  static_assert(DV <= DQK, "V passes through the K tile");
+  return (kBQ * (DQK + 4) + kBK * (DQK + 4) + kBQ * (kBK + 4)) * 4;
 }
 
 static_assert(kBQ == kBK, "load_tile loads the Q and K/V tiles alike");
@@ -157,17 +167,18 @@ __device__ __forceinline__ void load_tile(float* tile, const float* x,
   }
 }
 
-template <int D, bool LSE>
-__global__ void __launch_bounds__(kThreads, D <= 128 ? 2 : 1)
+template <int DQK, int DV, bool LSE>
+__global__ void __launch_bounds__(kThreads, DQK <= 128 ? 2 : 1)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
                        float* __restrict__ lse, Strides qs, Strides ks,
                        Strides vs, Strides os, int Sq, int Sk, int qoff,
                        int rep, int causal, int window, float scale) {
-  constexpr int LD = D + 4;        // padded row of the Q and K/V tiles
+  constexpr int LD = DQK + 4;      // padded row of the Q and K tiles
+  constexpr int LV = DV + 4;       // and of the V tile
   constexpr int LP = kBK + 4;      // padded row of the P tile
-  constexpr int NJ = D / 64;       // float4 column groups of O per thread
+  constexpr int NJ = DV / 64;      // float4 column groups of O per thread
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* KVs = Qs + kBQ * LD;
@@ -183,7 +194,7 @@ flash_attention_kernel(const float* __restrict__ q,
   const int p0 = qoff + q0;
   const int h = blockIdx.y, b = blockIdx.z;
 
-  load_tile<D>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, Sq, scale);
+  load_tile<DQK>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, Sq, scale);
 
   float m[4], l[4], acc[4][4 * NJ];
 #pragma unroll
@@ -200,9 +211,9 @@ flash_attention_kernel(const float* __restrict__ q,
   for (int kb = kb0; kb < n_kb; ++kb) {
     const int k0 = kb * kBK;
     __syncthreads();               // Qs is written; KVs and Ps are free
-    load_tile<D>(KVs, k + (long long)blockIdx.z * ks.b +
-                          (long long)(blockIdx.y / rep) * ks.h,
-                 ks.s, k0, Sk, 1.f);
+    load_tile<DQK>(KVs, k + (long long)blockIdx.z * ks.b +
+                            (long long)(blockIdx.y / rep) * ks.h,
+                   ks.s, k0, Sk, 1.f);
     __syncthreads();
 
     // scores of rows 4 ty + i against keys tx + 16 j
@@ -212,7 +223,7 @@ flash_attention_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < DQK; d += 4) {
       float4 qv[4], kv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -267,9 +278,9 @@ flash_attention_kernel(const float* __restrict__ q,
       for (int c = 0; c < 4 * NJ; ++c) acc[i][c] *= alpha;
     }
     __syncthreads();               // every read of the K tile is done
-    load_tile<D>(KVs, v + (long long)blockIdx.z * vs.b +
-                          (long long)(blockIdx.y / rep) * vs.h,
-                 vs.s, k0, Sk, 1.f);
+    load_tile<DV>(KVs, v + (long long)blockIdx.z * vs.b +
+                           (long long)(blockIdx.y / rep) * vs.h,
+                  vs.s, k0, Sk, 1.f);
     __syncthreads();
 
     // acc += P V over the tile's 64 keys
@@ -281,7 +292,7 @@ flash_attention_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const float4 vv =
-            *reinterpret_cast<const float4*>(&KVs[c * LD + 4 * tx + 64 * j]);
+            *reinterpret_cast<const float4*>(&KVs[c * LV + 4 * tx + 64 * j]);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           acc[i][4 * j + 0] = fmaf(p[i], vv.x, acc[i][4 * j + 0]);
@@ -312,27 +323,32 @@ flash_attention_kernel(const float* __restrict__ q,
 }
 
 // ------------------------------------------- bf16: wgmma, TMA, mbarriers
-template <int D>
-struct Wg {                          // the tensor-core kernel's shape at D
-  // consumer warpgroups, 64 query rows each: one above D = 128, where the
-  // O accumulator alone is 96 (D = 192) or 128 (D = 256) registers a
-  // thread
-  static constexpr int kWGs = D <= 128 ? 2 : 1;
+template <int DQK, int DV>
+struct Wg {                  // the tensor-core kernel's shape at (D_qk, D_v)
+  // consumer warpgroups, 64 query rows each, sharing every K/V tile; one
+  // at D_v = 256, where two (O 128, the scores 32 and P_hi + P_lo 32
+  // registers a thread of their 240) spilled 12 B in ptxas
+  static constexpr int kWGs = DV <= 192 ? 2 : 1;
   static constexpr int kBQ = 64 * kWGs;             // query rows per block
-  static constexpr int kBK = D <= 128 ? 128 : 64;   // keys per K/V tile
-  static constexpr int kCols = D / 64;              // 128-byte column blocks
+  // keys per K/V tile: 128 while O (D_v / 2 registers a thread) leaves
+  // room for 128 keys of scores and P_hi + P_lo, 64 above
+  static constexpr int kBK = DV <= 128 ? 128 : 64;
+  static constexpr int kQCols = DQK / 64;           // 128-byte column blocks
+  static constexpr int kVCols = DV / 64;
   static constexpr int kThreads = 128 * (kWGs + 1); // + the producer's
-  static constexpr int kQBytes = kBQ * D * 2;
-  static constexpr int kTileBytes = kBK * D * 2;    // one K or one V tile
+  static constexpr int kQBytes = kBQ * DQK * 2;
+  static constexpr int kKBytes = kBK * DQK * 2;     // one K tile
+  static constexpr int kVBytes = kBK * DV * 2;      // one V tile
+  static constexpr int kStageBytes = kKBytes + kVBytes;
   static constexpr int kStages = 2;
   // Q, the ring of K and V tiles, 9 mbarriers, 1,024 bytes of alignment
   // slack
-  static constexpr int kSmem =
-      1024 + kQBytes + kStages * 2 * kTileBytes + 128;
-  // without a query offset the first key of a block's last causal tile is
-  // at most its first row, so no warpgroup meets a tile wholly in its
-  // future (with one, such a tile's scores are all masked)
-  static_assert(kBK % kBQ == 0, "key tiles must cover whole query blocks");
+  static constexpr int kSmem = 1024 + kQBytes + kStages * kStageBytes + 128;
+  static_assert(DV <= DQK, "o is staged in the Q tile");
+  static_assert(kSmem <= 232448, "more shared memory than a block has");
+  // with BK < BQ (D_v > 128) a block's last causal tile may lie wholly in
+  // its first warpgroup's future (as with a query offset): its scores are
+  // all masked, and after the row's own keys that adds p = 0
 };
 
 // with two consumer warpgroups a block starts at 168 registers a thread
@@ -351,10 +367,10 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&r);
 }
 
-// starts O += P_hi V + P_lo V: P (64 x BK) from registers, V (BK x D)
+// starts O += P_hi V + P_lo V: P (64 x BK) from registers, V (BK x DV)
 // MN-major
-template <int D, int BK>
-__device__ __forceinline__ void start_pv(float (&acc)[D / 2],
+template <int DV, int BK>
+__device__ __forceinline__ void start_pv(float (&acc)[DV / 2],
                                          const uint32_t (&hi)[BK / 4],
                                          const uint32_t (&lo)[BK / 4],
                                          uint32_t v_addr) {
@@ -366,8 +382,8 @@ __device__ __forceinline__ void start_pv(float (&acc)[D / 2],
                               hi[4 * kk + 3]};
     const uint32_t a_lo[4] = {lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2],
                               lo[4 * kk + 3]};
-    hopper::wgmma_rs_tb<D>(acc, a_hi, vd);
-    hopper::wgmma_rs_tb<D>(acc, a_lo, vd);
+    hopper::wgmma_rs_tb<DV>(acc, a_hi, vd);
+    hopper::wgmma_rs_tb<DV>(acc, a_lo, vd);
   }
 }
 
@@ -433,8 +449,8 @@ __device__ __forceinline__ void split_p(const float (&p)[BK / 2],
     split_bf16(p[2 * i], p[2 * i + 1], hi[i], lo[i]);
 }
 
-template <int D, bool LSE>
-__global__ void __launch_bounds__(Wg<D>::kThreads, 1)
+template <int DQK, int DV, bool LSE>
+__global__ void __launch_bounds__(Wg<DQK, DV>::kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                              const __grid_constant__ CUtensorMap kmap,
                              const __grid_constant__ CUtensorMap vmap,
@@ -443,14 +459,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                              int Sk, int qoff, int rep, int causal,
                              int window, float scale_log2) {
   using namespace hopper;
-  using C = Wg<D>;
+  using C = Wg<DQK, DV>;
   constexpr int BQ = C::kBQ, BK = C::kBK, NS = C::kStages;
   extern __shared__ uint8_t smem_raw[];
   // 1,024-byte alignment, so that the 128-byte swizzle's rows line up
   uint8_t* const Qs = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint8_t* const KVs = Qs + C::kQBytes;  // stage s: K, then V
   uint64_t* const full_k = reinterpret_cast<uint64_t*>(
-      KVs + NS * 2 * C::kTileBytes);
+      KVs + NS * C::kStageBytes);
   uint64_t* const full_v = full_k + NS;
   uint64_t* const empty_k = full_v + NS;
   uint64_t* const empty_v = empty_k + NS;
@@ -486,21 +502,21 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     if constexpr (C::kWGs == 2) setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 128 * C::kWGs) {
       mbar_expect_tx(qbar, C::kQBytes);
-      for (int c = 0; c < C::kCols; ++c)
+      for (int c = 0; c < C::kQCols; ++c)
         tma_load_4d(Qs + c * BQ * 128, &qmap, qbar, 64 * c, q0, h, b);
       for (int t = 0; t < n_kb; ++t) {
         const int s = t % NS;
         const uint32_t parity = (t / NS - 1) & 1;
-        uint8_t* Ks = KVs + s * 2 * C::kTileBytes;
-        uint8_t* Vs = Ks + C::kTileBytes;
+        uint8_t* Ks = KVs + s * C::kStageBytes;
+        uint8_t* Vs = Ks + C::kKBytes;
         if (t >= NS) mbar_wait(&empty_k[s], parity);
-        mbar_expect_tx(&full_k[s], C::kTileBytes);
-        for (int c = 0; c < C::kCols; ++c)
+        mbar_expect_tx(&full_k[s], C::kKBytes);
+        for (int c = 0; c < C::kQCols; ++c)
           tma_load_4d(Ks + c * BK * 128, &kmap, &full_k[s], 64 * c,
                       (kb0 + t) * BK, g, b);
         if (t >= NS) mbar_wait(&empty_v[s], parity);
-        mbar_expect_tx(&full_v[s], C::kTileBytes);
-        for (int c = 0; c < C::kCols; ++c)
+        mbar_expect_tx(&full_v[s], C::kVBytes);
+        for (int c = 0; c < C::kVCols; ++c)
           tma_load_4d(Vs + c * BK * 128, &vmap, &full_v[s], 64 * c,
                       (kb0 + t) * BK, g, b);
       }
@@ -520,11 +536,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int col = 2 * (lane % 4);       // its first column of each 8
   const uint32_t q_addr = smem_addr(Qs) + 64 * wg * 128;
   const uint32_t kv_addr = smem_addr(KVs);
-  auto k_addr = [&](int t) { return kv_addr + (t % NS) * 2 * C::kTileBytes; };
+  auto k_addr = [&](int t) { return kv_addr + (t % NS) * C::kStageBytes; };
 
-  float acc[D / 2];
+  float acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f}, alpha[2];  // m: log2 units
   float sc[BK / 2];
   uint32_t hi[BK / 4], lo[BK / 4];
@@ -534,7 +550,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   mbar_wait(&full_k[0], 0);
   fence_operands(sc);
   wgmma_fence();
-  ss_kmajor<D, BK, BQ, BK>(sc, q_addr, k_addr(0));
+  ss_kmajor<DQK, BK, BQ, BK>(sc, q_addr, k_addr(0));
   wgmma_commit();
   wgmma_wait<0>();
   fence_operands(sc);
@@ -554,10 +570,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     fence_operands(sc);
     fence_operands(acc);
     wgmma_fence();
-    ss_kmajor<D, BK, BQ, BK>(sc, q_addr, k_addr(t));
+    ss_kmajor<DQK, BK, BQ, BK>(sc, q_addr, k_addr(t));
     wgmma_commit();
     wgmma_fence();
-    start_pv<D, BK>(acc, hi, lo, k_addr(t - 1) + C::kTileBytes);
+    start_pv<DV, BK>(acc, hi, lo, k_addr(t - 1) + C::kKBytes);
     wgmma_commit();
     wgmma_wait<1>();                   // the scores are in
     fence_operands(sc);
@@ -570,7 +586,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty_v[(t - 1) % NS]);
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
+    for (int i = 0; i < DV / 8; ++i) {
       acc[4 * i + 0] *= alpha[0];
       acc[4 * i + 1] *= alpha[0];
       acc[4 * i + 2] *= alpha[1];
@@ -582,7 +598,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   mbar_wait(&full_v[(n_kb - 1) % NS], ((n_kb - 1) / NS) & 1);
   fence_operands(acc);
   wgmma_fence();
-  start_pv<D, BK>(acc, hi, lo, k_addr(n_kb - 1) + C::kTileBytes);
+  start_pv<DV, BK>(acc, hi, lo, k_addr(n_kb - 1) + C::kKBytes);
   wgmma_commit();
   wgmma_wait<0>();
   fence_operands(acc);
@@ -599,10 +615,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           m[r] * kLn2 + logf(den[r]);
   }
   // the rows go through this warpgroup's rows of the Q tile (its last
-  // Q K^T has completed), in the same swizzled layout, then out in 16-byte
-  // stores
+  // Q K^T has completed; D_v <= D_qk), in the same swizzled layout, then
+  // out in 16-byte stores
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
+  for (int i = 0; i < DV / 8; ++i)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int R = r_in + 8 * r;
@@ -612,7 +628,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                                acc[4 * i + 2 * r + 1] / den[r]);
     }
   asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
-  constexpr int kChunks = D / 8;        // 16-byte chunks in a row
+  constexpr int kChunks = DV / 8;       // 16-byte chunks in a row
   __nv_bfloat16* op = o + b * os.b + h * os.h;
   for (int idx = threadIdx.x % 128; idx < 64 * kChunks; idx += 128) {
     const int R = 64 * wg + idx / kChunks, ch = idx % kChunks;
@@ -623,14 +639,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-template <int D, bool LSE>
+template <int DQK, int DV, bool LSE>
 int launch_fma(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int H, int KV, int Sq, int Sk, int qoff,
                int causal, int window, float scale, Strides qs, Strides ks,
                Strides vs, Strides os, cudaStream_t st) {
-  auto kernel = flash_attention_kernel<D, LSE>;
-  constexpr int bytes = smem_bytes<D>();
-  cudaError_t err = allow_smem<flash_attention_kernel<D, LSE>>(bytes);
+  auto kernel = flash_attention_kernel<DQK, DV, LSE>;
+  constexpr int bytes = smem_bytes<DQK, DV>();
+  cudaError_t err = allow_smem<flash_attention_kernel<DQK, DV, LSE>>(bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, bytes, st>>>(
@@ -639,19 +655,20 @@ int launch_fma(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-template <int D, bool LSE>
+template <int DQK, int DV, bool LSE>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  float* lse, int B, int H, int KV, int Sq, int Sk, int qoff,
                  int causal, int window, float scale, Strides qs, Strides ks,
                  Strides vs, Strides os, cudaStream_t st) {
-  using C = Wg<D>;
+  using C = Wg<DQK, DV>;
   CUtensorMap qm, km, vm;
-  int err = make_map(&qm, q, D, Sq, H, B, qs, C::kBQ);
-  if (!err) err = make_map(&km, k, D, Sk, KV, B, ks, C::kBK);
-  if (!err) err = make_map(&vm, v, D, Sk, KV, B, vs, C::kBK);
+  int err = make_map(&qm, q, DQK, Sq, H, B, qs, C::kBQ);
+  if (!err) err = make_map(&km, k, DQK, Sk, KV, B, ks, C::kBK);
+  if (!err) err = make_map(&vm, v, DV, Sk, KV, B, vs, C::kBK);
   if (err) return err;
-  auto kernel = flash_attention_wgmma_kernel<D, LSE>;
-  err = (int)allow_smem<flash_attention_wgmma_kernel<D, LSE>>(C::kSmem);
+  auto kernel = flash_attention_wgmma_kernel<DQK, DV, LSE>;
+  err = (int)allow_smem<flash_attention_wgmma_kernel<DQK, DV, LSE>>(
+      C::kSmem);
   if (err) return err;
   dim3 grid(H, (Sq + C::kBQ - 1) / C::kBQ, B);
   kernel<<<grid, C::kThreads, C::kSmem, st>>>(
@@ -660,24 +677,28 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// bf16 -> the tensor-core kernel, fp32 -> the FMA kernel, at head dim D
+// the instances' (D_qk, D_v) pairs, as one int
+constexpr int pair(int dqk, int dv) { return 1024 * dqk + dv; }
+
+// bf16 -> the tensor-core kernel, fp32 -> the FMA kernel, at (D, Dv)
 template <bool LSE>
 int launch_d(int bf16, const void* q, const void* k, const void* v, void* o,
              float* lse, int B, int H, int KV, int Sq, int Sk, int qoff,
-             int D, int causal, int window, float scale, Strides qs,
+             int D, int Dv, int causal, int window, float scale, Strides qs,
              Strides ks, Strides vs, Strides os, cudaStream_t st) {
-#define FLASH_LAUNCH(DIM)                                                    \
-  return bf16 ? launch_wgmma<DIM, LSE>(q, k, v, o, lse, B, H, KV, Sq, Sk,    \
-                                       qoff, causal, window, scale, qs, ks,  \
-                                       vs, os, st)                           \
-              : launch_fma<DIM, LSE>(q, k, v, o, lse, B, H, KV, Sq, Sk,      \
-                                     qoff, causal, window, scale, qs, ks,    \
-                                     vs, os, st)
-  switch (D) {
-    case 64: FLASH_LAUNCH(64);
-    case 128: FLASH_LAUNCH(128);
-    case 192: FLASH_LAUNCH(192);
-    case 256: FLASH_LAUNCH(256);
+#define FLASH_LAUNCH(DQK, DV)                                                \
+  return bf16 ? launch_wgmma<DQK, DV, LSE>(q, k, v, o, lse, B, H, KV, Sq,    \
+                                           Sk, qoff, causal, window, scale,  \
+                                           qs, ks, vs, os, st)               \
+              : launch_fma<DQK, DV, LSE>(q, k, v, o, lse, B, H, KV, Sq, Sk,  \
+                                         qoff, causal, window, scale, qs,    \
+                                         ks, vs, os, st)
+  switch (pair(D, Dv)) {
+    case pair(64, 64): FLASH_LAUNCH(64, 64);
+    case pair(128, 128): FLASH_LAUNCH(128, 128);
+    case pair(192, 192): FLASH_LAUNCH(192, 192);
+    case pair(256, 256): FLASH_LAUNCH(256, 256);
+    case pair(192, 128): FLASH_LAUNCH(192, 128);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FLASH_LAUNCH
@@ -685,22 +706,23 @@ int launch_d(int bf16, const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// q, o: (B, H, Sq, D); k, v: (B, KV, Sk, D), q's row i at position
-// q_start + i, with q_start >= 0 and q_start + Sq <= Sk; fp32 (bf16 == 0,
-// the FMA kernel) or bf16 (bf16 == 1, the tensor-core kernel); D in {64,
-// 128, 192, 256}; H % KV == 0; each tensor's batch, head and sequence
+// q: (B, H, Sq, D), k: (B, KV, Sk, D), v: (B, KV, Sk, Dv), o: (B, H, Sq,
+// Dv), q's row i at position q_start + i, with q_start >= 0 and q_start +
+// Sq <= Sk; fp32 (bf16 == 0, the FMA kernel) or bf16 (bf16 == 1, the
+// tensor-core kernel); (D, Dv) in {(64, 64), (128, 128), (192, 192), (256,
+// 256), (192, 128)}; H % KV == 0; each tensor's batch, head and sequence
 // strides in elements, its last axis dense; for bf16 every base 16-byte
 // aligned and every stride of an axis longer than 1 a multiple of 8. lse:
 // null (the forward alone, kernel 4) or a dense fp32 (B, H, Sq) array for
 // the rows' logsumexp (kernel 5). window: the sliding window W >= 1
 // (causal only) or 0 for none. Launches on `stream` and returns a
-// cudaError_t (cudaErrorInvalidValue for a head dimension it has no
+// cudaError_t (cudaErrorInvalidValue for a head-dim pair it has no
 // instance for, a window without causal, or an offset or lengths out of
 // range).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int bf16, int B, int H, int KV, int Sq, int Sk, int q_start, int D,
-    int causal, int window, float scale,
+    int Dv, int causal, int window, float scale,
     long long q_sb,
     long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss,
@@ -714,19 +736,24 @@ extern "C" int flash_attention_launch(
   cudaStream_t st = (cudaStream_t)stream;
   float* l = (float*)lse;
   return l ? launch_d<true>(bf16, q, k, v, o, l, B, H, KV, Sq, Sk, q_start,
-                            D, causal, window, scale, qs, ks, vs, os, st)
+                            D, Dv, causal, window, scale, qs, ks, vs, os, st)
            : launch_d<false>(bf16, q, k, v, o, l, B, H, KV, Sq, Sk, q_start,
-                             D, causal, window, scale, qs, ks, vs, os, st);
+                             D, Dv, causal, window, scale, qs, ks, vs, os,
+                             st);
 }
 
-// dynamic shared memory of one block of the kernel for (bf16, D), in bytes
-// (0 for a head dimension it has no instance for)
-extern "C" int flash_attention_smem_bytes(int bf16, int D) {
-  switch (D) {
-    case 64: return bf16 ? Wg<64>::kSmem : smem_bytes<64>();
-    case 128: return bf16 ? Wg<128>::kSmem : smem_bytes<128>();
-    case 192: return bf16 ? Wg<192>::kSmem : smem_bytes<192>();
-    case 256: return bf16 ? Wg<256>::kSmem : smem_bytes<256>();
+// dynamic shared memory of one block of the kernel for (bf16, D, Dv), in
+// bytes (0 for a pair it has no instance for)
+extern "C" int flash_attention_smem_bytes(int bf16, int D, int Dv) {
+#define FLASH_SMEM(DQK, DV) \
+  return bf16 ? Wg<DQK, DV>::kSmem : smem_bytes<DQK, DV>()
+  switch (pair(D, Dv)) {
+    case pair(64, 64): FLASH_SMEM(64, 64);
+    case pair(128, 128): FLASH_SMEM(128, 128);
+    case pair(192, 192): FLASH_SMEM(192, 192);
+    case pair(256, 256): FLASH_SMEM(256, 256);
+    case pair(192, 128): FLASH_SMEM(192, 128);
     default: return 0;
   }
+#undef FLASH_SMEM
 }

@@ -132,6 +132,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // accumulator of a 64 x N product is N / 2 floats a thread: thread t of
 // warp w holds rows 16 w + t / 4 (d[4 i], d[4 i + 1]) and 16 w + t / 4 + 8
 // (d[4 i + 2], d[4 i + 3]), columns 8 i + 2 (t % 4) and the next one.
+// The flash kernels' instances: from shared memory (ss), N = 64 or 128,
+// the scores S = Q K^T over a key tile and the backward's S^T, dP^T and
+// dP over 64 rows; from registers (rs), N = 64 .. 256, the products
+// whose output is a head dim wide: P V and dV at D_v, dK and dQ at D
+// (at MLA's (D, D_v) = (192, 128): n128 for P V and dV, n192 for dK and
+// dQ).
 
 // d (64 x 64, fp32) += a (64 x 16) b (16 x 64), both bf16 in shared memory
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,

@@ -47,15 +47,15 @@ SIGNATURES = {
     "spike_matmul": {"spike_matmul_launch":
                      [_P, _P, _I, _P, _P] + [_I] * 6 + [_P]},
     "flash_attention": {"flash_attention_launch":
-                        [_P] * 5 + [_I] * 10 + [_F] + [_I64] * 12 + [_P],
-                        "flash_attention_smem_bytes": [_I, _I]},
+                        [_P] * 5 + [_I] * 11 + [_F] + [_I64] * 12 + [_P],
+                        "flash_attention_smem_bytes": [_I] * 3},
     "flash_attention_bwd": {
-        "flash_bwd_dkv_launch": [_P] * 8 + [_I] * 11 + [_F] + [_I64] * 12
+        "flash_bwd_dkv_launch": [_P] * 8 + [_I] * 12 + [_F] + [_I64] * 12
         + [_P],
-        "flash_bwd_dq_launch": [_P] * 7 + [_I] * 10 + [_F] + [_I64] * 15
+        "flash_bwd_dq_launch": [_P] * 7 + [_I] * 11 + [_F] + [_I64] * 15
         + [_P],
-        "flash_bwd_dkv_chunks": [_I] * 6,
-        "flash_bwd_smem_bytes": [_I] * 3},
+        "flash_bwd_dkv_chunks": [_I] * 7,
+        "flash_bwd_smem_bytes": [_I] * 4},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

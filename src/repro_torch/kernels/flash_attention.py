@@ -17,18 +17,19 @@ any-length interface of `repro.kernels.ops.flash_attention`):
     forward is `flash_fwd_lse` and whose backward is
     `flash_attention_bwd`, saving (q, k, v, o, lse) as JAX's `_fat_fwd`.
 
-q is (B, H, S, D); k and v are (B, KV, S, D) with H % KV == 0 (Sq and
-Sk rows with an offset, below), query
-head h reading KV head h // (H / KV) — the grouping of
-`repro.models.attention._sdpa`, so the model's narrow K/V go in without
-being repeated; KV == H is the TPU kernels' function. dK and dV come back
-as (B, KV, S, D), each summed over its group's H / KV query heads. lse
-is dense fp32 (B, H, S) (JAX keeps it as (B*H, S)). Any strides with a
+q is (B, H, S, D); k is (B, KV, S, D) and v (B, KV, S, D_v) with H % KV
+== 0 (Sq and Sk rows with an offset, below), query head h reading KV
+head h // (H / KV) — the grouping of `repro.models.attention._sdpa`, so
+the model's narrow K/V go in without being repeated; KV == H is the TPU
+kernels' function. o is (B, H, S, D_v). dK and dV come back as k's and
+v's shapes, each summed over its group's H / KV query heads. lse is
+dense fp32 (B, H, S) (JAX keeps it as (B*H, S)). Any strides with a
 dense last axis: the model passes its (B, S, H, D) projections through
-`.transpose(1, 2)`, and o and dq keep q's strides. Any S >= 1: the
-kernels mask their ragged tail where the TPU wrapper padded S. D in
-{64, 128, 192, 256} (192: DeepSeek-V2's MLA, 128 + 64 with V padded),
-fp32 or bf16.
+`.transpose(1, 2)`, and o and dq keep q's layout (o's axes in q's
+order at its own last dim). Any S >= 1: the kernels mask their ragged
+tail where the TPU wrapper padded S. D = D_v in {64, 128, 192, 256}, or
+(D, D_v) = (192, 128), DeepSeek-V2's MLA (q and k 128 + 64, v 128: its V
+is never padded); fp32 or bf16.
 
 `window` (an int >= 1, causal only; None for none) is the sliding window
 of `repro.models.attention._sdpa`: query i sees keys i - window < j <= i
@@ -94,20 +95,26 @@ from repro_torch.kernels.ref import (flash_attention_bwd_ref,
 from repro_torch.launch import op_analysis
 
 HEAD_DIMS = (64, 128, 192, 256)
+# the (D, D_v) pairs with D_v != D that have instances (csrc): MLA's
+HEAD_DIM_PAIRS = ((192, 128),)
 # the dK/dV tensor-core kernel's shape (csrc/flash_attention_bwd.cu): keys
-# a block (64 above D = 128, 128 at and below) and the blocks it wants
-DKV_KEYS = {64: 128, 128: 128, 192: 64, 256: 64}
+# a block at (D, D_v) (64 where its warpgroups split dK and dV, 128 where
+# each holds both) and the blocks it wants
+DKV_KEYS = {(64, 64): 128, (128, 128): 128, (192, 192): 64, (256, 256): 64,
+            (192, 128): 128}
 DKV_MIN_BLOCKS = 256
 
 
-def dkv_chunks(bf16: bool, B: int, H: int, KV: int, Sk: int, D: int) -> int:
+def dkv_chunks(bf16: bool, B: int, H: int, KV: int, Sk: int, D: int,
+               Dv: int | None = None) -> int:
     """`flash_bwd_dkv_chunks`: the dK/dV partials' chunk count, one per
     query head of a group in fp32; in bf16 the fewest chunks of the
-    group's H / KV heads (a divisor) that give DKV_MIN_BLOCKS blocks."""
+    group's H / KV heads (a divisor) that give DKV_MIN_BLOCKS blocks (Dv:
+    v's head dim, D when None)."""
     rep = H // KV
     if not bf16:
         return rep
-    keys = DKV_KEYS[D]
+    keys = DKV_KEYS[(D, Dv or D)]
     base = B * KV * (-(-Sk // keys))
     for c in range(1, rep):
         if rep % c == 0 and base * c >= DKV_MIN_BLOCKS:
@@ -115,38 +122,61 @@ def dkv_chunks(bf16: bool, B: int, H: int, KV: int, Sk: int, D: int) -> int:
     return rep
 
 
-def _cost(q, k, causal, window, q_start, products: int) -> int:
-    """The flops of `products` (B, H, Sq, Sk) x D products over the
-    (query, key) pairs the mask keeps: PERF.md §6's bound rule."""
+def _cost(q, k, v, causal, window, q_start, at_d: int, at_dv: int) -> int:
+    """The flops of `at_d` (B, H, Sq, Sk) x D products and `at_dv` of them
+    at v's D_v, over the (query, key) pairs the mask keeps: PERF.md §6's
+    bound rule."""
     B, H, Sq, D = q.shape
     pairs = op_analysis.attention_pairs(Sq, k.shape[2], causal, window,
                                         q_start)
-    return products * 2 * B * H * D * pairs
+    return 2 * B * H * pairs * (at_d * D + at_dv * v.shape[3])
 
 
 def _bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _out_bytes(q, v) -> int:
+    """The bytes of o: q's rows at v's D_v, in q's dtype."""
+    return q.numel() // q.shape[3] * v.shape[3] * q.element_size()
+
+
+def _empty_as(like, D: int, dtype=None):
+    """An empty tensor of `like`'s shape with last dim D whose axes lie in
+    memory in `like`'s order: o (at D_v) and dq as the card's call lays
+    them out, q's layout."""
+    if like.shape[3] == D:
+        return torch.empty_like(like, dtype=dtype)
+    order = sorted(range(3), key=lambda i: -like.stride(i))
+    out = torch.empty([like.shape[i] for i in order] + [D],
+                      dtype=dtype or like.dtype, device=like.device)
+    return out.permute(*[order.index(i) for i in range(3)], 3)
+
+
 def _laid_out(x, like):
-    """x with `like`'s strides: the plain version's output laid out as the
-    card's call gives it (o and dq keep q's strides), so that the ops
+    """x in `like`'s layout: the plain version's output laid out as the
+    card's call gives it (o and dq keep q's layout), so that the ops
     after it are the card's on the CPU too."""
-    return torch.empty_like(like, dtype=x.dtype).copy_(x)
+    return _empty_as(like, x.shape[3], x.dtype).copy_(x)
 
 
 def _check(name, q, k, v, q_start=0):
     """Validate the forward's interface for a kernel launch; returns
-    (B, H, KV, Sq, D) (Sk is k's length)."""
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"{name}: want q (B, H, Sq, D) and k, v "
-                         f"(B, KV, Sk, D), got {tuple(q.shape)}, "
+    (B, H, KV, Sq, D) (Sk is k's length, D_v v's last dim)."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"{name}: want q (B, H, Sq, D), k (B, KV, Sk, D) "
+                         f"and v (B, KV, Sk, D_v), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, H, S, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     if (k.shape[0], k.shape[3]) != (B, D) or KV == 0 or H % KV:
         raise ValueError(f"{name}: k/v {tuple(k.shape)} do not fit q "
                          f"{tuple(q.shape)} (H % KV must be 0)")
+    if v.shape[3] != D and (D, v.shape[3]) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"{name}: head dims (D, D_v) = {(D, v.shape[3])} "
+                         f"have no instance: D_v == D, or a pair of "
+                         f"{HEAD_DIM_PAIRS}")
     _offset(name, q_start, S, Sk)
     if q.dtype not in (torch.float32, torch.bfloat16) \
             or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -210,8 +240,8 @@ def _window(name, causal, window) -> int:
 
 def _forward(name, q, k, v, causal, window, lse, q_start=0):
     B, H, KV, S, D = _check(name, q, k, v, q_start)
-    Sk = k.shape[2]
-    out = torch.empty_like(q)
+    Sk, Dv = k.shape[2], v.shape[3]
+    out = _empty_as(q, Dv)
     if out.stride(3) != 1:
         raise ValueError(f"{name}: the head dim must be dense in q")
     if q.dtype == torch.bfloat16:
@@ -220,7 +250,7 @@ def _forward(name, q, k, v, causal, window, lse, q_start=0):
         err = _build.load("flash_attention", "flash_attention_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            int(q.dtype == torch.bfloat16), B, H, KV, S, Sk, q_start, D,
+            int(q.dtype == torch.bfloat16), B, H, KV, S, Sk, q_start, D, Dv,
             int(causal), window, D ** -0.5, *_strides(q, k, v, out),
             _stream(q))
         _build.check(err, name)
@@ -231,9 +261,10 @@ def flash_attention(q, k, v, causal: bool = True, window=None,
                     q_start: int = 0):
     """Attention with an online fp32 softmax, over the keys of each
     query's `window` when one is given, q's rows at positions q_start..
-    against k, v's Sk keys; returns (B, H, Sq, D) in q's dtype. CPU
+    against k, v's Sk keys; returns (B, H, Sq, D_v) in q's dtype. CPU
     tensors take the plain version; CUDA tensors launch the kernel (fp32
-    or bf16, D in HEAD_DIMS) or raise."""
+    or bf16, D = D_v in HEAD_DIMS or (D, D_v) in HEAD_DIM_PAIRS) or
+    raise."""
     w = _window("flash_attention", causal, window)
     _offset("flash_attention", q_start, q.shape[2], k.shape[2])
     on = op_analysis.where("flash_attention", q, k, v)
@@ -245,7 +276,8 @@ def flash_attention(q, k, v, causal: bool = True, window=None,
         return out
     with op_analysis.kernel(
             ("flash_attention",) if q.shape[2] else (),
-            (_cost(q, k, causal, w, q_start, 2), _bytes(q, k, v, q)),
+            (_cost(q, k, v, causal, w, q_start, 1, 1),
+             _bytes(q, k, v) + _out_bytes(q, v)),
             launch, (q, k, v), on) as call:
         call.result = _laid_out(flash_attention_ref(
             q, k, v, causal, window, q_start), q) if on == "cpu" \
@@ -256,7 +288,7 @@ def flash_attention(q, k, v, causal: bool = True, window=None,
 def flash_fwd_lse(q, k, v, causal: bool = True, window=None,
                   q_start: int = 0):
     """`flash_attention` plus each row's logsumexp: returns (o in q's
-    dtype (B, H, Sq, D), lse dense fp32 (B, H, Sq)). CPU tensors take the
+    dtype (B, H, Sq, D_v), lse dense fp32 (B, H, Sq)). CPU tensors take the
     plain version; CUDA tensors launch the kernel or raise."""
     w = _window("flash_fwd_lse", causal, window)
     _offset("flash_fwd_lse", q_start, q.shape[2], k.shape[2])
@@ -271,8 +303,9 @@ def flash_fwd_lse(q, k, v, causal: bool = True, window=None,
         return out, lse
     with op_analysis.kernel(
             ("flash_fwd_lse",) if S else (),
-            (_cost(q, k, causal, w, q_start, 2),
-             _bytes(q, k, v, q) + 4 * B * H * S), launch, (q, k, v),
+            (_cost(q, k, v, causal, w, q_start, 1, 1),
+             _bytes(q, k, v) + _out_bytes(q, v) + 4 * B * H * S), launch,
+            (q, k, v),
             on) as call:
         if on == "cpu":
             o, lse = flash_fwd_lse_ref(q, k, v, causal, window, q_start)
@@ -283,24 +316,25 @@ def flash_fwd_lse(q, k, v, causal: bool = True, window=None,
 
 
 def _bwd_dkv(q, k, v, do, lse, delta, causal, window=0, q_start=0):
-    """dK and dV as dense fp32 partials (B, KV, chunks, Sk, D), chunk c
-    summing its share of each group's query heads (the first of the
-    backward's two kernels); the caller sums the chunks."""
+    """dK and dV as dense fp32 partials (B, KV, chunks, Sk, D) and (..,
+    D_v), chunk c summing its share of each group's query heads (the
+    first of the backward's two kernels); the caller sums the chunks."""
     B, H, S, D = q.shape
-    KV, Sk = k.shape[1], k.shape[2]
+    KV, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
     bf16 = int(q.dtype == torch.bfloat16)
     chunks = _build.load("flash_attention_bwd", "flash_bwd_dkv_chunks")(
-        bf16, B, H, KV, Sk, D) if q.is_cuda else dkv_chunks(bf16, B, H, KV,
-                                                            Sk, D)
+        bf16, B, H, KV, Sk, D, Dv) if q.is_cuda else dkv_chunks(
+            bf16, B, H, KV, Sk, D, Dv)
     dk = torch.empty((B, KV, chunks, Sk, D), dtype=torch.float32,
                      device=q.device)
-    dv = torch.empty_like(dk)
+    dv = torch.empty((B, KV, chunks, Sk, Dv), dtype=torch.float32,
+                     device=q.device)
     if not q.is_cuda:
         return dk, dv
     err = _build.load("flash_attention_bwd", "flash_bwd_dkv_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        bf16, B, H, KV, S, Sk, q_start, D, int(causal), window, chunks,
+        bf16, B, H, KV, S, Sk, q_start, D, Dv, int(causal), window, chunks,
         D ** -0.5, *_strides(q, k, v, do), _stream(q))
     _build.check(err, "flash_bwd_dkv")
     _bwd_dkv.launches += 1
@@ -323,7 +357,7 @@ def _bwd_dq(q, k, v, do, lse, delta, causal, window=0, q_start=0):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         int(q.dtype == torch.bfloat16), B, H, k.shape[1], S, k.shape[2],
-        q_start, D, int(causal), window, D ** -0.5,
+        q_start, D, v.shape[3], int(causal), window, D ** -0.5,
         *_strides(q, k, v, do, dq), _stream(q))
     _build.check(err, "flash_bwd_dq")
     _bwd_dq.launches += 1
@@ -333,7 +367,7 @@ def _bwd_dq(q, k, v, do, lse, delta, causal, window=0, q_start=0):
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
                         window=None, q_start: int = 0):
     """The flash backward: (dq, dk, dv) in the dtypes of q, k and v, from
-    the forward's o and lse and the output gradient do (B, H, Sq, D).
+    the forward's o and lse and the output gradient do (B, H, Sq, D_v).
     delta = rowsum(do * o) in fp32 is a torch op, as JAX computes it
     outside its kernels; dK/dV are the first kernel's fp32 partials
     summed over the chunks in order (deterministic, no float atomics).
@@ -356,7 +390,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
         return dq, dk.sum(dim=2).to(k.dtype), dv.sum(dim=2).to(v.dtype)
     with op_analysis.kernel(
             ("flash_bwd_dkv", "flash_bwd_dq") if S else (),
-            (_cost(q, k, causal, w, q_start, 5),
+            (_cost(q, k, v, causal, w, q_start, 3, 2),
              _bytes(q, k, v, o, lse, do) + _bytes(q, k, v)), launch,
             (q, k, v, o, lse, do), on) as call:
         if on == "cpu":
@@ -372,9 +406,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
 def _check_bwd(q, k, v, o, lse, do, q_start) -> None:
     """Validate the backward's interface for a kernel launch."""
     B, H, KV, S, D = _check("flash_attention_bwd", q, k, v, q_start)
-    if o.shape != q.shape or do.shape != q.shape or do.dtype != q.dtype:
-        raise ValueError(f"flash_attention_bwd: o and do must be q's shape "
-                         f"{tuple(q.shape)} and do q's dtype, got "
+    want = (B, H, S, v.shape[3])
+    if o.shape != want or do.shape != want or do.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd: o and do must be (B, H, Sq, "
+                         f"D_v) = {want} and do q's dtype, got "
                          f"{tuple(o.shape)}, {tuple(do.shape)} {do.dtype}")
     if do.stride(3) != 1:
         raise ValueError("flash_attention_bwd: the head dim must be dense "
@@ -410,7 +445,7 @@ def flash_attention_trainable(q, k, v, causal: bool = True, window=None,
                               q_start: int = 0):
     """Differentiable flash attention: `flash_fwd_lse` forward,
     `flash_attention_bwd` backward (both kernels on the card, both plain
-    versions on the CPU). Returns o (B, H, Sq, D) in q's dtype."""
+    versions on the CPU). Returns o (B, H, Sq, D_v) in q's dtype."""
     _window("flash_attention_trainable", causal, window)
     _offset("flash_attention_trainable", q_start, q.shape[2], k.shape[2])
     return _FlashAttention.apply(q, k, v, causal, window, q_start)

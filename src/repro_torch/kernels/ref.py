@@ -94,18 +94,18 @@ def spike_matmul_ref(counts, weights, max_elems: int = 1 << 24):
 
 def flash_attention_ref(q, k, v, causal: bool = True, window=None,
                         q_start: int = 0):
-    """Attention with an fp32 softmax. q (B, H, Sq, D); k, v (B, KV, Sk,
-    D) with H % KV == 0, query head h reading KV head h // (H // KV) (the
-    grouping of `repro.models.attention._sdpa`; KV == H is the TPU
-    kernel's contract). q is scaled by D**-0.5 before q.k^T and masked
-    scores are -1e30; query row i sits at position q_start + i (q_start +
-    Sq <= Sk) and, when causal, sees keys j <= q_start + i, with a
-    `window` also j > q_start + i - window: `_sdpa(q_start=..., kv_len=Sk)`'s
-    mask. Returns (B, H, Sq, D) in q's dtype."""
-    B, H, S, D = q.shape
+    """Attention with an fp32 softmax. q (B, H, Sq, D); k (B, KV, Sk, D)
+    and v (B, KV, Sk, D_v) with H % KV == 0, query head h reading KV head
+    h // (H // KV) (the grouping of `repro.models.attention._sdpa`; KV ==
+    H is the TPU kernel's contract). q is scaled by D**-0.5 before q.k^T
+    and masked scores are -1e30; query row i sits at position q_start + i
+    (q_start + Sq <= Sk) and, when causal, sees keys j <= q_start + i,
+    with a `window` also j > q_start + i - window: `_sdpa(q_start=...,
+    kv_len=Sk)`'s mask. Returns (B, H, Sq, D_v) in q's dtype."""
+    B, H, S = q.shape[:3]
     p = torch.softmax(_scores(q, k, causal, window, q_start), dim=-1)
     o = torch.einsum("bgrqk,bgkd->bgrqd", p, v.float())
-    return o.reshape(B, H, S, D).to(q.dtype)
+    return o.reshape(B, H, S, v.shape[3]).to(q.dtype)
 
 
 def _scores(q, k, causal: bool, window=None, q_start: int = 0):
@@ -129,18 +129,19 @@ def _scores(q, k, causal: bool, window=None, q_start: int = 0):
 def flash_fwd_lse_ref(q, k, v, causal: bool = True, window=None,
                       q_start: int = 0):
     """`flash_attention_ref` plus each row's logsumexp: returns (o in q's
-    dtype (B, H, Sq, D), lse fp32 (B, H, Sq)), lse = m + log(max(l,
+    dtype (B, H, Sq, D_v), lse fp32 (B, H, Sq)), lse = m + log(max(l,
     1e-30)) with m the row's max scaled score and l its sum of exp(s -
     m), as the TPU kernel's `_kernel_lse` finishes (JAX keeps lse as
     (B*H, S))."""
-    B, H, S, D = q.shape
+    B, H, S = q.shape[:3]
     s = _scores(q, k, causal, window, q_start)
     m = s.amax(dim=-1)
     l = torch.exp(s - m[..., None]).sum(dim=-1)
     lse = m + torch.log(l.clamp(min=1e-30))
     o = torch.einsum("bgrqk,bgkd->bgrqd", torch.softmax(s, dim=-1),
                      v.float())
-    return o.reshape(B, H, S, D).to(q.dtype), lse.reshape(B, H, S)
+    return (o.reshape(B, H, S, v.shape[3]).to(q.dtype),
+            lse.reshape(B, H, S))
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
@@ -148,17 +149,18 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
     """The flash backward by its explicit formula (not autograd): p from
     the lse rows, delta = rowsum(dO * O), ds = p * (dO V^T - delta),
     dV = p^T dO, dK = ds^T q_hat with q_hat = q * D**-0.5, dQ = D**-0.5 *
-    ds K, all in fp32. q, o, do (B, H, Sq, D); k, v (B, KV, Sk, D); lse
-    (B, H, Sq); the rows at positions q_start.. as `flash_attention_ref`.
+    ds K, all in fp32. q (B, H, Sq, D); o, do (B, H, Sq, D_v); k (B, KV,
+    Sk, D); v (B, KV, Sk, D_v); lse (B, H, Sq); the rows at positions
+    q_start.. as `flash_attention_ref`.
     dK and dV sum each KV head's H // KV query heads (zeros for keys no
     query sees). Returns (dq, dk, dv) in the dtypes of q, k and v."""
     B, H, S, D = q.shape
-    KV = k.shape[1]
+    KV, Dv = k.shape[1], v.shape[3]
     shape = (B, KV, H // KV, S)
     s = _scores(q, k, causal, window, q_start)
     p = torch.exp(s - lse.reshape(shape)[..., None])
-    dof = do.reshape(shape + (D,)).float()
-    delta = (dof * o.reshape(shape + (D,)).float()).sum(dim=-1)
+    dof = do.reshape(shape + (Dv,)).float()
+    delta = (dof * o.reshape(shape + (Dv,)).float()).sum(dim=-1)
     dv = torch.einsum("bgrqk,bgrqd->bgkd", p, dof)
     dp = torch.einsum("bgrqd,bgkd->bgrqk", dof, v.float())
     ds = p * (dp - delta[..., None])

@@ -24,11 +24,13 @@ returns the last min(window, S) rows of K/V, in order, as JAX does.
 
 MLA (`mla_apply`) keeps JAX's two forms. Over a sequence (training,
 prefill) the naive form decompresses K and V from the latent c_kv,
-concatenates k_nope with k_rope broadcast over the heads, pads V with
-zeros to the query/key head dim (128 + 64 = 192 at DeepSeek-V2's
-widths, JAX's `_pad_last`) and runs the same flash kernels at that head
-dim with KV == H, then slices the output back to v_head_dim; the
-prefill's cache is the compressed {c_kv, k_rope}. Decode runs the
+concatenates k_nope with k_rope broadcast over the heads and runs the
+same flash kernels with KV == H at the head-dim pair (nope + rope,
+v_head_dim) = (192, 128) at DeepSeek-V2's widths: V and the output stay
+v_head_dim wide, where JAX pads V with zeros to 192 (`_pad_last`) and
+slices the output back (the zeros add nothing: the two differ only in
+the order of the sums); the prefill's cache is the compressed {c_kv,
+k_rope}. Decode runs the
 absorbed form on that cache in torch ops, as JAX computes it in XLA:
 q_nope through w_uk into the latent space, fp32 scores against c_kv and
 k_rope, the output back through w_uv. Its new row is written in place
@@ -66,7 +68,7 @@ compressions `w_dq`, `w_dkv` and the norms stay whole (an FSDP config's
 d over 'data'). Every rank compresses x whole; cq, c_kv and k_rope then
 enter through Megatron's f (`Mesh.copy_to`), so every whole leaf's
 gradient comes whole. Over a sequence each rank runs kernels 4-6 on its
-heads at D = 192 (V padded as above), `w_o` through g. The prefill's
+heads at (192, 128) as above, `w_o` through g. The prefill's
 compressed cache is every row's (B, T, .), its T over 'model' when T >=
 4,096 and T % tp == 0 (JAX's `cache_specs`). The absorbed decode over
 such a cache gathers q_lat and q_rope over the heads, takes each rank's
@@ -78,7 +80,6 @@ one-device one.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.distributed.context import get_mesh
@@ -351,11 +352,11 @@ def _sharded_decode_attend(q, k, v, r0: int, cache_pos: int, mesh):
 
 
 def _flash(q, k, v, window=None, q_start=0):
-    """Causal attention of a whole sequence, q (B, S, H, hd) and k, v
-    (B, Sk, KV, hd), q's rows at positions q_start.., on the flash
-    kernels: the trainable one (forward with lse, the backward kernels)
-    when grad is on and an input requires it, the forward alone
-    otherwise. Returns (B, S, H, hd)."""
+    """Causal attention of a whole sequence, q (B, S, H, hd), k (B, Sk,
+    KV, hd) and v (B, Sk, KV, hd_v), q's rows at positions q_start.., on
+    the flash kernels: the trainable one (forward with lse, the backward
+    kernels) when grad is on and an input requires it, the forward alone
+    otherwise. Returns (B, S, H, hd_v)."""
     qkv = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     train = torch.is_grad_enabled() and any(t.requires_grad for t in qkv)
     fn = flash_attention_trainable if train else flash_attention
@@ -415,8 +416,8 @@ def mla_apply(p, x, cfg, positions, cache=None, cache_pos=None,
     token (S == 1) at cache_pos — writes the token's row in place (at
     cache_pos clamped into the cache) and attends in the absorbed form
     over the rows up to cache_pos; kv is the cache. Otherwise the naive
-    form runs the flash kernels at head dim nope + rope over K and V
-    decompressed, V zero-padded to that dim, and kv is the sequence's
+    form runs the flash kernels at the head-dim pair (nope + rope,
+    v_head_dim) over K and V decompressed, and kv is the sequence's
     {c_kv, k_rope}, the prefill's cache. Under the model axis (`w_uq`,
     `w_uk`, `w_uv` and `w_o` held as the rank's H/tp heads): the module
     docstring; `cache_len` is a decode cache's whole length."""
@@ -465,9 +466,7 @@ def mla_apply(p, x, cfg, positions, cache=None, cache_pos=None,
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, S, k_nope.shape[2], m.qk_rope_head_dim)], dim=-1)
     qq = torch.cat([q_nope, q_rope], dim=-1)
-    if v.shape[-1] != qq.shape[-1]:
-        v = F.pad(v, (0, qq.shape[-1] - v.shape[-1]))
-    out = _flash(qq, k, v)[..., :m.v_head_dim]
+    out = _flash(qq, k, v)
     y = out.flatten(2) @ p.w_o.flatten(0, 1)
     if tp > 1:              # the cache's T rows the rank's when cut
         kv = {n: _seq_rows(t.detach(), tp, r) for n, t in kv.items()}
